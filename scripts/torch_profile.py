@@ -1,0 +1,125 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's time goes on one GPU: ``python3 scripts/torch_profile.py``.
+
+Fits the main-path index (hnsw + bsq8, the headline parameters) on
+bench.py's synthetic SIFT1M stand-in (1M x 128, seed 42, 500 clusters),
+then traces with ``torch.profiler``:
+  - one batch_search of 8192 queries at ef = 64,
+  - one build-pool chunk: block_beam_search of 4096 rows at ef = 128,
+    12 hops, seeded like the build's pools (scan seeds, the entry point,
+    16 random nodes; the scan uses the search's sample),
+  - one occlusion-prune chunk: 4096 rows x 160 candidates, alpha 1.2.
+For each window it prints the wall time, the summed device-kernel time and
+its share of the wall (the rest is the device idle, waiting on the host),
+and the kernels with the most device time. Writes the tables to
+build/torch_profile.json. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N, DIM, NQ, K = 1_000_000, 128, 8192, 10
+
+
+def trace(torch, name, fn, top=12) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()                                                   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        # device-side kernel events only: the aten ops that launched them
+        # report the same time again
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = ev.self_device_time_total
+        if dev_us > 0:
+            rows.append((ev.key, dev_us / 1e3, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    dev_ms = sum(r[1] for r in rows)
+    print(f"[{name}] wall {wall_ms:.3f} ms, device kernels {dev_ms:.3f} ms "
+          f"({100 * dev_ms / wall_ms:.1f}% busy)", flush=True)
+    for key, ms, count in rows[:top]:
+        print(f"  {ms:9.3f} ms {100 * ms / max(dev_ms, 1e-9):5.1f}% "
+              f"x{count:<6d} {key[:90]}", flush=True)
+    return {"wall_ms": wall_ms, "device_ms": dev_ms,
+            "kernels": [{"name": k, "ms": m, "count": c}
+                        for k, m, c in rows[:top]]}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_profile: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from alayalite_tpu_torch import Index, IndexParams
+    from alayalite_tpu_torch.index.build_phases import make_generator
+    from alayalite_tpu_torch.index.prune import occlusion_prune_chunk
+    from alayalite_tpu_torch.index.search import (block_beam_search,
+                                                  scan_seeds)
+    from alayalite_tpu_torch.utils.datasets import random_dataset
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(f"card: {card}", flush=True)
+    ds = random_dataset(n=N, dim=DIM, n_queries=NQ, seed=42,
+                        clusters=max(32, N // 2000))
+    idx = Index("prof", IndexParams(
+        index_type="hnsw", quantization_type="bsq8", max_nbrs=32,
+        ef_construction=200, prune_alpha=1.2, seed_sample=16384,
+        beam_expand=8, capacity=N))
+    idx.fit(ds.data)
+    eng = idx._engine
+    out = {"card": card, "fit_phases": eng.build_timings}
+
+    q = torch.as_tensor(ds.queries, device=eng.device)
+    out["search_ef64"] = trace(
+        torch, "search ef=64", lambda: eng._batch_search_impl(q, K, 64))
+
+    bq, raw = eng.search_space, eng.space
+    rows = bq.data[:4096]
+    gen = make_generator(eng.device, 0)
+    sample = eng._seed_scan_arrays()
+
+    def pool_chunk():
+        seeds = torch.cat([scan_seeds(rows, *sample),
+                           eng.graph.eps[None, :1].expand(4096, -1),
+                           torch.randint(0, N, (4096, 16), generator=gen,
+                                         device=eng.device,
+                                         dtype=torch.int32)], 1)
+        return block_beam_search(bq, seeds, rows, k=128, ef=128,
+                                 n_expand=8, max_iters=12)
+
+    out["pool_chunk"] = trace(torch, "build pool chunk", pool_chunk)
+    cand_d, cand_i = pool_chunk()
+    cand_i = torch.cat([cand_i, eng.graph.nbrs[:4096]], 1)
+    cand_d = torch.cat([cand_d, raw.gather_dists(
+        rows, eng.graph.nbrs[:4096].clamp(min=0))], 1)
+    out["prune_chunk"] = trace(
+        torch, "prune chunk",
+        lambda: occlusion_prune_chunk(raw, cand_d, cand_i, r=32, alpha=1.2))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", "torch_profile.json"),
+              "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
