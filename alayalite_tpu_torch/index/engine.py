@@ -1,17 +1,20 @@
 """IndexEngine (port of part of ``index/engine.py``).
 
-Ported: ``fit`` for block quantization (bsq8, built by ``QGBuilder``), the
-block branch of batch search, the per-query seed-scan sample, and
-save/load in the JAX package's on-disk layout (``schema.json`` + npz
-files), so either package loads the other's index directories.
+Ported: block quantization (bsq8: ``fit`` built by ``QGBuilder``, the
+block branch of batch search, the per-query seed-scan sample) and the flat
+index (``index_type="flat"`` with quantization none or sq8: exact and fast
+scans, insert, tombstone remove), and save/load in the JAX package's
+on-disk layout (``schema.json`` + npz files), so either package loads the
+other's index directories.
 
-Not ported yet, each raising ``NotImplementedError``: other index types and
-quantizations (ROADMAP queue 1, items 8-10), insert/remove/compact/
-update_nodes (item 7), sharding (item 12).
+Not ported yet, each raising ``NotImplementedError``: raw and sq graph
+indices (ROADMAP queue 1, items 8-9), other quantizations (item 9),
+insert/remove/compact/update_nodes on block indices (item 7), sharding
+(item 12).
 
-Queries are searched in slices of ``qchunk`` rows (4096; 1024 at dim ≥ 512)
-without padding the batch: the JAX package pads to fixed buckets only so
-XLA does not recompile on new shapes.
+Queries are searched in slices of ``qchunk`` rows (4096; 1024 at dim ≥ 512
+on the block path) without padding the batch: the JAX package pads to
+fixed buckets only so XLA does not recompile on new shapes.
 """
 
 from __future__ import annotations
@@ -25,21 +28,28 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device, synchronize
-from ..params import IndexParams, QuantizationType
+from ..ops.distance import exact_topk, flat_search_device
+from ..params import IndexParams, IndexType, QuantizationType
 from ..spaces.bqg import BQGSpace
 from ..spaces.raw import RawSpace
+from ..spaces.sq import SQSpace
 from .graph import Graph
 
 log = logging.getLogger("alayalite_tpu_torch")
 
+_FLAT_QUANT = (QuantizationType.NONE, QuantizationType.SQ8)
+
 
 def check_supported(params: IndexParams) -> None:
-    """Raise for the parts of IndexParams this slice does not port."""
-    if params.quantization_type is not QuantizationType.BSQ8:
+    """Raise for the parts of IndexParams the port does not cover yet."""
+    qt = params.quantization_type
+    flat = params.index_type is IndexType.FLAT
+    if qt is not QuantizationType.BSQ8 and not (flat and qt in _FLAT_QUANT):
         raise NotImplementedError(
-            f"quantization_type={params.quantization_type.value!r} is not "
-            "ported yet: the port covers bsq8 (ROADMAP queue 1, items 8-10 "
-            "hold raw graphs, sq/rabitq and flat)")
+            f"index_type={params.index_type.value!r} with quantization_type="
+            f"{qt.value!r} is not ported yet: the port covers bsq8 and flat "
+            "indices with none or sq8 (ROADMAP queue 1, items 8-9 hold raw "
+            "and sq graphs, sq4 and rabitq)")
     if max(params.db_shards, params.build_shards, params.serve_shards) > 1:
         raise NotImplementedError(
             "sharded indices are not ported yet (ROADMAP queue 1, item 12)")
@@ -50,15 +60,17 @@ def check_supported(params: IndexParams) -> None:
 
 
 class IndexEngine:
-    """Host wrapper over device state (raw space, block space, graph)."""
+    """Host wrapper over device state (raw space, quantized space, graph)."""
 
     def __init__(self, params: IndexParams, device: DeviceLike = None):
         check_supported(params)
         self.params = params
         self.device = resolve_device(device)
-        self.space: Optional[RawSpace] = None          # build / rerank space
-        self.search_space: Optional[BQGSpace] = None   # block space
-        self.graph: Optional[Graph] = None
+        self.space: Optional[RawSpace] = None   # build / rerank / flat scan
+        # the block space (bsq8), the SQSpace of a flat + sq8 index, or the
+        # raw space itself
+        self.search_space = None
+        self.graph: Optional[Graph] = None     # None for a flat index
         self.build_timings: dict = {}
         self._fitted = False
         self._sscan = None
@@ -80,18 +92,29 @@ class IndexEngine:
             self.params.ef_construction = int(ef_construction)
         t0 = time.time()
         p = self.params
-        self.space = RawSpace.create(capacity, dim, metric=p.metric.value,
+        metric = p.metric.value
+        self.space = RawSpace.create(capacity, dim, metric=metric,
                                      device=self.device).fit(v)
-        bqg = BQGSpace.create(capacity, dim, metric=p.metric.value,
-                              degree=p.max_nbrs, device=self.device).fit(v)
-        del v
-        from .qg import QGBuilder
-
-        builder = QGBuilder(r=p.max_nbrs, ef=max(p.ef_construction, 128),
-                            alpha=float(p.prune_alpha))
-        self.graph, self.search_space = builder.build_graph(self.space, bqg, n)
-        self.build_timings = dict(builder.timings)
         self._sscan = None
+        if p.quantization_type is QuantizationType.BSQ8:
+            bqg = BQGSpace.create(capacity, dim, metric=metric,
+                                  degree=p.max_nbrs, device=self.device).fit(v)
+            del v
+            from .qg import QGBuilder
+
+            builder = QGBuilder(r=p.max_nbrs, ef=max(p.ef_construction, 128),
+                                alpha=float(p.prune_alpha))
+            self.graph, self.search_space = builder.build_graph(self.space,
+                                                                bqg, n)
+            self.build_timings = dict(builder.timings)
+        else:
+            # flat: no graph; an sq8 index also builds and saves the codes,
+            # but searches the raw rows, as the JAX package does
+            self.graph = None
+            self.search_space = (SQSpace.create(capacity, dim, metric=metric,
+                                                device=self.device).fit(v)
+                                 if p.quantization_type is
+                                 QuantizationType.SQ8 else self.space)
         self._fitted = True
         synchronize(self.device)
         log.info("fit: n=%d dim=%d in %.2fs", n, dim, time.time() - t0)
@@ -127,6 +150,8 @@ class IndexEngine:
             q = torch.as_tensor(np.asarray(queries, dtype=np.float32),
                                 device=self.device)
         q = torch.atleast_2d(q)
+        if self.params.index_type is IndexType.FLAT:
+            return self._flat_search(q, topk)
         qchunk = 1024 if self.space.dim >= 512 else 4096
         ef = max(int(ef), int(topk))
         seed_arrays = self._seed_scan_arrays()
@@ -159,6 +184,32 @@ class IndexEngine:
     def search(self, query, topk: int, ef: int = 100) -> np.ndarray:
         return self.batch_search(np.atleast_2d(query), topk, ef)[0]
 
+    def search_with_distance(self, query, topk: int, ef: int = 100):
+        ids, d = self.batch_search_with_distance(np.atleast_2d(query), topk,
+                                                 ef)
+        return ids[0], d[0]
+
+    def _flat_search(self, q: torch.Tensor, topk: int):
+        """Brute-force scan of the live raw rows (a flat + sq8 index scans
+        them too, as the JAX package does). Exact mode: one f32 pass
+        through ``l2_tile`` (or the f32 product for ip/cos). Fast mode: bf16
+        coarse scan keeping max(32, 4·topk) candidates, then an f32 rerank.
+        The JAX package caches a padded copy of the slab for its fast mode
+        (it pads to fixed shapes for XLA); the port scans the rows in place
+        and reads the space's own norms, so there is nothing to cache."""
+        sp = self.space
+        n = sp.num
+        qp = sp.prep_query(q)
+        if self.params.flat_mode == "fast":
+            d, i = flat_search_device(
+                qp, sp.data[:n], sp.sq_norms[:n], sp.valid[:n], k=topk,
+                metric=sp.metric, tile_n=min(65536, max(n, 1)),
+                rerank=max(32, 4 * topk))
+        else:
+            d, i = exact_topk(qp, sp.data[:n], topk, metric=sp.metric,
+                              valid=sp.valid[:n])
+        return i, d
+
     def _seed_scan_arrays(self):
         """Cached (ids, vecs bf16, sq_norms) sample for the per-query seed
         scan: the same ids as the JAX package (numpy rng 0x5EED over the
@@ -185,18 +236,54 @@ class IndexEngine:
             self._sscan_version = version
         return self._sscan
 
-    # ------------------------------------------------------- not ported yet
-    def insert(self, vectors, ef: int = 100):
-        raise NotImplementedError(
-            "insert is not ported yet (ROADMAP queue 1, item 7)")
+    # --------------------------------------------------------------- update
+    def _require_flat(self, op: str) -> None:
+        if self.params.quantization_type.is_block:
+            raise NotImplementedError(
+                f"{op} on a block index is not ported yet (ROADMAP queue 1, "
+                "item 7)")
+
+    def insert(self, vectors, ef: int = 100) -> np.ndarray:
+        """Append rows to a flat index (both spaces). Returns the new ids,
+        −1 where capacity was exhausted (``Index.insert`` raises)."""
+        del ef
+        self._require_flat("insert")
+        self._require_fitted()
+        v = torch.atleast_2d(torch.as_tensor(
+            np.asarray(vectors, dtype=np.float32), device=self.device))
+        ids = self.space.insert(v)
+        if self.search_space is not self.space:
+            self.search_space.insert(v)
+        return ids.cpu().numpy().astype(self._id_dtype, copy=False)
 
     def remove(self, ids) -> None:
-        raise NotImplementedError(
-            "remove is not ported yet (ROADMAP queue 1, item 7)")
+        """Tombstone ``ids`` in both spaces of a flat index; searches skip
+        them. Raises on ids out of [0, capacity): the spaces clip ids, so an
+        out-of-range id would remove whatever lives at the clip target."""
+        self._require_flat("remove")
+        self._require_fitted()
+        raw = np.atleast_1d(np.asarray(ids))
+        if raw.size and (raw.min() < 0 or raw.max() >= self.space.capacity):
+            raise ValueError(
+                f"remove: id out of range [0, {self.space.capacity}) "
+                f"(got min={raw.min()}, max={raw.max()})")
+        arr = torch.as_tensor(raw.astype(np.int32), device=self.device)
+        self.space.remove(arr)
+        if self.search_space is not self.space:
+            self.search_space.remove(arr)
 
     def get_data_by_id(self, id_: int) -> np.ndarray:
         self._require_fitted()
         return self.space.data[int(id_)].float().cpu().numpy()
+
+    @property
+    def num(self) -> int:
+        return self.space.num if self.space is not None else 0
+
+    @property
+    def capacity(self) -> int:
+        return (self.space.capacity if self.space is not None
+                else self.params.capacity)
 
     # ---------------------------------------------------------- persistence
     def save(self, directory: Union[str, os.PathLike]) -> None:
@@ -208,15 +295,19 @@ class IndexEngine:
             f.write(p.to_json())
         np.savez(os.path.join(directory, p.data_filename() + ".npz"),
                  **self.space.save_arrays())
-        np.savez(os.path.join(directory, p.index_filename() + ".npz"),
-                 **self.graph.save_arrays())
-        np.savez(os.path.join(directory, p.quant_filename() + ".npz"),
-                 **self.search_space.save_arrays())
+        if self.graph is not None:
+            np.savez(os.path.join(directory, p.index_filename() + ".npz"),
+                     **self.graph.save_arrays())
+        qf = p.quant_filename()
+        if qf is not None and self.search_space is not self.space:
+            np.savez(os.path.join(directory, qf + ".npz"),
+                     **self.search_space.save_arrays())
 
     @classmethod
     def load(cls, directory: Union[str, os.PathLike],
              device: DeviceLike = None) -> "IndexEngine":
-        """Load an index directory written by either package."""
+        """Load an index directory written by either package; the graph and
+        quantized-space files are read where they exist."""
         from ..convert import from_jax_arrays
 
         with open(os.path.join(directory, "schema.json")) as f:
@@ -224,8 +315,12 @@ class IndexEngine:
         params = IndexParams.from_json(params_json)
 
         def arrays(name):
-            with np.load(os.path.join(directory, name + ".npz"),
-                         allow_pickle=False) as z:
+            if name is None:
+                return None
+            path = os.path.join(directory, name + ".npz")
+            if not os.path.exists(path):
+                return None
+            with np.load(path, allow_pickle=False) as z:
                 return dict(z.items())
 
         check_supported(params)

@@ -1,6 +1,7 @@
 """User-facing Index (port of the thin part of ``index_api.py``): the same
-validation and save/load directory contract as the JAX package, over the
-PyTorch ``IndexEngine``. Insert and remove wait in ROADMAP queue 1, item 7.
+validation, capacity error and save/load directory contract as the JAX
+package, over the PyTorch ``IndexEngine``. Insert and remove on block
+indices wait in ROADMAP queue 1, item 7.
 """
 
 from __future__ import annotations
@@ -62,10 +63,22 @@ class Index:
         self._dim = int(v.shape[1])
 
     def insert(self, vectors, ef: int = 100):
-        return self._engine.insert(vectors, ef=ef)
+        """Insert vector(s); raises RuntimeError at capacity. Returns the id
+        (int) for a single vector, an int array for a batch."""
+        v = np.asarray(vectors, dtype=np.float32)
+        single = v.ndim == 1
+        v = np.atleast_2d(v)
+        _assert(self._dim is None or v.shape[1] == self._dim,
+                "Vector dimension must match the index dimension.")
+        ids = self._engine.insert(v, ef=ef)
+        if (ids < 0).any():
+            raise RuntimeError(
+                "Insertion failed: The index is full. "
+                f"(capacity={self._engine.capacity})")
+        return int(ids[0]) if single else ids
 
     def remove(self, vector_id) -> None:
-        self._engine.remove(vector_id)
+        self._engine.remove(np.asarray(vector_id, dtype=np.int32))
 
     # ---- search ----
     def search(self, query, topk: int, ef_search: int = 100) -> np.ndarray:
@@ -75,6 +88,16 @@ class Index:
                 "Vector dimension must match the index dimension.")
         _assert(ef_search >= topk, "ef_search must be >= topk")
         return self._engine.search(q, topk, ef=ef_search)
+
+    def search_with_distance(self, query, topk: int, ef_search: int = 100
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+        """``search`` with the distances: (ids [topk], dists [topk])."""
+        q = np.asarray(query, dtype=np.float32)
+        _assert(q.ndim == 1, "query must be 1-D")
+        _assert(self._dim is None or q.shape[0] == self._dim,
+                "Vector dimension must match the index dimension.")
+        _assert(ef_search >= topk, "ef_search must be >= topk")
+        return self._engine.search_with_distance(q, topk, ef=ef_search)
 
     @staticmethod
     def _as_query_batch(queries):

@@ -95,3 +95,24 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def entry(name: str, symbol: str, argtypes: list):
+    """The C function ``symbol`` of ``csrc/<name>.cu``, typed; every entry
+    point takes the CUDA stream last and returns a CUDA error code."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(fn, device, *args) -> None:
+    """Call a kernel entry point on ``device``'s current stream; raise with
+    the CUDA error if the launch was refused."""
+    import torch
+
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
+                           f"{err}")

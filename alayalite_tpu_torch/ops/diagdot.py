@@ -62,18 +62,18 @@ def _check(codes: torch.Tensor, qs: torch.Tensor) -> None:
 
 def _kernel():
     """The C entry point of csrc/diagdot.cu (built and loaded on first use)."""
-    from ._build import load
+    from ._build import entry
 
-    fn = load("diagdot").alaya_block_diagdot
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return entry("diagdot", "alaya_block_diagdot",
+                 [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                  ctypes.c_int])
 
 
 def block_diagdot(codes: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     """dot[b, k] = sum_d (codes[b,k,d] - 128) * qs[b,d], f32 [B, K]."""
+    from ._build import launch
+
     _check(codes, qs)
     block_diagdot.calls += 1
     if codes.device.type == "cpu":
@@ -81,14 +81,8 @@ def block_diagdot(codes: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     B, K, Dp = codes.shape
     out = torch.empty((B, K), dtype=torch.float32, device=codes.device)
     vec = int(Dp % 16 == 0 and codes.data_ptr() % 16 == 0)
-    fn = _kernel()
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream(codes.device).cuda_stream
-        err = fn(codes.data_ptr(), qs.data_ptr(), out.data_ptr(), B, K, Dp,
-                 vec, stream)
-    if err != 0:
-        raise RuntimeError(f"block_diagdot kernel launch failed: CUDA error "
-                           f"{err}")
+    launch(_kernel(), codes.device, codes.data_ptr(), qs.data_ptr(),
+           out.data_ptr(), B, K, Dp, vec)
     block_diagdot.launches += 1
     return out
 

@@ -23,6 +23,19 @@ def topk_smallest(d: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def select_smallest(d: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """``topk_smallest`` for wide rows, without a full sort: the ``k``
+    entries ``torch.topk`` selects, ascending, lower index first among
+    ties. Where several entries tie at the k-th place, which of them are
+    kept is ``torch.topk``'s choice (``lax.top_k`` keeps the lower
+    indices)."""
+    vals, idx = torch.topk(d, k, dim=-1, largest=False, sorted=False)
+    idx, order = torch.sort(idx, dim=-1)
+    vals, order2 = torch.sort(torch.gather(vals, -1, order), dim=-1,
+                              stable=True)
+    return vals, torch.gather(idx, -1, order2)
+
+
 def _sorted_payload(d1, p1, d2, p2, k: int):
     cat_d = torch.cat([d1, d2], dim=-1)
     pay = torch.cat([p1, p2], dim=-1)

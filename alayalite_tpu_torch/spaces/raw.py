@@ -2,10 +2,8 @@
 
 A plain dataclass of tensors on one device: ``data[capacity, dim]`` with a
 ``valid`` mask and a ``num`` bump counter. COS is stored normalized and
-computed as IP, like the JAX package. ``fit`` writes in place.
-
-Only the fit/search/save/load surface of the slice is ported; insert and
-remove wait in ROADMAP queue 1 (items 6-7).
+computed as IP, like the JAX package. ``fit``, ``insert`` and ``remove``
+update the tensors in place (the JAX package returns a new pytree).
 """
 
 from __future__ import annotations
@@ -16,6 +14,24 @@ import numpy as np
 import torch
 
 from ..ops.distance import normalize_rows, sqnorms
+
+
+def bump_slots(num: int, b: int, capacity: int, device: torch.device):
+    """Slots for ``b`` rows appended at the bump pointer ``num``: (ids i32
+    [b], −1 past capacity; how many fit)."""
+    take = max(0, min(b, capacity - num))
+    ids = torch.full((b,), -1, dtype=torch.int32, device=device)
+    ids[:take] = torch.arange(num, num + take, dtype=torch.int32,
+                              device=device)
+    return ids, take
+
+
+def tombstone(valid: torch.Tensor, ids) -> None:
+    """Clear ``valid`` at ``ids`` in place: ids past the end are clipped to
+    the last slot, negative ids (−1) are ignored."""
+    ids = torch.as_tensor(ids, dtype=torch.int64,
+                          device=valid.device).reshape(-1)
+    valid[ids[ids >= 0].clamp(max=valid.shape[0] - 1)] = False
 
 
 @dataclasses.dataclass
@@ -78,6 +94,27 @@ class RawSpace:
         self.valid[:n] = True
         self.num = n
         return self
+
+    def insert(self, vectors) -> torch.Tensor:
+        """Append a batch at the bump pointer, in place. Returns the new ids
+        (i32 [b]); slots past capacity get −1 and leave the stored rows as
+        they were."""
+        v = torch.atleast_2d(torch.as_tensor(vectors, dtype=torch.float32,
+                                             device=self.device))
+        if self.user_metric == "cos":
+            v = normalize_rows(v)
+        start, b = self.num, v.shape[0]
+        ids, take = bump_slots(start, b, self.capacity, self.device)
+        if take:
+            self.data[start:start + take] = v[:take].to(self.data.dtype)
+            self.sq_norms[start:start + take] = sqnorms(v[:take])
+            self.valid[start:start + take] = True
+        self.num = min(start + b, self.capacity)
+        return ids
+
+    def remove(self, ids) -> None:
+        """Tombstone ``ids`` in place (see ``tombstone``)."""
+        tombstone(self.valid, ids)
 
     def gather_dists(self, q: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         """Distances from per-query vectors q [B, D] to gathered node ids

@@ -8,7 +8,13 @@ then traces with ``torch.profiler``:
   - one build-pool chunk: block_beam_search of 4096 rows at ef = 128,
     12 hops, seeded like the build's pools (scan seeds, the entry point,
     16 random nodes; the scan uses the search's sample),
-  - one occlusion-prune chunk: 4096 rows x 160 candidates, alpha 1.2.
+  - one occlusion-prune chunk: 4096 rows x 160 candidates, alpha 1.2;
+then, on a flat index (the bsq8 index freed first) over the same rows:
+  - one exact flat search of the 8192 queries, k = 10, and one fast-mode
+    search, with the device time split into the l2_tile kernel, the top-k
+    selection (torch.topk and the merge sorts) and the rest; beside it the
+    time to write one [4096, 16384] f32 tile alone (``fill_``), times the
+    number of tiles, as a measure of the tile write inside the kernel.
 For each window it prints the wall time, the summed device-kernel time and
 its share of the wall (the rest is the device idle, waiting on the host),
 and the kernels with the most device time. Writes the tables to
@@ -19,12 +25,12 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, DIM, NQ, K = 1_000_000, 128, 8192, 10
+SELECT = ("topk", "TopK", "radix", "Radix", "sort", "Sort")
 
 
 def trace(torch, name, fn, top=12) -> dict:
@@ -57,7 +63,48 @@ def trace(torch, name, fn, top=12) -> dict:
               f"x{count:<6d} {key[:90]}", flush=True)
     return {"wall_ms": wall_ms, "device_ms": dev_ms,
             "kernels": [{"name": k, "ms": m, "count": c}
-                        for k, m, c in rows[:top]]}
+                        for k, m, c in rows[:top]],
+            "split": split(rows)}
+
+
+def split(rows) -> dict:
+    """Device ms of the flat scan's parts: the l2_tile kernel, selection
+    (top-k and sort kernels) and everything else."""
+    out = {"l2_tile": 0.0, "select": 0.0, "other": 0.0}
+    for key, ms, _ in rows:
+        part = ("l2_tile" if "l2_tile" in key else
+                "select" if any(s in key for s in SELECT) else "other")
+        out[part] += ms
+    return out
+
+
+def flat_windows(torch, ds, dev) -> dict:
+    from alayalite_tpu_torch import Index, IndexParams
+    from alayalite_tpu_torch.utils.timing import cuda_ms
+
+    out = {}
+    q = torch.as_tensor(ds.queries, device=dev)
+    for mode in ("exact", "fast"):
+        idx = Index("flat", IndexParams(index_type="flat", flat_mode=mode,
+                                        capacity=N))
+        idx.fit(ds.data)
+        res = trace(torch, f"flat {mode} search",
+                    lambda: idx._engine._batch_search_impl(q, K))
+        parts = res["split"]
+        print("  split: " + ", ".join(
+            f"{k} {v:.3f} ms ({100 * v / max(res['device_ms'], 1e-9):.1f}%)"
+            for k, v in parts.items()), flush=True)
+        out[mode] = res
+        del idx
+        torch.cuda.empty_cache()
+    tile = torch.empty((4096, 16384), device=dev)
+    tiles = -(-NQ // 4096) * -(-N // 16384)
+    write_ms = cuda_ms(lambda: tile.fill_(0.0))
+    out["tile_write"] = {"ms_per_tile": write_ms, "tiles": tiles,
+                         "ms": write_ms * tiles}
+    print(f"[flat exact] tile write alone: {write_ms:.4f} ms x {tiles} "
+          f"tiles = {write_ms * tiles:.3f} ms", flush=True)
+    return out
 
 
 def main() -> int:
@@ -73,10 +120,9 @@ def main() -> int:
     from alayalite_tpu_torch.index.search import (block_beam_search,
                                                   scan_seeds)
     from alayalite_tpu_torch.utils.datasets import random_dataset
+    from alayalite_tpu_torch.utils.timing import card_line
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = card_line()
     print(f"card: {card}", flush=True)
     ds = random_dataset(n=N, dim=DIM, n_queries=NQ, seed=42,
                         clusters=max(32, N // 2000))
@@ -114,6 +160,10 @@ def main() -> int:
     out["prune_chunk"] = trace(
         torch, "prune chunk",
         lambda: occlusion_prune_chunk(raw, cand_d, cand_i, r=32, alpha=1.2))
+    dev = eng.device
+    del idx, eng, bq, raw, rows, cand_d, cand_i, q
+    torch.cuda.empty_cache()
+    out["flat"] = flat_windows(torch, ds, dev)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "torch_profile.json"),
               "w") as f:

@@ -46,6 +46,10 @@ def test_no_banned_import_in_sources():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
              if f.endswith(".py")]
     files.append(os.path.join(ROOT, "chip_smoke.py"))
+    scripts = os.path.join(ROOT, "scripts")
+    files += [os.path.join(scripts, f) for f in os.listdir(scripts)
+              if f.startswith("torch_") and f.endswith(".py")]
+    assert os.path.join(scripts, "torch_pallas_bench.py") in files
     assert len(files) > 20
     for path in files:
         assert not (_imported_roots(path) & set(BANNED)), path
@@ -86,9 +90,13 @@ def test_unported_surfaces_raise():
 
     c = Client(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c.create_index("flat", index_type="flat")
+        c.create_index("nsg", index_type="nsg")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         c.create_index("sq8", quantization_type="sq8")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        c.create_index("u8", index_type="flat", data_type="uint8")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        c.create_index("shards", index_type="flat", db_shards=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         c.create_collection("col")
     idx = c.create_index("b", quantization_type="bsq8")
