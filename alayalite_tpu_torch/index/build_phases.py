@@ -90,8 +90,8 @@ def block_pool_dev(bspace, eps: np.ndarray, ef: int, n: int,
                    max_iters: int = 0, seed_sample=None, n_expand: int = 8,
                    ) -> Tuple[Tensor, Tensor]:
     """Beam-search pools over a block space whose neighbor blocks were
-    packed from the kNN graph: one fat gather and one ``block_diagdot`` per
-    hop. The in-search exact rerank makes the returned pool_d exact f32."""
+    packed from the kNN graph: one ``gather_diagdot`` and one ``ring_probe``
+    per hop. The in-search exact rerank makes the returned pool_d exact f32."""
     dev = bspace.device
     eps_dev = torch.as_tensor(np.asarray(eps, np.int32), device=dev)
     starts, chunk = _chunks(n, chunk)

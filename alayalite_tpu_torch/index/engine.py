@@ -1,16 +1,21 @@
 """IndexEngine (port of part of ``index/engine.py``).
 
 Ported: block quantization (bsq8: ``fit`` built by ``QGBuilder``, the
-block branch of batch search, the per-query seed-scan sample) and the flat
-index (``index_type="flat"`` with quantization none or sq8: exact and fast
+block branch of batch search, the per-query seed-scan sample, online
+insert through ``fused_block_insert``, tombstone remove with the
+compaction threshold, ``compact`` and ``update_nodes``), the flat index
+(``index_type="flat"`` with quantization none or sq8: exact and fast
 scans, insert, tombstone remove), and save/load in the JAX package's
 on-disk layout (``schema.json`` + npz files), so either package loads the
-other's index directories.
+other's index directories, mutated or not.
 
 Not ported yet, each raising ``NotImplementedError``: raw and sq graph
-indices (ROADMAP queue 1, items 8-9), other quantizations (item 9),
-insert/remove/compact/update_nodes on block indices (item 7), sharding
-(item 12).
+indices (ROADMAP queue 1, items 8-9), other quantizations (item 9, with
+the host-side rabitq insert), sharding (item 12).
+
+Inserts and rewires run on batches of any size, in slices that bound the
+temporaries: the JAX package pads them to buckets only so XLA does not
+recompile.
 
 Queries are searched in slices of ``qchunk`` rows (4096; 1024 at dim ≥ 512
 on the block path) without padding the batch: the JAX package pads to
@@ -38,6 +43,8 @@ from .graph import Graph
 log = logging.getLogger("alayalite_tpu_torch")
 
 _FLAT_QUANT = (QuantizationType.NONE, QuantizationType.SQ8)
+INSERT_CHUNK = 4096   # rows per fused insert step (the search's qchunk)
+REWIRE_CHUNK = 2048   # rows per rewire step: bounds the [A, W + W², D] gather
 
 
 def check_supported(params: IndexParams) -> None:
@@ -75,6 +82,10 @@ class IndexEngine:
         self._fitted = False
         self._sscan = None
         self._sscan_version = None
+        self._mutations = 0          # removes so far (seed-sample version)
+        self._removed: list = []     # tombstones since the last compaction
+        self._rng = np.random.default_rng(0xA1A7A)  # entry-point redraws
+        self._insert_gen: Optional[torch.Generator] = None
 
     # ------------------------------------------------------------------ fit
     def fit(self, vectors, ef_construction: Optional[int] = None,
@@ -221,7 +232,8 @@ class IndexEngine:
         if S <= 0 or n < 256:
             return None
         bucket = 1024 if n < 262_144 else 65_536
-        version = ("exact", n) if n < 2048 else ("bucket", n // bucket)
+        version = (("exact", n) if n < 2048 else ("bucket", n // bucket),
+                   self._mutations)
         if self._sscan is None or self._sscan_version != version:
             live = np.flatnonzero(self.space.valid[:n].cpu().numpy())
             S = min(S, (live.size // 128) * 128)
@@ -237,40 +249,128 @@ class IndexEngine:
         return self._sscan
 
     # --------------------------------------------------------------- update
-    def _require_flat(self, op: str) -> None:
-        if self.params.quantization_type.is_block:
-            raise NotImplementedError(
-                f"{op} on a block index is not ported yet (ROADMAP queue 1, "
-                "item 7)")
-
     def insert(self, vectors, ef: int = 100) -> np.ndarray:
-        """Append rows to a flat index (both spaces). Returns the new ids,
-        −1 where capacity was exhausted (``Index.insert`` raises)."""
-        del ef
-        self._require_flat("insert")
+        """Append rows. A flat index stores them in both spaces; a block
+        index also links them into the graph (``fused_block_insert``).
+        Returns the new ids, −1 where capacity was exhausted
+        (``Index.insert`` raises)."""
         self._require_fitted()
         v = torch.atleast_2d(torch.as_tensor(
             np.asarray(vectors, dtype=np.float32), device=self.device))
-        ids = self.space.insert(v)
-        if self.search_space is not self.space:
-            self.search_space.insert(v)
+        if self.graph is not None:
+            ids = self._insert_block_fused(v, ef)
+        else:
+            ids = self.space.insert(v)
+            if self.search_space is not self.space:
+                self.search_space.insert(v)
         return ids.cpu().numpy().astype(self._id_dtype, copy=False)
 
+    def _insert_block_fused(self, v: torch.Tensor, ef: int) -> torch.Tensor:
+        """bsq8 insert in slices of ``INSERT_CHUNK`` rows; each slice is one
+        ``fused_block_insert`` step and sees the slices before it. The raw
+        space mirrors the same bump slots."""
+        from .build_phases import make_generator
+        from .fused_insert import fused_block_insert
+
+        if self._insert_gen is None:
+            self._insert_gen = make_generator(self.device, 0x1A5E)
+        r = self.search_space.degree
+        out = []
+        for lo in range(0, v.shape[0], INSERT_CHUNK):
+            sub = v[lo:lo + INSERT_CHUNK]
+            out.append(fused_block_insert(
+                self.search_space, self.graph.nbrs, self.graph.eps, sub,
+                self._insert_gen, self._seed_scan_arrays(), r=r, w=16,
+                ef=max(int(ef), r), iters=0, m=self.params.beam_expand))
+            self.space.insert(sub)
+        return torch.cat(out)
+
     def remove(self, ids) -> None:
-        """Tombstone ``ids`` in both spaces of a flat index; searches skip
-        them. Raises on ids out of [0, capacity): the spaces clip ids, so an
-        out-of-range id would remove whatever lives at the clip target."""
-        self._require_flat("remove")
+        """Tombstone ``ids`` in both spaces; searches skip them. On a graph
+        index, once the tombstones since the last compaction exceed
+        ``params.compaction_threshold`` of the live rows, ``compact``
+        rewires around them. Raises on ids out of [0, capacity): the spaces
+        clip ids, so an out-of-range id would remove whatever lives at the
+        clip target."""
         self._require_fitted()
         raw = np.atleast_1d(np.asarray(ids))
         if raw.size and (raw.min() < 0 or raw.max() >= self.space.capacity):
             raise ValueError(
                 f"remove: id out of range [0, {self.space.capacity}) "
                 f"(got min={raw.min()}, max={raw.max()})")
+        self._mutations += 1
         arr = torch.as_tensor(raw.astype(np.int32), device=self.device)
         self.space.remove(arr)
         if self.search_space is not self.space:
             self.search_space.remove(arr)
+        if self.graph is None:
+            return
+        self._removed.extend(int(x) for x in raw)
+        thr = float(self.params.compaction_threshold)
+        if thr <= 0 or not self._removed:
+            return
+        live = int(self.space.valid[:self.space.num].sum())
+        if len(self._removed) > thr * max(live, 1):
+            self.compact()
+
+    def compact(self) -> None:
+        """Rewire edges around the tombstones gathered since the last
+        compaction and replace dead entry points with live rows. Ids are
+        stable: removed slots stay tombstoned and are never reused."""
+        self._require_fitted()
+        if self.graph is None or not self._removed:
+            self._removed = []
+            return
+        removed = np.unique(np.asarray(self._removed, dtype=np.int32))
+        mask = self._removed_mask(removed)
+        nbrs = self.graph.nbrs
+        hit = ((nbrs >= 0) & mask[nbrs.clamp(min=0).long()]).any(1) & ~mask
+        affected = torch.nonzero(hit).reshape(-1).to(torch.int32)
+        t0 = time.time()
+        if affected.numel():
+            self.update_nodes(affected, _removed=removed)
+        eps = self.graph.eps.cpu().numpy()
+        dead_ep = np.isin(eps, removed)
+        if dead_ep.any():
+            pool = np.flatnonzero(self.space.valid.cpu().numpy())
+            if pool.size:
+                fresh = self._rng.choice(pool, size=eps.shape[0])
+                self.graph.eps = torch.as_tensor(
+                    np.where(dead_ep, fresh, eps).astype(np.int32),
+                    device=self.device)
+        log.info("compact: %d tombstones, %d nodes rewired in %.2fs",
+                 removed.size, affected.numel(), time.time() - t0)
+        self._removed = []
+
+    def _removed_mask(self, removed: np.ndarray) -> torch.Tensor:
+        mask = torch.zeros((self.graph.capacity,), dtype=torch.bool,
+                           device=self.device)
+        if removed.size:
+            mask[torch.as_tensor(removed.astype(np.int64),
+                                 device=self.device)] = True
+        return mask
+
+    def update_nodes(self, ids, _removed=None) -> None:
+        """Rebuild the edges of ``ids``: candidates = live current edges ∪
+        the live edges of removed neighbors (the 2-hop detour), top-R by
+        exact distance; the rebuilt rows are re-encoded in the same pass.
+        Every row is computed from the adjacency as it stands on entry."""
+        self._require_fitted()
+        if self.graph is None:
+            raise RuntimeError("flat index has no graph to update")
+        ids = torch.as_tensor(ids, device=self.device).reshape(-1).long()
+        if ids.numel() == 0:
+            return
+        removed = (np.empty(0, np.int32) if _removed is None
+                   else np.asarray(_removed, dtype=np.int32))
+        mask = self._removed_mask(removed)
+        r = self.search_space.degree
+        rows = torch.cat([
+            _rewire_rows_dev(self.space, self.graph.nbrs, mask,
+                             ids[lo:lo + REWIRE_CHUNK], r=r)
+            for lo in range(0, ids.numel(), REWIRE_CHUNK)])
+        self.search_space.set_neighbor_rows(ids, rows)
+        self.graph.nbrs[ids] = self.search_space.nbr_ids[ids]
 
     def get_data_by_id(self, id_: int) -> np.ndarray:
         self._require_fitted()
@@ -328,3 +428,39 @@ class IndexEngine:
                                arrays(params.data_filename()),
                                arrays(params.index_filename()),
                                arrays(params.quant_filename()), device)
+
+
+def _rewire_rows_dev(space, nbrs: torch.Tensor, removed_mask: torch.Tensor,
+                     ids: torch.Tensor, r: int) -> torch.Tensor:
+    """Rebuilt rows [A, r] for ``ids`` [A] from the adjacency ``nbrs``:
+    live current edges ∪ removed neighbors' live edges, exact top-r with
+    keep-best dedup. The [A, W + W²] candidate table is mostly −1 (only
+    removed neighbors open a second hop), so it is compacted to its widest
+    row before the distance gather; −1 slots score inf either way."""
+    a = ids.shape[0]
+    cur = nbrs[ids]                                            # [A, W]
+    rem = removed_mask[cur.clamp(min=0).long()]
+    is_live = (cur >= 0) & ~rem
+    is_rem = (cur >= 0) & rem
+    hop2 = nbrs[torch.where(is_rem, cur, torch.zeros_like(cur)).long()]
+    ok2 = (is_rem[:, :, None] & (hop2 >= 0)
+           & ~removed_mask[hop2.clamp(min=0).long()])          # [A, W, W]
+    cand = torch.cat([torch.where(is_live, cur, torch.full_like(cur, -1)),
+                      torch.where(ok2, hop2, torch.full_like(hop2, -1))
+                      .reshape(a, -1)], dim=1)
+    cand = torch.where(cand == ids[:, None].to(cand.dtype),
+                       torch.full_like(cand, -1), cand)
+    width = max(int((cand >= 0).sum(1).max()), r)
+    order = torch.sort((cand < 0).to(torch.int8), dim=1, stable=True).indices
+    cand = torch.gather(cand, 1, order[:, :width])
+    d = space.gather_dists(space.data[ids], cand.clamp(min=0))
+    d = torch.where(cand >= 0, d, torch.full_like(d, float("inf")))
+    return _topr_dedup(d, cand, r)
+
+
+def _topr_dedup(cand_d: torch.Tensor, cand_i: torch.Tensor,
+                r: int) -> torch.Tensor:
+    """Top-r candidates by distance, duplicate ids dropped (keep-best)."""
+    from .prune import _sort_dedup
+
+    return _sort_dedup(cand_d, cand_i)[1][:, :r]

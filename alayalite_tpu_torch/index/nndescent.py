@@ -133,7 +133,7 @@ def _init_cluster_knn(space, n: int, k: int, seed: int, chunk: int):
     c = min(chunk, n)
     assign = torch.empty((n,), dtype=torch.int32, device=dev)
     for lo in range(0, n, c):
-        q = space.data[lo:lo + c].to(torch.bfloat16).float()
+        q = space.data[lo:min(lo + c, n)].to(torch.bfloat16).float()
         # |q|² is constant per row: argmin of |a|² − 2 q·a
         assign[lo:lo + c] = torch.argmin(a_sq[None, :] - 2.0 * (q @ a_t),
                                          dim=1).to(torch.int32)

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..ops.ring_probe import ring_probe
 from ..ops.topk import merge_topk_dedup, topk_smallest
 
 Tensor = torch.Tensor
@@ -73,8 +74,7 @@ def _expand_popring(space, q, popring, pool_d, pool_i, pool_c, cand_ids,
                     ef: int):
     """Score the candidates not yet expanded (not in the pop ring) and
     merge them into the pool; duplicates collapse in the merge."""
-    stale = (cand_ids[:, :, None] == popring[:, None, :]).any(2)
-    fresh = (cand_ids >= 0) & ~stale
+    fresh = (cand_ids >= 0) & ~ring_probe(cand_ids.contiguous(), popring)
     d = _inf_where_not(fresh, space.gather_dists(
         q, torch.where(fresh, cand_ids, torch.zeros_like(cand_ids))))
     return merge_topk_dedup(pool_d, pool_i, pool_c, d,
@@ -122,8 +122,9 @@ def block_beam_search(space, seeds: Tensor, queries: Tensor, k: int, ef: int,
                       max_iters: int = 0, valid: Optional[Tensor] = None,
                       n_expand: int = 1) -> Tuple[Tensor, Tensor]:
     """Beam search over a block space (BQGSpace): each popped node costs one
-    fat row gather, neighbors are scored by the block estimator, and the
-    final pool is re-ranked with exact raw distances."""
+    fat row read inside ``gather_diagdot``, neighbors are scored by the
+    block estimator, ``ring_probe`` drops the ones already expanded or
+    pooled, and the final pool is re-ranked with exact raw distances."""
     B = queries.shape[0]
     C = space.capacity
     L = max(int(ef), int(k))
@@ -151,10 +152,8 @@ def block_beam_search(space, seeds: Tensor, queries: Tensor, k: int, ef: int,
         est, nids = space.estimate_many(ctx, u_safe)           # [B, M*R]
         R = nids.shape[1] // M
         nids = _neg1_where_not(active.repeat_interleave(R, dim=1), nids)
-        # stale = already expanded or already pooled; the [B, M*R, P+L]
-        # compare is allocated per hop (~235 MB at B=4096, ef=128)
-        seen = torch.cat([popring, pool_i], dim=1)
-        stale = (nids[:, :, None] == seen[:, None, :]).any(2)
+        # stale = already expanded or already pooled
+        stale = ring_probe(nids, torch.cat([popring, pool_i], dim=1))
         fresh = (nids >= 0) & ~stale
         pool_d, pool_i, pool_c = merge_topk_dedup(
             pool_d, pool_i, pool_c, _inf_where_not(fresh, est),

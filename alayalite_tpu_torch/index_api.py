@@ -1,7 +1,7 @@
 """User-facing Index (port of the thin part of ``index_api.py``): the same
 validation, capacity error and save/load directory contract as the JAX
-package, over the PyTorch ``IndexEngine``. Insert and remove on block
-indices wait in ROADMAP queue 1, item 7.
+package, over the PyTorch ``IndexEngine`` (flat and bsq8 indices take
+insert and remove).
 """
 
 from __future__ import annotations

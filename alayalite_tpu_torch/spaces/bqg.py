@@ -7,13 +7,17 @@ grid; the distance factors as
 
     d² = (|q|² − 2 q·(m + 128 s)) − 2 (q∘s)·(c − 128) + |x̂|²
 
-and the middle term is ``ops.diagdot.block_diagdot``. IP uses dot
-coefficient 1 and stores |x̂|² as 0; COS is normalize-then-L2. Codes are
-padded from D to Dp (a multiple of 128) with the centre byte 128, so pads
-add 0 to the dot; −1 neighbor slots carry |x̂|² = inf.
+and the middle term is ``ops.gather_diagdot.gather_diagdot`` on the hop
+(``estimate_many``: the popped nodes' blocks are read inside the kernel) and
+``ops.diagdot.block_diagdot`` on blocks already gathered (``estimate_for``).
+IP uses dot coefficient 1 and stores |x̂|² as 0; COS is normalize-then-L2.
+Codes are padded from D to Dp (a multiple of 128) with the centre byte 128,
+so pads add 0 to the dot; −1 neighbor slots carry |x̂|² = inf.
 
-Only the fit/search/save/load surface of the slice is ported; insert,
-remove and ``set_neighbor_rows`` wait in ROADMAP queue 1 (item 7).
+``fit``, ``insert_raw``, ``set_neighbor_rows`` and ``remove`` update the
+tensors in place (the JAX package returns a new pytree). The grid
+(dmin/scale) stays fixed after ``fit``: inserted rows outside it clip in
+their codes, which costs estimate accuracy only; the rerank is exact.
 """
 
 from __future__ import annotations
@@ -26,8 +30,22 @@ import torch
 
 from ..ops.diagdot import block_diagdot
 from ..ops.distance import normalize_rows
+from ..ops.gather_diagdot import gather_diagdot
+from .raw import bump_slots, tombstone
 
 Tensor = torch.Tensor
+
+# The gather_diagdot kernel that estimate_many launches. At the hop's shape
+# (B 4096, M 8, R 32, Dp 128, codes of 100,000 nodes) chip_smoke.py timed
+# direct at 0.1100 ms and staged at 0.1232 ms of device time on an NVIDIA
+# H100 80GB HBM3 at its 700.00 W power limit (0.1408 against 0.1743 ms with
+# the host's launch latency counted in; direct was the faster in all six
+# runs): with one 4 KB block in flight per resident thread block either
+# way, the second stage buys nothing. The staged entry stays as the
+# counterpart of the TPU's double-buffered prototype, checked and timed by
+# chip_smoke.py, and is launched by no entry point of the index.
+ESTIMATE_VARIANT = "direct"
+ENCODE_CHUNK = 8192   # rows per step of set_neighbor_rows' encode
 
 
 @dataclasses.dataclass
@@ -141,6 +159,54 @@ class BQGSpace:
             self.nbr_xsq[lo:lo + codes.shape[0]] = xsq
         return self
 
+    def insert_raw(self, vectors) -> Tensor:
+        """Append raw vectors at the bump pointer, in place. Returns the new
+        ids (i32 [b]); rows past capacity get −1 and are not stored. The
+        new nodes' neighbor blocks are set with ``set_neighbor_rows``."""
+        v = torch.atleast_2d(torch.as_tensor(vectors, dtype=torch.float32,
+                                             device=self.device))
+        if self.user_metric == "cos":
+            v = normalize_rows(v)
+        start = self.num
+        ids, take = bump_slots(start, v.shape[0], self.capacity, self.device)
+        if take:
+            self.data[start:start + take] = v[:take]
+            self.sq_norms[start:start + take] = (v[:take] * v[:take]).sum(-1)
+            self.valid[start:start + take] = True
+        self.num = start + take
+        return ids
+
+    def set_neighbor_rows(self, node_ids, rows) -> "BQGSpace":
+        """Set the adjacency rows of arbitrary nodes and re-encode their
+        packed blocks, in place. ``rows`` [T, ≤R] is padded to R with −1.
+        Negative node ids are dropped with their rows (the JAX package
+        scatters them to the last slot). Where an id repeats, the rows must
+        be equal: which write lands last is unspecified."""
+        ids = torch.as_tensor(node_ids, dtype=torch.int64,
+                              device=self.device).reshape(-1)
+        rows = torch.as_tensor(rows, device=self.device).to(torch.int32)
+        r = self.degree
+        if rows.shape[1] < r:
+            rows = torch.nn.functional.pad(rows, (0, r - rows.shape[1]),
+                                           value=-1)
+        keep = ids >= 0
+        ids, rows = ids[keep], rows[keep][:, :r]
+        self._blocks_alloc()
+        for lo in range(0, ids.shape[0], ENCODE_CHUNK):
+            sub = ids[lo:lo + ENCODE_CHUNK]
+            codes, xsq = _encode_block(self.data, self.dmin, self.scale,
+                                       rows[lo:lo + ENCODE_CHUNK],
+                                       store_sq=self.metric == "l2")
+            self.nbr_ids[sub] = rows[lo:lo + ENCODE_CHUNK]
+            self.nbr_codes[sub] = codes
+            self.nbr_xsq[sub] = xsq
+        return self
+
+    def remove(self, ids) -> None:
+        """Tombstone ``ids`` in place; negative ids are ignored (see
+        ``raw.tombstone``)."""
+        tombstone(self.valid, ids)
+
     # ---- query side (block-search protocol) ----
     @property
     def _dot_coef(self) -> float:
@@ -165,20 +231,35 @@ class BQGSpace:
             qconst = (q * q).sum(-1) - 2.0 * (q * shift).sum(-1)
         return q, qs.contiguous(), qconst
 
+    def estimate_for(self, ctx, u: Tensor) -> Tuple[Tensor, Tensor]:
+        """Estimated d² (L2) / −q·x̂ (IP) to the R neighbors of one popped
+        node per query, u [B]: ([B, R] estimates, [B, R] ids). The blocks
+        are gathered first and scored by ``block_diagdot``. This is the
+        block-search protocol's one-node entry; ``block_beam_search`` takes
+        ``estimate_many`` for every M, so it serves callers that hold the
+        space itself (audits of a node's encoded block, tests)."""
+        _, qs, qconst = ctx
+        safe = u.clamp(0, self.capacity - 1).reshape(-1)
+        dot = block_diagdot(self.nbr_codes.index_select(0, safe), qs)
+        est = (qconst[:, None] - self._dot_coef * dot
+               + self.nbr_xsq.index_select(0, safe))
+        return self._clamp(est), self.nbr_ids.index_select(0, safe)
+
     def estimate_many(self, ctx, u: Tensor) -> Tuple[Tensor, Tensor]:
         """Estimated d² (L2) / −q·x̂ (IP) to the neighbors of all popped
-        nodes u [B, M]: ([B, M*R] estimates, [B, M*R] ids). One row gather
-        of the code blocks, then the fused decode + dot kernel."""
+        nodes u [B, M]: ([B, M*R] estimates, [B, M*R] ids). The code blocks
+        are read inside the ``gather_diagdot`` kernel; only the ids and the
+        norms are gathered here."""
         _, qs, qconst = ctx
         B, M = u.shape
         MR = M * self.degree
-        safe = u.clamp(0, self.capacity - 1).reshape(-1)
-        codes = self.nbr_codes.index_select(0, safe).view(B, MR,
-                                                          self.code_dim)
-        dot = block_diagdot(codes, qs)
+        safe = u.clamp(0, self.capacity - 1).to(torch.int32).contiguous()
+        dot = gather_diagdot(self.nbr_codes, safe, qs,
+                             variant=ESTIMATE_VARIANT)
+        flat = safe.reshape(-1)
         est = (qconst[:, None] - self._dot_coef * dot
-               + self.nbr_xsq.index_select(0, safe).view(B, MR))
-        return self._clamp(est), self.nbr_ids.index_select(0, safe).view(B, MR)
+               + self.nbr_xsq.index_select(0, flat).view(B, MR))
+        return self._clamp(est), self.nbr_ids.index_select(0, flat).view(B, MR)
 
     def gather_dists(self, q: Tensor, ids: Tensor) -> Tensor:
         """Exact f32 distances (seed scoring + final rerank)."""

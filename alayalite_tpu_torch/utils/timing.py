@@ -35,9 +35,17 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, warmup: int = 3, reps: int = 25) -> float:
+SPIN_CYCLES = 400_000   # ~0.2 ms of device spin ahead of a timed call
+
+
+def cuda_ms(fn, warmup: int = 3, reps: int = 25, spin: bool = False) -> float:
     """Median milliseconds of ``fn`` between CUDA events, after
-    ``warmup`` calls."""
+    ``warmup`` calls. That span holds the ~0.03 ms the host takes to launch
+    one kernel wherever the kernel runs shorter than that. With ``spin``
+    the device spins for a moment before the first event, so the host has
+    enqueued ``fn`` by the time the event passes and the span is the
+    device's time alone. The two are different yardsticks: compare a number
+    only with others taken the same way."""
     import torch
 
     for _ in range(warmup):
@@ -47,6 +55,8 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 25) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()

@@ -5,19 +5,35 @@ Needs one CUDA device and nvcc. Phases, in order; any failure raises and
 the script exits non-zero:
   1. card      nvidia-smi name and power limit, torch device name;
   2. build     every CUDA source of the port, one nvcc each, in parallel;
-  3. kernels   block_diagdot against its plain PyTorch version on the card
-               at the main-path shape and at ragged shapes, with CUDA-event
-               times of the kernel, the plain version and a library call;
+  3. kernels   block_diagdot, gather_diagdot (direct and staged) and
+               ring_probe against their plain PyTorch versions on the card
+               at the main-path shapes and at ragged shapes, with CUDA-event
+               times of the kernel, the plain version and a library route
+               ("ms" holds the host's launch latency, as every earlier
+               number does; "ms_spin" is the device's time alone);
   4. fit       Client().create_index(hnsw + bsq8, the repository's
-               headline parameters) and fit on bench.py's data,
-               random_dataset(1M x 128, seed 42, 500 clusters), with
-               per-phase seconds and kernel launches;
+               headline parameters, capacity 1M + 16,384) and fit on
+               bench.py's data, random_dataset(1M x 128, seed 42, 500
+               clusters), with per-phase seconds and kernel launches;
+               then gather_diagdot (both variants) against its plain
+               version on the fitted index's own code tensor, at node ids
+               up to num - 1, whose byte offsets pass 2^31;
   5. search    batch_search of 8192 queries at ef 32 and 64, k = 10,
                recall@10 against exact ground truth computed here on the
                card, wall QPS and kernel launches; fails below 0.95 at
                ef = 64;
   6. small     a 2000 x 32 index searched on the card and with the plain
-               versions on the CPU must agree.
+               versions on the CPU must agree;
+  6b. churn    on the 1M index: remove 10,000 ids and search (none may come
+               back); insert 8,192 new rows drawn from the data's clusters,
+               in two batches of 4,096, with rows/s and launches; each new
+               row must be its own top-1 at ef 64 (fails below 0.95);
+               gather_diagdot again on the grown code tensor; the
+               new nodes' encoded blocks are audited through estimate_for
+               (block_diagdot) against the distance to the decoded codes;
+               compact(), after which no live row's adjacency may hold a
+               removed id; recall@10 against ground truth recomputed over
+               the live rows (fails below 0.95 at ef 64).
 The bsq8 index is freed, then the flat path runs on the same data:
   7. tiles     l2_tile and sq8_tile against their plain versions at the flat
                scan's tile (4096 x 16384 x 128, l2), at 4096 x 65536 x 128
@@ -34,7 +50,8 @@ The bsq8 index is freed, then the flat path runs on the same data:
  11. sq8       sq8_tile on the flat index's fitted codes (the first 65,536
                rows, 4096 queries) against its plain version and against
                the exact distance to the decoded rows.
-The kernels line and the card line come before the last line, which is
+A summary line (the end-to-end numbers of every phase), the kernels line
+and the card line come before the last line, which is
 {"ok": true, "device": {...}}. A copy of the numbers goes to
 build/chip_smoke.json.
 """
@@ -62,6 +79,17 @@ TILE_SHAPES = {"l2_tile": (L2_MAIN, SQ8_MAIN, (1000, 3000, 96),
                            (333, 777, 40)),
                "sq8_tile": (SQ8_MAIN, (1000, 3000, 96), (333, 777, 40))}
 N_REMOVE, N_INSERT = 10_000, 1_000
+SPARE = 16_384                       # bsq8 capacity past the fitted rows
+CHURN_INSERT, CHURN_BATCH = 8_192, 4_096
+CHURN_FLOOR = 0.95                   # own top-1 share and recall@10 at ef 64
+# gather_diagdot: (nodes C, R, Dp, B, M); the main shape is the hop's, over
+# codes for 100,000 nodes
+GATHER_MAIN = (100_000, 32, 128, 4096, 8)
+GATHER_SHAPES = (GATHER_MAIN, (5_000, 24, 96, 1000, 5), (900, 7, 40, 333, 3))
+# ring_probe: (B, K, S); the main shape is the search's at ef 64 (K = M*R,
+# S = pop ring 96 + pool 64)
+PROBE_MAIN = (4096, 256, 160)
+PROBE_SHAPES = (PROBE_MAIN, (1000, 200, 77), (333, 77, 1))
 
 
 def log(msg: str) -> None:
@@ -97,6 +125,7 @@ def check_diagdot(torch, dev) -> dict:
         if shape != MAIN_SHAPE:
             continue
         ms = cuda_ms(lambda: block_diagdot(codes, qs))
+        ms_spin = cuda_ms(lambda: block_diagdot(codes, qs), spin=True)
         plain_ms = cuda_ms(lambda: block_diagdot_ref(codes, qs))
         library_ms = cuda_ms(lambda: torch.bmm(
             (codes.to(torch.int16) - 128).to(torch.bfloat16),
@@ -104,12 +133,166 @@ def check_diagdot(torch, dev) -> dict:
         # the FMAs run on the CUDA cores
         b = bound(B * Kr * Dp + B * Dp * 2 + B * Kr * 4, 2 * B * Kr * Dp,
                   "f32")
-        result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        result = {"max_abs_err": err, "ms": ms, "ms_spin": ms_spin,
+                  "plain_ms": plain_ms,
                   "library_ms": library_ms, **b, "shape": list(shape)}
-        log(f"kernel block_diagdot {shape}: {ms:.4f} ms, plain "
+        log(f"kernel block_diagdot {shape}: {ms:.4f} ms ({ms_spin:.4f} "
+            f"device alone), plain "
             f"{plain_ms:.4f} ms, library bmm {library_ms:.4f} ms, bound "
             f"{b['bound_ms']:.4f} ms ({b['bytes']} bytes)")
     return result
+
+
+def check_gather_probe(torch, dev) -> dict:
+    """gather_diagdot (both variants) and ring_probe against their plain
+    versions; times, bounds and library routes at the main shapes."""
+    from alayalite_tpu_torch.ops.gather_diagdot import (VARIANTS,
+                                                        gather_diagdot,
+                                                        gather_diagdot_ref)
+    from alayalite_tpu_torch.ops.ring_probe import ring_probe, ring_probe_ref
+    from alayalite_tpu_torch.spaces.bqg import ESTIMATE_VARIANT
+    from alayalite_tpu_torch.utils.timing import bound, cuda_ms
+
+    rng = np.random.default_rng(2)
+    out = {"gather_diagdot": {"errors": {}}, "ring_probe": {"errors": {}}}
+    for shape in GATHER_SHAPES:
+        C, R, Dp, B, M = shape
+        codes = torch.as_tensor(rng.integers(0, 256, size=(C, R, Dp),
+                                             dtype=np.uint8), device=dev)
+        u = torch.as_tensor(rng.integers(0, C, size=(B, M)).astype(np.int32),
+                            device=dev)
+        u[: B // 8] = 0              # inactive pops all read node 0's block
+        qs = torch.as_tensor(rng.normal(size=(B, Dp)).astype(np.float32),
+                             device=dev).to(torch.bfloat16)
+        want = gather_diagdot_ref(codes, u, qs)
+        tol = tolerance(want)
+        errs = {}
+        for variant in VARIANTS:
+            got = gather_diagdot(codes, u, qs, variant=variant)
+            torch.cuda.synchronize()
+            errs[variant] = float((got - want).abs().max())
+            log(f"kernel gather_diagdot[{variant}] {shape}: max_abs_err="
+                f"{errs[variant]:.3e} (tol {tol:.3e})")
+            if not errs[variant] <= tol:
+                raise AssertionError(f"gather_diagdot[{variant}] disagrees "
+                                     f"at {shape}: {errs[variant]} > {tol}")
+        out["gather_diagdot"]["errors"][str(shape)] = errs
+        if shape != GATHER_MAIN:
+            continue
+
+        def library():
+            g = codes.index_select(0, u.reshape(-1)).view(B, M * R, Dp)
+            return torch.bmm((g.to(torch.int16) - 128).to(torch.bfloat16),
+                             qs.unsqueeze(2))
+
+        times = {v: cuda_ms(lambda v=v: gather_diagdot(codes, u, qs,
+                                                       variant=v))
+                 for v in VARIANTS}
+        spins = {v: cuda_ms(lambda v=v: gather_diagdot(codes, u, qs,
+                                                       variant=v), spin=True)
+                 for v in VARIANTS}
+        # each distinct popped block must be read once: the pops that share
+        # a node (the inactive ones all name node 0) need its bytes once
+        distinct = int(torch.unique(u).numel())
+        b = bound(distinct * R * Dp + B * Dp * 2 + B * M * R * 4 + B * M * 4,
+                  2 * B * M * R * Dp, "f32")
+        out["gather_diagdot"].update(
+            max_abs_err=errs[ESTIMATE_VARIANT], ms=times[ESTIMATE_VARIANT],
+            ms_spin=spins[ESTIMATE_VARIANT],
+            variant=ESTIMATE_VARIANT, direct_ms=times["direct"],
+            staged_ms=times["staged"], direct_ms_spin=spins["direct"],
+            staged_ms_spin=spins["staged"], distinct_nodes=distinct,
+            plain_ms=cuda_ms(lambda: gather_diagdot_ref(codes, u, qs)),
+            library_ms=cuda_ms(library), shape=list(shape), **b)
+        g = out["gather_diagdot"]
+        log(f"kernel gather_diagdot {shape}: direct {times['direct']:.4f} ms "
+            f"({spins['direct']:.4f} device alone), staged "
+            f"{times['staged']:.4f} ms ({spins['staged']:.4f}), plain "
+            f"{g['plain_ms']:.4f} ms, library index_select + bmm "
+            f"{g['library_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bytes']} bytes, {distinct} distinct nodes of {B * M} "
+            f"pops)")
+        del codes
+        torch.cuda.empty_cache()
+
+    for shape in PROBE_SHAPES:
+        B, Kp, S = shape
+        # ids drawn from a range a few times S wide, so some are members
+        nids = torch.as_tensor(rng.integers(-1, 4 * S + 4, size=(B, Kp))
+                               .astype(np.int32), device=dev)
+        seen = torch.as_tensor(rng.integers(-1, 4 * S + 4, size=(B, S))
+                               .astype(np.int32), device=dev)
+        got = ring_probe(nids, seen)
+        torch.cuda.synchronize()
+        want = ring_probe_ref(nids, seen)
+        wrong = int((got != want).sum())
+        log(f"kernel ring_probe {shape}: {wrong} of {B * Kp} differ, "
+            f"{int(want.sum())} members")
+        if wrong or got.dtype != torch.bool:
+            raise AssertionError(f"ring_probe disagrees at {shape}")
+        out["ring_probe"]["errors"][str(shape)] = wrong
+        if shape != PROBE_MAIN:
+            continue
+        # a compare and an or per (id, seen entry) pair, on the CUDA cores
+        b = bound(B * Kp * 4 + B * S * 4 + B * Kp, 2 * B * Kp * S, "f32")
+        out["ring_probe"].update(
+            max_abs_err=0.0, ms=cuda_ms(lambda: ring_probe(nids, seen)),
+            ms_spin=cuda_ms(lambda: ring_probe(nids, seen), spin=True),
+            plain_ms=cuda_ms(lambda: ring_probe_ref(nids, seen)),
+            library_ms=cuda_ms(lambda: (nids[:, :, None]
+                                        == seen[:, None, :]).any(2)),
+            shape=list(shape), **b)
+        p = out["ring_probe"]
+        log(f"kernel ring_probe {shape}: {p['ms']:.4f} ms "
+            f"({p['ms_spin']:.4f} device alone), plain "
+            f"{p['plain_ms']:.4f} ms, eager compare + any "
+            f"{p['library_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}; bytes {b['bytes_ms']:.4f} ms)")
+    return out
+
+
+def check_gather_on_index(torch, sp, what: str) -> dict:
+    """gather_diagdot (both variants) against its plain version on the
+    index's own code tensor [capacity, R, Dp], at the hop's B and M: node
+    ids drawn over [0, num), the last rows of ``u`` walking down from
+    num - 1 (byte offsets past 2^31 at 1M x 32 x 128) and the first eighth
+    naming node 0, as the hop's inactive pops do. The kernel's launch
+    count is left as it was."""
+    from alayalite_tpu_torch.ops.gather_diagdot import (VARIANTS,
+                                                        gather_diagdot,
+                                                        gather_diagdot_ref)
+
+    _, R, Dp, B, M = GATHER_MAIN
+    num = sp.num
+    rng = np.random.default_rng(5)
+    u = rng.integers(0, num, size=(B, M)).astype(np.int32)
+    u[: B // 8] = 0
+    u[-64:] = (num - 1 - np.arange(64 * M)).reshape(64, M)
+    codes = sp.nbr_codes
+    dev = codes.device
+    u = torch.as_tensor(u, device=dev)
+    qs = torch.as_tensor(rng.normal(size=(B, codes.shape[2]))
+                         .astype(np.float32), device=dev).to(torch.bfloat16)
+    top_offset = int(u.max()) * codes.shape[1] * codes.shape[2]
+    if top_offset < 2 ** 31 and num >= N:
+        raise AssertionError("the index check does not reach past 2^31")
+    want = gather_diagdot_ref(codes, u, qs)
+    tol = tolerance(want)
+    launches = gather_diagdot.launches
+    errs = {}
+    for variant in VARIANTS:
+        got = gather_diagdot(codes, u, qs, variant=variant)
+        torch.cuda.synchronize()
+        errs[variant] = float((got - want).abs().max())
+        log(f"kernel gather_diagdot[{variant}] on the {what} index's codes "
+            f"{tuple(codes.shape)}, ids to {int(u.max())} (byte offset "
+            f"{top_offset}): max_abs_err={errs[variant]:.3e} (tol {tol:.3e})")
+        if not errs[variant] <= tol:
+            raise AssertionError(f"gather_diagdot[{variant}] disagrees on "
+                                 f"the {what} index: {errs[variant]} > {tol}")
+    gather_diagdot.launches = launches
+    return {"codes": list(codes.shape), "top_id": int(u.max()),
+            "top_byte_offset": top_offset, "errors": errs}
 
 
 def check_tiles(torch, dev) -> dict:
@@ -166,19 +349,24 @@ def check_tiles(torch, dev) -> dict:
                 continue
             b = bound(nbytes, 2 * Q * Nx * D + 3 * Q * Nx, kind)
             times = {"ms": cuda_ms(lambda: kern(*args)),
+                     "ms_spin": cuda_ms(lambda: kern(*args), spin=True),
                      "plain_ms": cuda_ms(lambda: ref(*args)),
                      "library_ms": cuda_ms(library)}
             out[name].update(max_abs_err=err, shape=[Q, Nx, D], **b, **times)
-            log(f"kernel {name} {(Q, Nx, D)}: {times['ms']:.4f} ms, plain "
+            log(f"kernel {name} {(Q, Nx, D)}: {times['ms']:.4f} ms "
+                f"({times['ms_spin']:.4f} device alone), plain "
                 f"{times['plain_ms']:.4f} ms, library {times['library_ms']:.4f}"
                 f" ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
             torch.cuda.empty_cache()
     return out
 
 
-def ground_truth(torch, data, queries, k: int) -> np.ndarray:
-    """Exact l2 top-k on the card, chunked float32 matmuls."""
+def ground_truth(torch, data, queries, k: int, dead=None) -> np.ndarray:
+    """Exact l2 top-k on the card, chunked float32 matmuls; rows ``dead``
+    are left out."""
     x_sq = (data * data).sum(1)
+    if dead is not None:
+        x_sq[dead] = float("inf")
     out = []
     for lo in range(0, queries.shape[0], 1024):
         q = queries[lo:lo + 1024]
@@ -233,6 +421,146 @@ def check_result(ids, dist, n_rows: int, what: str) -> None:
     if ids.shape[1] != K or not np.isfinite(dist).all() or (
             ids < 0).any() or (ids >= n_rows).any():
         raise AssertionError(f"malformed search result: {what}")
+
+
+def audit_blocks(torch, sp, vecs, node_ids) -> dict:
+    """The encoded blocks of ``node_ids`` through ``estimate_for`` (gather +
+    block_diagdot): each estimate, taken from the node's own vector, against
+    the exact distance to the codes decoded from the stored grid. Rounding
+    q∘scale to bf16 (relative 2⁻⁹) moves 2·(q∘s)·(c − 128) by at most
+    2⁻⁸·|q∘s|·|c − 128|ᵀ; allowed twice that plus f32 rounding near
+    |q|² + |x̂|²."""
+    q = sp.prep_query(vecs)
+    u = torch.as_tensor(node_ids.astype(np.int32), device=q.device)
+    est, ids = sp.estimate_for(sp.query_ctx(q), u)
+    ok = ids >= 0
+    D = sp.dim
+    c = sp.nbr_codes[u.long()][:, :, :D].float()               # [B, R, D]
+    xhat = c * sp.scale + sp.dmin
+    exact = ((xhat - q[:, None, :]) ** 2).sum(-1)
+    allowed = (2.0 ** -7 * torch.einsum("bd,brd->br", (q * sp.scale).abs(),
+                                        (c - 128.0).abs())
+               + 1e-5 * ((q * q).sum(-1)[:, None] + (xhat * xhat).sum(-1)))
+    excess = float(((est - exact).abs() - allowed)[ok].max())
+    # and the decoded codes are the neighbors the row names: within half
+    # a grid step per dim, except where a row inserted after the fit lies
+    # outside the fitted grid and clips
+    rows = sp.data[ids.clamp(min=0).long()]
+    far = float((((xhat - rows).abs() / sp.scale)[ok] > 0.501).float().mean())
+    return {"rows": int(ok.sum()), "estimate_excess": excess,
+            "share_beyond_half_a_step": far}
+
+
+def churn_phase(torch, dev, idx, ds, counters) -> dict:
+    """Phase 6b on the fitted 1M bsq8 index."""
+    from alayalite_tpu_torch.ops.diagdot import block_diagdot
+    from alayalite_tpu_torch.utils.evaluate import calc_recall
+
+    eng = idx._engine
+    rng = np.random.default_rng(11)
+    rep = {"launches": {c.__name__: 0 for c in counters}}
+
+    def tally():
+        for c in counters:
+            rep["launches"][c.__name__] += c.launches
+            c.launches = 0
+
+    dead = rng.choice(N, size=N_REMOVE, replace=False).astype(np.int32)
+    for c in counters:
+        c.launches = 0
+    idx.remove(dead)
+    ids = idx.batch_search(ds.queries, K, ef_search=64)
+    back = int(np.isin(ids, dead).sum())
+    log(f"churn: {back} of {N_REMOVE} removed ids returned")
+    if back:
+        raise AssertionError("a removed id came back from the bsq8 search")
+
+    # new rows from the data's own clusters: random_dataset draws its
+    # centers first from the same seed
+    clusters = max(32, N // 2000)
+    centers = (np.random.default_rng(42).normal(size=(clusters, DIM))
+               .astype(np.float32) * 4.0)
+    new = (centers[rng.integers(0, clusters, size=CHURN_INSERT)]
+           + rng.normal(size=(CHURN_INSERT, DIM)).astype(np.float32))
+    new_ids, batches = [], []
+    for lo in range(0, CHURN_INSERT, CHURN_BATCH):
+        tally()
+        torch.cuda.synchronize()
+        t = time.time()
+        new_ids.append(idx.insert(new[lo:lo + CHURN_BATCH]))
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        batches.append({"rows": CHURN_BATCH, "wall_s": wall,
+                        "rows_per_s": CHURN_BATCH / wall,
+                        "launches": {c.__name__: c.launches
+                                     for c in counters}})
+        log(f"churn: inserted {CHURN_BATCH} rows in {wall:.3f}s "
+            f"({CHURN_BATCH / wall:.1f} rows/s), launches "
+            f"{batches[-1]['launches']}")
+    new_ids = np.concatenate(new_ids)
+    rep["insert"] = batches
+    if not (new_ids == np.arange(N, N + CHURN_INSERT)).all():
+        raise AssertionError("inserted rows did not take the next slots")
+    own = float((idx.batch_search(new, 1, ef_search=64)[:, 0]
+                 == new_ids).mean())
+    rep["own_top1"] = own
+    log(f"churn: new rows found as their own top-1 at ef 64: {own:.4f}")
+    if own < CHURN_FLOOR:
+        raise AssertionError(f"own top-1 share below {CHURN_FLOOR}")
+
+    tally()
+    rep["gather_on_index"] = check_gather_on_index(torch, eng.search_space,
+                                                   "grown")
+    rep["audit"] = audit_blocks(torch, eng.search_space,
+                                torch.as_tensor(new, device=dev), new_ids)
+    rep["audit"]["block_diagdot_launches"] = block_diagdot.launches
+    log(f"churn: block audit of {rep['audit']['rows']} encoded neighbors: "
+        f"estimate within the bf16 bound by "
+        f"{-rep['audit']['estimate_excess']:.3e}, share of decoded values "
+        f"beyond half a grid step of the rows "
+        f"{rep['audit']['share_beyond_half_a_step']:.2e}, block_diagdot "
+        f"launches {block_diagdot.launches}")
+    if (rep["audit"]["estimate_excess"] > 0 or block_diagdot.launches <= 0
+            or rep["audit"]["share_beyond_half_a_step"] > 1e-4):
+        raise AssertionError("the inserted nodes' blocks are not in step "
+                             "with their rows")
+
+    tally()
+    torch.cuda.synchronize()
+    t = time.time()
+    eng.compact()
+    torch.cuda.synchronize()
+    rep["compact_s"] = time.time() - t
+    n = eng.num
+    dead_d = torch.as_tensor(dead.astype(np.int64), device=dev)
+    mask = torch.zeros(eng.capacity, dtype=torch.bool, device=dev)
+    mask[dead_d] = True
+    nbrs = eng.graph.nbrs[:n]
+    held = int((mask[nbrs.clamp(min=0).long()] & (nbrs >= 0)
+                & ~mask[:n, None]).sum())
+    synced = bool(torch.equal(eng.graph.nbrs, eng.search_space.nbr_ids))
+    log(f"churn: compact {rep['compact_s']:.2f}s, {held} removed ids left in "
+        f"live rows, adjacency and blocks in step: {synced}")
+    if held or not synced:
+        raise AssertionError("compact left removed ids in live rows")
+
+    xd = torch.cat([torch.as_tensor(ds.data, device=dev),
+                    torch.as_tensor(new, device=dev)])
+    gt = ground_truth(torch, xd, torch.as_tensor(ds.queries, device=dev), K,
+                      dead=dead_d)
+    del xd
+    ids, dist, wall, _ = timed_search(torch, idx, ds.queries, K, (),
+                                      ef_search=64)
+    check_result(ids, dist, n, "bsq8 after churn")
+    rec = calc_recall(ids, gt)
+    tally()
+    rep.update(recall=rec, qps=NQ / wall, removed_returned=back,
+               removed_in_live_rows=held)
+    log(f"churn: recall@10 over the live rows at ef 64 {rec:.4f}, "
+        f"{NQ / wall:.1f} QPS, launches {rep['launches']}")
+    if rec < CHURN_FLOOR or np.isin(ids, dead).any():
+        raise AssertionError(f"recall after churn below {CHURN_FLOOR}")
+    return rep
 
 
 def flat_phases(torch, dev, ds, gt) -> dict:
@@ -363,7 +691,9 @@ def main() -> int:
     from alayalite_tpu_torch.device import resolve_device
     from alayalite_tpu_torch.ops import _build
     from alayalite_tpu_torch.ops.diagdot import block_diagdot
+    from alayalite_tpu_torch.ops.gather_diagdot import gather_diagdot
     from alayalite_tpu_torch.ops.l2_tile import l2_tile
+    from alayalite_tpu_torch.ops.ring_probe import ring_probe
     from alayalite_tpu_torch.ops.sq8_tile import sq8_tile
     from alayalite_tpu_torch.utils.datasets import random_dataset
     from alayalite_tpu_torch.utils.evaluate import calc_recall
@@ -382,6 +712,8 @@ def main() -> int:
     log(f"build: {sorted(built)} in {report['build_s']:.2f}s")
 
     report["block_diagdot"] = check_diagdot(torch, dev)
+    report.update(check_gather_probe(torch, dev))
+    hop = (gather_diagdot, ring_probe)       # the kernels of every block hop
 
     t = time.time()
     # bench.py's synthetic SIFT1M stand-in: one cluster per 2000 rows
@@ -392,25 +724,30 @@ def main() -> int:
     idx = client.create_index("smoke", index_type="hnsw",
                               quantization_type="bsq8", max_nbrs=32,
                               ef_construction=200, prune_alpha=1.2,
-                              seed_sample=16384, beam_expand=8, capacity=N)
-    block_diagdot.launches = l2_tile.launches = sq8_tile.launches = 0
+                              seed_sample=16384, beam_expand=8,
+                              capacity=N + SPARE)
+    for c in (block_diagdot, l2_tile, sq8_tile, *hop):
+        c.launches = 0
     torch.cuda.synchronize()
     t = time.time()
     idx.fit(ds.data)
     torch.cuda.synchronize()
     fit_s = time.time() - t
-    fit_launches = block_diagdot.launches
+    fit_launches = {c.__name__: c.launches for c in hop}
     timings = idx._engine.build_timings
     log(f"fit: {fit_s:.2f}s, phases "
         + ", ".join(f"{k}={v:.2f}s" for k, v in timings.items())
-        + f", block_diagdot launches {fit_launches}, l2_tile launches "
+        + f", launches {fit_launches}, l2_tile launches "
         f"{l2_tile.launches} (find_medoid), peak mem "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if fit_launches <= 0:
-        raise AssertionError("the fit launched block_diagdot no time")
+    if min(fit_launches.values()) <= 0:
+        raise AssertionError("the fit launched a hop kernel no time")
     report["fit"] = {"seconds": fit_s, "phases": timings,
                      "launches": fit_launches,
                      "l2_tile_launches": l2_tile.launches}
+
+    report["gather_on_index"] = {"fitted": check_gather_on_index(
+        torch, idx._engine.search_space, "fitted")}
 
     t = time.time()
     xd = torch.as_tensor(ds.data, device=dev)
@@ -420,24 +757,26 @@ def main() -> int:
     log(f"ground truth: {time.time() - t:.2f}s")
 
     report["search"] = {}
-    search_launches = 0
+    search_launches = {c.__name__: 0 for c in hop}
     for ef in EFS:
         ids, dist, wall, launches = timed_search(
-            torch, idx, ds.queries, K, (block_diagdot,), ef_search=ef)
-        launches = launches["block_diagdot"]
-        search_launches += launches
+            torch, idx, ds.queries, K, hop, ef_search=ef)
+        for kernel, count in launches.items():
+            search_launches[kernel] += count
         check_result(ids, dist, N, f"bsq8 ef={ef}")
         rec = calc_recall(ids, gt)
         log(f"search ef={ef}: recall@10 {rec:.4f}, {NQ / wall:.1f} QPS "
-            f"(wall {wall:.3f}s), block_diagdot launches {launches}")
-        if launches <= 0:
-            raise AssertionError("the search launched block_diagdot no time")
+            f"(wall {wall:.3f}s), launches {launches}")
+        if min(launches.values()) <= 0:
+            raise AssertionError("the search launched a hop kernel no time")
         report["search"][ef] = {"recall": rec, "qps": NQ / wall,
                                 "wall_s": wall, "launches": launches}
     if report["search"][64]["recall"] < RECALL_FLOOR:
         raise AssertionError(f"recall@10 at ef=64 below {RECALL_FLOOR}")
 
     report["small"] = small_agreement(torch)
+    report["churn"] = churn_phase(torch, dev, idx, ds,
+                                  (*hop, block_diagdot))
     del idx, client
     gc.collect()
     torch.cuda.empty_cache()
@@ -448,15 +787,38 @@ def main() -> int:
 
     def row(name, source, replaces, launches, nums):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")
+                "library_ms", "ms_spin")
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 **{k: nums[k] for k in keys}}
 
+    churn_launches = report["churn"]["launches"]
+
+    def hop_launches(kernel):
+        return (fit_launches[kernel] + search_launches[kernel]
+                + churn_launches[kernel])
+
+    gather = report["gather_diagdot"]
     kernels = {"kernels": [
-        row("block_diagdot", "alayalite_tpu_torch/csrc/diagdot.cu",
-            "alayalite_tpu/ops/pallas_block.py:46",
-            fit_launches + search_launches, report["block_diagdot"]),
+        # off the hop since gather_diagdot took its place there: no entry
+        # point of Index reaches it; its launches are the churn phase's
+        # block audit calling the space's estimate_for on the inserted nodes
+        {**row("block_diagdot", "alayalite_tpu_torch/csrc/diagdot.cu",
+               "alayalite_tpu/ops/pallas_block.py:46",
+               churn_launches["block_diagdot"], report["block_diagdot"]),
+         "launched_by": "BQGSpace.estimate_for in the churn phase's block "
+                        "audit; 0 launches from Index entry points"},
+        # one source, two entry points; the hop launches `variant`
+        {**row("gather_diagdot", "alayalite_tpu_torch/csrc/gather_diagdot.cu",
+               "scripts/proto_dma_gather.py:48",
+               hop_launches("gather_diagdot"), gather),
+         "also_replaces": "scripts/proto_dma_gather2.py:48",
+         **{k: gather[k] for k in ("variant", "direct_ms", "staged_ms",
+                                   "direct_ms_spin", "staged_ms_spin",
+                                   "distinct_nodes")}},
+        row("ring_probe", "alayalite_tpu_torch/csrc/ring_probe.cu",
+            "scripts/proto_pallas_sort2.py:105",
+            hop_launches("ring_probe"), report["ring_probe"]),
         row("l2_tile", "alayalite_tpu_torch/csrc/l2_tile.cu",
             "alayalite_tpu/ops/pallas_distance.py:43",
             report["flat"]["exact"]["l2_tile_launches"],
@@ -469,6 +831,17 @@ def main() -> int:
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump({**report, **kernels}, f, indent=1)
     log(f"total: {report['total_s']:.1f}s")
+    churn = report["churn"]
+    print(json.dumps({"summary": {
+        "fit_s": fit_s, "fit_phases": timings, "fit_launches": fit_launches,
+        "search": report["search"],
+        "churn": {"insert": churn["insert"], "own_top1": churn["own_top1"],
+                  "compact_s": churn["compact_s"], "recall": churn["recall"],
+                  "qps": churn["qps"], "launches": churn_launches,
+                  "removed_returned": churn["removed_returned"],
+                  "removed_in_live_rows": churn["removed_in_live_rows"]},
+        "flat": {k: report["flat"][k] for k in ("fit_s", "exact", "fast")},
+        "total_s": report["total_s"]}}))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 
 Fits the main-path index (hnsw + bsq8, the headline parameters) on one GPU
 at n = 300,000 x 128 twice per dataset: once with the candidate pools the
-size gate picks there ("block": block searches that run ``block_diagdot``)
+size gate picks there ("block": block searches that run ``gather_diagdot``)
 and once with the pools it picks below 250k rows ("beam": beam searches
 over the bf16 raw vectors). The datasets are ``random_dataset(seed=42)``
 with 32 clusters (the generator's default) and with one cluster per 2000

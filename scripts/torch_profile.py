@@ -8,7 +8,10 @@ then traces with ``torch.profiler``:
   - one build-pool chunk: block_beam_search of 4096 rows at ef = 128,
     12 hops, seeded like the build's pools (scan seeds, the entry point,
     16 random nodes; the scan uses the search's sample),
-  - one occlusion-prune chunk: 4096 rows x 160 candidates, alpha 1.2;
+  - one occlusion-prune chunk: 4096 rows x 160 candidates, alpha 1.2,
+  - one insert batch: 4096 new rows drawn from the data's clusters through
+    IndexEngine.insert (the search for their edges, the append, the
+    re-selection and re-encoding of every touched row);
 then, on a flat index (the bsq8 index freed first) over the same rows:
   - one exact flat search of the 8192 queries, k = 10, and one fast-mode
     search, with the device time split into the l2_tile kernel, the top-k
@@ -27,6 +30,8 @@ import json
 import os
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, DIM, NQ, K = 1_000_000, 128, 8192, 10
@@ -129,7 +134,7 @@ def main() -> int:
     idx = Index("prof", IndexParams(
         index_type="hnsw", quantization_type="bsq8", max_nbrs=32,
         ef_construction=200, prune_alpha=1.2, seed_sample=16384,
-        beam_expand=8, capacity=N))
+        beam_expand=8, capacity=N + 3 * 4096))
     idx.fit(ds.data)
     eng = idx._engine
     out = {"card": card, "fit_phases": eng.build_timings}
@@ -160,6 +165,16 @@ def main() -> int:
     out["prune_chunk"] = trace(
         torch, "prune chunk",
         lambda: occlusion_prune_chunk(raw, cand_d, cand_i, r=32, alpha=1.2))
+    # random_dataset draws its cluster centers first from the same seed
+    clusters = max(32, N // 2000)
+    centers = (np.random.default_rng(42).normal(size=(clusters, DIM))
+               .astype(np.float32) * 4.0)
+    rng = np.random.default_rng(11)
+    batches = iter([centers[rng.integers(0, clusters, size=4096)]
+                    + rng.normal(size=(4096, DIM)).astype(np.float32)
+                    for _ in range(2)])                # warm-up, traced
+    out["insert_batch"] = trace(torch, "insert batch (4096 rows)",
+                                lambda: eng.insert(next(batches)), top=16)
     dev = eng.device
     del idx, eng, bq, raw, rows, cand_d, cand_i, q
     torch.cuda.empty_cache()
