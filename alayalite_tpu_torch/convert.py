@@ -25,8 +25,9 @@ def from_jax_arrays(params_json: str, raw_arrays: dict,
                     quant_arrays: Optional[dict] = None,
                     device: DeviceLike = None) -> IndexEngine:
     """(schema JSON, RawSpace / Graph / quantized-space array dicts) →
-    engine. A flat index has no graph; without quantized arrays the raw
-    space is also the search space."""
+    engine. A flat index has no graph; a raw graph carries its overlay
+    levels; without quantized arrays the raw space is also the search
+    space."""
     params = IndexParams.from_json(params_json)
     eng = IndexEngine(params, device=device)
     eng.space = RawSpace.load_arrays(raw_arrays,
@@ -34,8 +35,8 @@ def from_jax_arrays(params_json: str, raw_arrays: dict,
                                      device=eng.device)
     if graph_arrays is not None:
         eng.graph = Graph.load_arrays(graph_arrays, device=eng.device)
-    qtype = {QuantizationType.BSQ8: BQGSpace,
-             QuantizationType.SQ8: SQSpace}.get(params.quantization_type)
+    qtype = {QuantizationType.BSQ8: BQGSpace, QuantizationType.SQ8: SQSpace,
+             QuantizationType.SQ4: SQSpace}.get(params.quantization_type)
     eng.search_space = (eng.space if quant_arrays is None or qtype is None
                         else qtype.load_arrays(quant_arrays,
                                                device=eng.device))

@@ -18,16 +18,36 @@ JAX package turns into keys; the streams differ, so the graphs differ too.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import logging
+import time
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from ..device import synchronize
 from .prune import occlusion_prune_chunk
 from .search import beam_search, block_beam_search, scan_seeds
 
 Tensor = torch.Tensor
 FINF = float("inf")
+log = logging.getLogger("alayalite_tpu_torch")
+
+
+class PhaseTimer:
+    """Seconds per build phase into ``timings``: calling it with a name
+    closes that phase with a device sync."""
+
+    def __init__(self, device, prefix: str, timings: Dict[str, float]):
+        self.device, self.prefix, self.timings = device, prefix, timings
+        self.t = time.time()
+
+    def __call__(self, name: str) -> None:
+        synchronize(self.device)
+        now = time.time()
+        self.timings[name] = now - self.t
+        self.t = now
+        log.info("%s: %s %.2fs", self.prefix, name, self.timings[name])
 
 
 def make_generator(device: torch.device, seed: int) -> torch.Generator:

@@ -3,15 +3,18 @@
 Ported: block quantization (bsq8: ``fit`` built by ``QGBuilder``, the
 block branch of batch search, the per-query seed-scan sample, online
 insert through ``fused_block_insert``, tombstone remove with the
-compaction threshold, ``compact`` and ``update_nodes``), the flat index
-(``index_type="flat"`` with quantization none or sq8: exact and fast
+compaction threshold, ``compact`` and ``update_nodes``), the raw graph
+indices (``hnsw``, ``nsg``, ``fusion`` with quantization none, sq8 or sq4:
+``fit`` through their builders, overlay descent + beam + exact re-score,
+and for sq the quantized traversal re-ranked in the build space), the flat
+index (``index_type="flat"`` with quantization none or sq8: exact and fast
 scans, insert, tombstone remove), and save/load in the JAX package's
 on-disk layout (``schema.json`` + npz files), so either package loads the
 other's index directories, mutated or not.
 
-Not ported yet, each raising ``NotImplementedError``: raw and sq graph
-indices (ROADMAP queue 1, items 8-9), other quantizations (item 9, with
-the host-side rabitq insert), sharding (item 12).
+Not ported yet, each raising ``NotImplementedError``: insert, remove,
+compact and update_nodes on a raw graph index (ROADMAP queue 1, item 8),
+rabitq (item 9, with its host-side insert), sharding (item 12).
 
 Inserts and rewires run on batches of any size, in slices that bound the
 temporaries: the JAX package pads them to buckets only so XLA does not
@@ -36,13 +39,19 @@ from ..device import DeviceLike, resolve_device, synchronize
 from ..ops.distance import exact_topk, flat_search_device
 from ..params import IndexParams, IndexType, QuantizationType
 from ..spaces.bqg import BQGSpace
-from ..spaces.raw import RawSpace
+from ..spaces.raw import STORAGE_DTYPES, RawSpace
 from ..spaces.sq import SQSpace
 from .graph import Graph
 
 log = logging.getLogger("alayalite_tpu_torch")
 
 _FLAT_QUANT = (QuantizationType.NONE, QuantizationType.SQ8)
+_GRAPH_QUANT = (QuantizationType.NONE, QuantizationType.SQ8,
+                QuantizationType.SQ4)
+_RAW_MUTATION = ("{} on a raw graph index (hnsw, nsg, fusion with "
+                 "quantization none, sq8 or sq4) is not ported yet (ROADMAP "
+                 "queue 1, item 8: fused_raw_connect, the bsq8 insert shadow, "
+                 "overlay_update)")
 INSERT_CHUNK = 4096   # rows per fused insert step (the search's qchunk)
 REWIRE_CHUNK = 2048   # rows per rewire step: bounds the [A, W + W², D] gather
 
@@ -51,19 +60,35 @@ def check_supported(params: IndexParams) -> None:
     """Raise for the parts of IndexParams the port does not cover yet."""
     qt = params.quantization_type
     flat = params.index_type is IndexType.FLAT
-    if qt is not QuantizationType.BSQ8 and not (flat and qt in _FLAT_QUANT):
+    if qt is not QuantizationType.BSQ8 and qt not in (
+            _FLAT_QUANT if flat else _GRAPH_QUANT):
         raise NotImplementedError(
             f"index_type={params.index_type.value!r} with quantization_type="
-            f"{qt.value!r} is not ported yet: the port covers bsq8 and flat "
-            "indices with none or sq8 (ROADMAP queue 1, items 8-9 hold raw "
-            "and sq graphs, sq4 and rabitq)")
+            f"{qt.value!r} is not ported yet: the port covers bsq8, graph "
+            "indices with none, sq8 or sq4, and flat indices with none or "
+            "sq8 (ROADMAP queue 1, item 9 holds rabitq)")
     if max(params.db_shards, params.build_shards, params.serve_shards) > 1:
         raise NotImplementedError(
             "sharded indices are not ported yet (ROADMAP queue 1, item 12)")
-    if params.storage_dtype != "float32":
+    if params.storage_dtype not in STORAGE_DTYPES:
         raise NotImplementedError(
             f"storage_dtype={params.storage_dtype!r} is not ported yet "
-            "(ROADMAP queue 1, item 8)")
+            "(ROADMAP queue 1, item 8: integer and float16 storage)")
+
+
+def _make_builder(params: IndexParams, seed: int = 0):
+    from .fusion import FusionGraphBuilder
+    from .hnsw import HNSWBuilder
+    from .nsg import NSGBuilder
+
+    r, l, a = params.max_nbrs, params.ef_construction, float(params.prune_alpha)
+    if params.index_type is IndexType.HNSW:
+        return HNSWBuilder(r=r, l=l, seed=seed, alpha=a)
+    if params.index_type is IndexType.NSG:
+        return NSGBuilder(r=r, l=max(l // 2, 64), seed=seed, alpha=a)
+    if params.index_type is IndexType.FUSION:
+        return FusionGraphBuilder(r=r, l=l, seed=seed, alpha=a)
+    raise ValueError(f"no graph builder for {params.index_type}")
 
 
 class IndexEngine:
@@ -105,6 +130,7 @@ class IndexEngine:
         p = self.params
         metric = p.metric.value
         self.space = RawSpace.create(capacity, dim, metric=metric,
+                                     storage_dtype=p.storage_dtype,
                                      device=self.device).fit(v)
         self._sscan = None
         if p.quantization_type is QuantizationType.BSQ8:
@@ -119,13 +145,21 @@ class IndexEngine:
                                                                 bqg, n)
             self.build_timings = dict(builder.timings)
         else:
-            # flat: no graph; an sq8 index also builds and saves the codes,
-            # but searches the raw rows, as the JAX package does
+            bits = {QuantizationType.SQ8: 8,
+                    QuantizationType.SQ4: 4}.get(p.quantization_type)
+            # an sq index encodes the rows; a graph walks the codes and
+            # re-ranks in the raw space, a flat index scans the raw rows
+            # (and saves the codes), as the JAX package does
+            self.search_space = (self.space if bits is None else
+                                 SQSpace.create(capacity, dim, bits=bits,
+                                                metric=metric,
+                                                device=self.device).fit(v))
+            del v
             self.graph = None
-            self.search_space = (SQSpace.create(capacity, dim, metric=metric,
-                                                device=self.device).fit(v)
-                                 if p.quantization_type is
-                                 QuantizationType.SQ8 else self.space)
+            if p.index_type is not IndexType.FLAT:
+                builder = _make_builder(p)
+                self.graph = builder.build_graph(self.space, n)
+                self.build_timings = dict(builder.timings)
         self._fitted = True
         synchronize(self.device)
         log.info("fit: n=%d dim=%d in %.2fs", n, dim, time.time() - t0)
@@ -163,8 +197,10 @@ class IndexEngine:
         q = torch.atleast_2d(q)
         if self.params.index_type is IndexType.FLAT:
             return self._flat_search(q, topk)
-        qchunk = 1024 if self.space.dim >= 512 else 4096
         ef = max(int(ef), int(topk))
+        if not self._is_block:
+            return self._graph_search(q, topk, ef)
+        qchunk = 1024 if self.space.dim >= 512 else 4096
         seed_arrays = self._seed_scan_arrays()
         if (seed_arrays is None and self.params.seed_sample <= 0
                 and self.space.num >= 512
@@ -199,6 +235,31 @@ class IndexEngine:
         ids, d = self.batch_search_with_distance(np.atleast_2d(query), topk,
                                                  ef)
         return ids[0], d[0]
+
+    @property
+    def _is_block(self) -> bool:
+        return self.params.quantization_type is QuantizationType.BSQ8
+
+    def _graph_search(self, q: torch.Tensor, topk: int, ef: int):
+        """Raw graph search. Raw space: descent, beam and exact re-score of
+        the k results. sq space: the walk keeps a pool of ``ef`` ids by the
+        quantized distance, re-ranked exactly in the build space."""
+        from .search import exact_rescore, graph_search_device
+
+        g, p = self.graph, self.params
+        kw = dict(max_iters=p.search_iters, valid=self.space.valid,
+                  n_expand=p.beam_expand)
+        if self.search_space is self.space:
+            d, i = graph_search_device(self.space, g.nbrs, g.eps, g.overlay,
+                                       self.space.prep_query(q), k=topk,
+                                       ef=ef, **kw)
+            return i, d
+        _, pool = graph_search_device(self.search_space, g.nbrs, g.eps,
+                                      g.overlay,
+                                      self.search_space.prep_query(q), k=ef,
+                                      ef=ef, exact_rerank=False, **kw)
+        d, i = exact_rescore(self.space, self.space.prep_query(q), pool, topk)
+        return i, d
 
     def _flat_search(self, q: torch.Tensor, topk: int):
         """Brute-force scan of the live raw rows (a flat + sq8 index scans
@@ -255,6 +316,7 @@ class IndexEngine:
         Returns the new ids, −1 where capacity was exhausted
         (``Index.insert`` raises)."""
         self._require_fitted()
+        self._refuse_raw_mutation("insert")
         v = torch.atleast_2d(torch.as_tensor(
             np.asarray(vectors, dtype=np.float32), device=self.device))
         if self.graph is not None:
@@ -285,6 +347,10 @@ class IndexEngine:
             self.space.insert(sub)
         return torch.cat(out)
 
+    def _refuse_raw_mutation(self, what: str) -> None:
+        if self.graph is not None and not self._is_block:
+            raise NotImplementedError(_RAW_MUTATION.format(what))
+
     def remove(self, ids) -> None:
         """Tombstone ``ids`` in both spaces; searches skip them. On a graph
         index, once the tombstones since the last compaction exceed
@@ -293,6 +359,7 @@ class IndexEngine:
         clip ids, so an out-of-range id would remove whatever lives at the
         clip target."""
         self._require_fitted()
+        self._refuse_raw_mutation("remove")
         raw = np.atleast_1d(np.asarray(ids))
         if raw.size and (raw.min() < 0 or raw.max() >= self.space.capacity):
             raise ValueError(
@@ -318,6 +385,7 @@ class IndexEngine:
         compaction and replace dead entry points with live rows. Ids are
         stable: removed slots stay tombstoned and are never reused."""
         self._require_fitted()
+        self._refuse_raw_mutation("compact")
         if self.graph is None or not self._removed:
             self._removed = []
             return
@@ -356,6 +424,7 @@ class IndexEngine:
         exact distance; the rebuilt rows are re-encoded in the same pass.
         Every row is computed from the adjacency as it stands on entry."""
         self._require_fitted()
+        self._refuse_raw_mutation("update_nodes")
         if self.graph is None:
             raise RuntimeError("flat index has no graph to update")
         ids = torch.as_tensor(ids, device=self.device).reshape(-1).long()

@@ -19,16 +19,13 @@ fixed here. Each phase ends in a device sync and its seconds go into
 from __future__ import annotations
 
 import dataclasses
-import logging
-import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ..device import synchronize
-from .build_phases import (block_pool_dev, bf16_pool_space, fill_degree_dev,
-                           make_generator, prune_all_dev,
+from .build_phases import (PhaseTimer, bf16_pool_space, block_pool_dev,
+                           fill_degree_dev, make_generator, prune_all_dev,
                            reprune_with_reverse_dev, reverse_edges_dev,
                            search_pool_dev)
 from .graph import Graph
@@ -36,8 +33,6 @@ from .nndescent import build_knn_graph
 from .nsg import find_medoid
 from .repair_dev import repair_connectivity
 from .search import seed_sample_arrays
-
-log = logging.getLogger("alayalite_tpu_torch")
 
 BLOCK_POOL_MIN_ROWS = 250_000
 KNN_K = 32          # kNN graph width
@@ -67,14 +62,7 @@ class QGBuilder:
                 "(ROADMAP queue 1, item 5 ports 'beam' and 'block')")
         dev = raw_space.device
         self.timings = {}
-        t_phase = [time.time()]
-
-        def phase(name):
-            synchronize(dev)
-            now = time.time()
-            self.timings[name] = now - t_phase[0]
-            t_phase[0] = now
-            log.info("qg: %s %.2fs", name, self.timings[name])
+        phase = PhaseTimer(dev, "qg", self.timings)
 
         # above 100k rows, 8 rounds: scan-seeded pools clean up the
         # residual kNN noise

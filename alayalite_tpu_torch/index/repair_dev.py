@@ -12,7 +12,10 @@ Every node must be reachable from the entry point. Each round:
 Difference from the JAX package: ``repair_connectivity`` there takes this
 device path only above 200k rows and repairs smaller graphs on the host
 (``nsg._attach_unreached``, scipy components). The port takes the device
-path at every n; the host path waits in ROADMAP beside the NSG builder.
+path at every n: on an H100 it repairs hnsw and nsg graphs of 100,000 and
+200,000 rows several times faster than the host route with its download
+and upload, and both end under the same tolerance
+(``scripts/torch_choice_probe.py repair``).
 """
 
 from __future__ import annotations

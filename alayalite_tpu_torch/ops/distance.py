@@ -28,7 +28,8 @@ from typing import Optional, Tuple
 import torch
 
 from .l2_tile import l2_tile
-from .topk import merge_topk, select_smallest, topk_smallest
+from .pool_sort import merge_kv
+from .topk import select_smallest, topk_smallest
 
 FINF = float("inf")
 Tensor = torch.Tensor
@@ -121,8 +122,9 @@ def _exact_topk_device(q: Tensor, x: Tensor, x_sq: Optional[Tensor],
         if t in masked:
             d.masked_fill_(~valid[lo:hi], FINF)
         d_t, sel = select_smallest(d, min(k, hi - lo))
-        best_d, best_i = merge_topk(best_d, best_i, d_t,
-                                    sel.to(torch.int32) + lo, k)
+        # both lists are ascending: the merge network, not a sort
+        best_d, best_i = merge_kv(best_d, best_i, d_t.contiguous(),
+                                  sel.to(torch.int32) + lo, k)
     best_i = torch.where(torch.isfinite(best_d), best_i,
                          torch.full_like(best_i, -1))
     return best_d, best_i

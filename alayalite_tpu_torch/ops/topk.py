@@ -3,8 +3,10 @@
 The pool is a fixed-width ``[B, L]`` row per query, merged with candidates
 by one stable sort of the concatenated row. Stability is the tie rule the
 searches rely on: among equal distances, entries of the first operand come
-first. Ids and the per-entry flag ride one int32 payload ``id*2 + flag``
-(exact for every id ≥ −1: the arithmetic shift restores the sign).
+first. The sort is ``ops/pool_sort``: on a CUDA tensor the hand-written
+kernels (``pool_merge`` for the three merges, ``sort_kv`` for
+``topk_smallest``), on a CPU tensor their plain versions, with the same
+values, ids and flags either way.
 """
 
 from __future__ import annotations
@@ -13,14 +15,18 @@ from typing import Tuple
 
 import torch
 
+from .pool_sort import pool_merge, sort_kv
+
 Tensor = torch.Tensor
 
 
 def topk_smallest(d: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     """(values, indices) of the ``k`` smallest entries per row, ascending,
     lower index first among ties — the order ``lax.top_k(-d, k)`` gives."""
-    vals, idx = torch.sort(d, dim=-1, stable=True)
-    return vals[..., :k], idx[..., :k]
+    lead = d.shape[:-1]
+    vals, _, idx = sort_kv(d.reshape(-1, d.shape[-1]).contiguous(),
+                           k=min(int(k), d.shape[-1]), return_index=True)
+    return vals.view(*lead, -1), idx.view(*lead, -1)
 
 
 def select_smallest(d: Tensor, k: int) -> Tuple[Tensor, Tensor]:
@@ -36,30 +42,20 @@ def select_smallest(d: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     return vals, torch.gather(idx, -1, order2)
 
 
-def _sorted_payload(d1, p1, d2, p2, k: int):
-    cat_d = torch.cat([d1, d2], dim=-1)
-    pay = torch.cat([p1, p2], dim=-1)
-    sd, order = torch.sort(cat_d, dim=-1, stable=True)
-    order = order[..., :k]
-    return sd[..., :k], torch.gather(pay, -1, order)
-
-
 def merge_topk(d1: Tensor, i1: Tensor, d2: Tensor, i2: Tensor,
                k: int) -> Tuple[Tensor, Tensor]:
     """Merge two batched candidate sets by smallest distance → top-k.
     d1 [B, L1], d2 [B, L2] → ([B, k], [B, k]) sorted ascending."""
-    return _sorted_payload(d1, i1, d2, i2, k)
-
-
-def _pack(i: Tensor, f: Tensor) -> Tensor:
-    return i * 2 + f.to(torch.int32)
+    sd, ids, _ = pool_merge(d1.contiguous(), i1.contiguous(), None,
+                            d2.contiguous(), i2.contiguous(), None, k)
+    return sd, ids
 
 
 def merge_topk_with_flags(d1, i1, f1, d2, i2, f2,
                           k: int) -> Tuple[Tensor, Tensor, Tensor]:
     """merge_topk carrying a per-entry bool flag (e.g. 'checked')."""
-    sd, sp = _sorted_payload(d1, _pack(i1, f1), d2, _pack(i2, f2), k)
-    return sd, sp >> 1, (sp & 1) == 1
+    return pool_merge(d1.contiguous(), i1.contiguous(), f1.contiguous(),
+                      d2.contiguous(), i2.contiguous(), f2.contiguous(), k)
 
 
 def merge_topk_dedup(d1, i1, f1, d2, i2, f2,
@@ -70,10 +66,6 @@ def merge_topk_dedup(d1, i1, f1, d2, i2, f2,
     candidates all come from the same estimate formula), so after the
     stable sort they are adjacent. The later copy becomes
     ``(inf, -1, checked)``: the pop skips it and the next merge sinks it."""
-    sd, sp = _sorted_payload(d1, _pack(i1, f1), d2, _pack(i2, f2), k)
-    prev = torch.cat([torch.full_like(sp[..., :1], -3), sp[..., :-1]], dim=-1)
-    dup = (sp == prev) & (sp >= 0) & torch.isfinite(sd)
-    sd = torch.where(dup, torch.full_like(sd, float("inf")), sd)
-    ids = torch.where(dup, torch.full_like(sp, -1), sp >> 1)
-    flags = ((sp & 1) == 1) | dup
-    return sd, ids, flags
+    return pool_merge(d1.contiguous(), i1.contiguous(), f1.contiguous(),
+                      d2.contiguous(), i2.contiguous(), f2.contiguous(), k,
+                      dedup=True)

@@ -16,6 +16,9 @@ import torch
 from ..ops.distance import normalize_rows, sqnorms
 
 
+STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def bump_slots(num: int, b: int, capacity: int, device: torch.device):
     """Slots for ``b`` rows appended at the bump pointer ``num``: (ids i32
     [b], −1 past capacity; how many fit)."""
@@ -36,13 +39,14 @@ def tombstone(valid: torch.Tensor, ids) -> None:
 
 @dataclasses.dataclass
 class RawSpace:
-    data: torch.Tensor       # [capacity, dim] f32 (bf16 for the pool copy)
+    data: torch.Tensor       # [capacity, dim] f32, or bf16 (bf16 storage and
+                             # the build's pool copy)
     sq_norms: torch.Tensor   # [capacity] f32 (0 for empty slots)
     valid: torch.Tensor      # [capacity] bool
     num: int                 # bump counter (next free slot)
     metric: str              # compute metric: 'l2' | 'ip'
     user_metric: str         # as requested: 'l2' | 'ip' | 'cos'
-    bf16: bool = False       # traversal-only bf16 copy (bf16_pool_space)
+    bf16: bool = False       # bf16 rows: queries are rounded to bf16 too
 
     @property
     def capacity(self) -> int:
@@ -60,13 +64,14 @@ class RawSpace:
     def create(capacity: int, dim: int, metric: str = "l2",
                storage_dtype: str = "float32",
                device: torch.device = torch.device("cpu")) -> "RawSpace":
-        if storage_dtype != "float32":
+        if storage_dtype not in STORAGE_DTYPES:
             raise NotImplementedError(
                 f"storage_dtype={storage_dtype!r} is not ported yet "
-                "(ROADMAP queue 1, item 8: raw graph path)")
+                "(ROADMAP queue 1, item 8: integer and float16 storage)")
         metric = metric.lower()
         return RawSpace(
-            data=torch.zeros((capacity, dim), dtype=torch.float32,
+            data=torch.zeros((capacity, dim),
+                             dtype=STORAGE_DTYPES[storage_dtype],
                              device=device),
             sq_norms=torch.zeros((capacity,), dtype=torch.float32,
                                  device=device),
@@ -74,6 +79,7 @@ class RawSpace:
             num=0,
             metric="ip" if metric in ("ip", "cos") else "l2",
             user_metric=metric,
+            bf16=storage_dtype == "bfloat16",
         )
 
     def prep_query(self, q: torch.Tensor) -> torch.Tensor:
@@ -149,8 +155,9 @@ class RawSpace:
                              metric=str(d["metric"]),
                              storage_dtype=storage_dtype, device=device)
         # data on disk is already normalized for cos: no re-normalize
-        sp.data = torch.tensor(data, device=device)
-        sp.sq_norms = sqnorms(sp.data)
+        full = torch.tensor(data, device=device)
+        sp.data = full.to(sp.data.dtype)
+        sp.sq_norms = sqnorms(full)
         sp.valid = torch.tensor(np.asarray(d["valid"], dtype=bool),
                                 device=device)
         sp.num = int(d["num"])

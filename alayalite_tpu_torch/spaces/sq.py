@@ -1,17 +1,26 @@
-"""SQSpace: per-dimension scalar quantization to 8 bits (port of the sq8
-part of ``spaces/sq.py``).
+"""SQSpace: per-dimension scalar quantization to 8 or 4 bits (port of
+``spaces/sq.py``).
 
-A plain dataclass of tensors on one device: ``codes[capacity, dim]`` u8,
-the per-dimension ``dmin`` and ``scale``, ``|x̂|²`` per row, a ``valid``
-mask and a ``num`` bump counter. ``code = round((v − dmin) / scale)``
-clipped to [0, 255]; ``torch.round`` rounds half to even like
-``jnp.round``, so the codes come out byte-identical to the JAX package's.
-COS rows are normalized first and the compute metric becomes IP.
+A plain dataclass of tensors on one device: ``codes`` u8 ``[capacity, dim]``
+(sq8) or ``[capacity, ceil(dim / 2)]`` (sq4: two codes per byte, even
+dimension in the low nibble), the per-dimension ``dmin`` and ``scale``,
+``|x̂|²`` per row, a ``valid`` mask and a ``num`` bump counter.
+``code = round((v − dmin) / scale)`` clipped to [0, levels];
+``torch.round`` rounds half to even like ``jnp.round``, so the codes come
+out byte-identical to the JAX package's. COS rows are normalized first and
+the compute metric becomes IP.
+
+``gather_dists`` is the asymmetric distance of a quantized graph
+traversal: with x̂ = c∘s + m, q·x̂ = (q∘s)·(c − h) + q·(m + h·s), h =
+(levels + 1) / 2; the centred codes and q∘s are bf16 values (both exact or
+rounded as in the JAX package), products and sums f32. An sq8 space on a
+CUDA device takes that sum through ``ops/gather_diagdot`` (the codes as
+one-row blocks); sq4, and any space on the CPU, through ``index_select`` and
+``torch.bmm``.
 
 ``fit``, ``insert`` and ``remove`` update the tensors in place (the JAX
-package returns a new pytree). The distance tile against these codes is
-``ops/sq8_tile.sq8_tile``. ``bits=4`` and ``gather_dists`` (quantized
-graph traversal) wait for the graph path, ROADMAP queue 1 items 8-9.
+package returns a new pytree). The distance tile against sq8 codes is
+``ops/sq8_tile.sq8_tile``.
 """
 
 from __future__ import annotations
@@ -23,16 +32,14 @@ import numpy as np
 import torch
 
 from ..ops.distance import normalize_rows
+from ..ops.gather_diagdot import gather_diagdot
 from .raw import bump_slots, tombstone
-
-_NOT_PORTED = "(ROADMAP queue 1, items 8-9: sq graph traversal)"
-
 
 @dataclasses.dataclass
 class SQSpace:
-    codes: torch.Tensor      # [capacity, dim] u8
+    codes: torch.Tensor      # [capacity, dim] u8; sq4 [capacity, ceil(dim/2)]
     dmin: torch.Tensor       # [dim] f32 per-dim minimum
-    scale: torch.Tensor      # [dim] f32 per-dim (max − min) / 255
+    scale: torch.Tensor      # [dim] f32 per-dim (max − min) / levels
     xhat_sq: torch.Tensor    # [capacity] f32 |decoded row|²
     valid: torch.Tensor      # [capacity] bool
     num: int                 # bump counter (next free slot)
@@ -56,13 +63,12 @@ class SQSpace:
     @staticmethod
     def create(capacity: int, dim: int, bits: int = 8, metric: str = "l2",
                device: torch.device = torch.device("cpu")) -> "SQSpace":
-        if bits == 4:
-            raise NotImplementedError(f"sq4 is not ported yet {_NOT_PORTED}")
-        if bits != 8:
+        if bits not in (4, 8):
             raise ValueError("bits must be 4 or 8")
         metric = metric.lower()
+        width = dim if bits == 8 else (dim + 1) // 2
         return SQSpace(
-            codes=torch.zeros((capacity, dim), dtype=torch.uint8,
+            codes=torch.zeros((capacity, width), dtype=torch.uint8,
                               device=device),
             dmin=torch.zeros((dim,), dtype=torch.float32, device=device),
             scale=torch.ones((dim,), dtype=torch.float32, device=device),
@@ -88,11 +94,24 @@ class SQSpace:
                                                   min=1e-30)),
                         0, float(self.levels))
         xhat = c * self.scale[None, :] + self.dmin[None, :]
-        return c.to(torch.uint8), (xhat * xhat).sum(-1)
+        xsq = (xhat * xhat).sum(-1)
+        c = c.to(torch.uint8)
+        if self.bits == 4:
+            if v.shape[1] % 2:
+                c = torch.nn.functional.pad(c, (0, 1))
+            c = c[:, 0::2] | (c[:, 1::2] << 4)
+        return c, xsq
+
+    def _decode_codes(self, packed: torch.Tensor) -> torch.Tensor:
+        """packed [..., dim or ceil(dim/2)] u8 → codes [..., dim] f32."""
+        if self.bits == 8:
+            return packed.float()
+        c = torch.stack([packed & 0x0F, packed >> 4], dim=-1)
+        return c.reshape(*packed.shape[:-1], -1)[..., :self.dim].float()
 
     def decode(self, ids: torch.Tensor) -> torch.Tensor:
         """Reconstructed rows ``codes[ids]·scale + dmin``, f32."""
-        return self.codes[ids].float() * self.scale + self.dmin
+        return self._decode_codes(self.codes[ids]) * self.scale + self.dmin
 
     # ---- fit / insert / remove (in place) ----
     def fit(self, vectors) -> "SQSpace":
@@ -139,9 +158,37 @@ class SQSpace:
         """Tombstone ``ids`` in place (see ``spaces.raw.tombstone``)."""
         tombstone(self.valid, ids)
 
-    def gather_dists(self, q: torch.Tensor, ids: torch.Tensor):
-        raise NotImplementedError(
-            f"SQSpace.gather_dists is not ported yet {_NOT_PORTED}")
+    def gather_dists(self, q: torch.Tensor, ids: torch.Tensor
+                     ) -> torch.Tensor:
+        """f32 [B, K] asymmetric distances from q [B, D] (prep_query'd) to
+        the decoded rows ``ids`` [B, K] (−1 allowed; the caller masks). The
+        codes are centred (c − h) before the product and the offset is
+        folded into the per-query constant: uncentred, a large positive dot
+        cancels against q·dmin and the bf16 rounding of q∘s grows
+        ~levels/2-fold."""
+        B, K = ids.shape
+        safe = ids.clamp(0, self.capacity - 1).reshape(-1)
+        half = float((self.levels + 1) // 2)
+        qs = (q * self.scale[None, :]).to(torch.bfloat16)
+        if self.bits == 8 and q.device.type == "cuda":
+            # the codes as one-row blocks [C, 1, dim]: the kernel reads the
+            # u8 rows once, with no decoded copy
+            dot_c = gather_diagdot(self.codes.view(self.capacity, 1, -1),
+                                   safe.view(B, K), qs.contiguous())
+        else:
+            # c − h is an integer of at most 8 bits: exact in bf16, and its
+            # product with a bf16 value is exact in f32
+            cf = self._decode_codes(self.codes.index_select(0, safe)) - half
+            dot_c = torch.bmm(cf.view(B, K, -1),
+                              qs.float().unsqueeze(2)).squeeze(2)
+        # q·x̂ = (q∘s)·(c − h) + q·(m + h·s)
+        shift = self.dmin[None, :] + half * self.scale[None, :]
+        q_dot_x = dot_c + (q * shift).sum(-1, keepdim=True)
+        if self.metric == "ip":
+            return -q_dot_x
+        q_sq = (q * q).sum(-1, keepdim=True)
+        d = q_sq - 2.0 * q_dot_x + self.xhat_sq.index_select(0, safe).view(B, K)
+        return torch.clamp(d, min=0.0)
 
     # ---- persistence (the JAX package's npz keys) ----
     def save_arrays(self) -> dict:

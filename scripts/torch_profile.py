@@ -12,7 +12,12 @@ then traces with ``torch.profiler``:
   - one insert batch: 4096 new rows drawn from the data's clusters through
     IndexEngine.insert (the search for their edges, the append, the
     re-selection and re-encoding of every touched row);
-then, on a flat index (the bsq8 index freed first) over the same rows:
+then, on a raw hnsw index with the default parameters (no quantization;
+the bsq8 index freed first) fitted on the same rows:
+  - one batch_search of the 8192 queries at ef = 64 (overlay descent, beam
+    over the f32 rows, exact re-score), and one pool chunk of its build:
+    beam_search of 4096 rows at ef = 128 over the bf16 copy of the rows;
+then, on a flat index over the same rows:
   - one exact flat search of the 8192 queries, k = 10, and one fast-mode
     search, with the device time split into the l2_tile kernel, the top-k
     selection (torch.topk and the merge sorts) and the rest; beside it the
@@ -112,6 +117,33 @@ def flat_windows(torch, ds, dev) -> dict:
     return out
 
 
+def raw_windows(torch, ds, dev) -> dict:
+    from alayalite_tpu_torch import Index, IndexParams
+    from alayalite_tpu_torch.index.build_phases import bf16_pool_space
+    from alayalite_tpu_torch.index.search import beam_search
+
+    idx = Index("raw", IndexParams(index_type="hnsw", capacity=N))
+    idx.fit(ds.data)
+    eng = idx._engine
+    out = {"fit_phases": eng.build_timings}
+    q = torch.as_tensor(ds.queries, device=dev)
+    out["search_ef64"] = trace(
+        torch, "raw hnsw search ef=64",
+        lambda: eng._batch_search_impl(q, K, 64), top=16)
+    pool_space = bf16_pool_space(eng.space)
+    rows = eng.space.data[:4096]
+    seeds = torch.cat([eng.graph.eps[None, :1].expand(4096, -1),
+                       torch.randint(0, N, (4096, 16), device=dev,
+                                     dtype=torch.int32)], 1)
+    out["pool_chunk"] = trace(
+        torch, "raw build pool chunk",
+        lambda: beam_search(pool_space, eng.graph.nbrs, seeds, rows, k=128,
+                            ef=128, n_expand=8))
+    del idx, eng, pool_space
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -178,6 +210,7 @@ def main() -> int:
     dev = eng.device
     del idx, eng, bq, raw, rows, cand_d, cand_i, q
     torch.cuda.empty_cache()
+    out["raw"] = raw_windows(torch, ds, dev)
     out["flat"] = flat_windows(torch, ds, dev)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "torch_profile.json"),

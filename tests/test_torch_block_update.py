@@ -21,6 +21,10 @@ from alayalite_tpu_torch.spaces.bqg import BQGSpace
 from alayalite_tpu_torch.utils.datasets import random_dataset
 from alayalite_tpu_torch.utils.evaluate import calc_gt, calc_recall
 
+# the tensors here are small: more threads only contend with the other
+# test workers' (the fits run twice as fast with two)
+torch.set_num_threads(2)
+
 DIM = 16
 
 

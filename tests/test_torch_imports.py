@@ -89,21 +89,29 @@ def test_unported_surfaces_raise():
     from alayalite_tpu_torch import Client
 
     c = Client(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c.create_index("nsg", index_type="nsg")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c.create_index("sq8", quantization_type="sq8")
+    # the graph index types and sq8 / sq4 are ported; what still waits:
+    # rabitq (both widths), integer and float16 storage, sharding, the
+    # collection, and mutation of a raw graph index
+    for quant in ("rabitq", "rabitq2"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            c.create_index("r", quantization_type=quant)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         c.create_index("u8", index_type="flat", data_type="uint8")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        c.create_index("f16", storage_dtype="float16")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        c.create_index("flat4", index_type="flat", quantization_type="sq4")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         c.create_index("shards", index_type="flat", db_shards=2)
+    for shards in ("build_shards", "serve_shards"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            c.create_index("shards", index_type="hnsw", **{shards: 2})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         c.create_collection("col")
-    # block maintenance is ported for bsq8; the other block quantization
-    # (with its host-side insert) and the raw graph index types still wait
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c.create_index("r", quantization_type="rabitq")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c.create_index("fu", index_type="fusion")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c.create_index("bf", quantization_type="bsq8", storage_dtype="bfloat16")
+    for kind in ("hnsw", "nsg", "fusion"):
+        idx = c.create_index(kind, index_type=kind, capacity=300, max_nbrs=8)
+        idx.fit(torch.randn(200, 8).numpy())
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            idx.insert(torch.zeros(8).numpy())
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            idx.remove([1])

@@ -21,6 +21,10 @@ from alayalite_tpu_torch.ops.gather_diagdot import gather_diagdot
 from alayalite_tpu_torch.utils.datasets import random_dataset
 from alayalite_tpu_torch.utils.evaluate import calc_gt, calc_recall
 
+# the tensors here are small: more threads only contend with the other
+# test workers' (the fits run twice as fast with two)
+torch.set_num_threads(2)
+
 N, DIM, NQ, K = 2000, 32, 64, 10
 PARAMS = dict(index_type="hnsw", quantization_type="bsq8", capacity=N,
               max_nbrs=16, ef_construction=64, metric="l2")

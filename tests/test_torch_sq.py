@@ -100,11 +100,13 @@ def test_save_arrays_match_and_load_a_jax_save(tmp_path):
 
 
 def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SQSpace.create(10, 4, bits=4)
-    with pytest.raises(ValueError):
-        SQSpace.create(10, 4, bits=2)
+    """Only 8 and 4 bits exist, as in the JAX package; both are ported, with
+    ``gather_dists`` (tests/test_torch_graph_search.py holds them to JAX)."""
+    for bits in (2, 1, 16):
+        with pytest.raises(ValueError):
+            SQSpace.create(10, 4, bits=bits)
+    assert SQSpace.create(10, 5, bits=4).codes.shape == (10, 3)
     sp = SQSpace.create(10, 4).fit(torch.zeros((10, 4)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sp.gather_dists(torch.zeros((1, 4)), torch.zeros((1, 3),
+    d = sp.gather_dists(torch.zeros((1, 4)), torch.zeros((1, 3),
                                                          dtype=torch.int32))
+    assert d.shape == (1, 3) and (d == 0).all()
