@@ -19,7 +19,10 @@
 // (roll_kernel_n). Those hold 32 or 128 lists as one [BT, K] or [K, BT] tile
 // and reach a lane's partner with two circular rolls per stage; neither the
 // tile nor the roll is part of the function. Here a list lives in shared
-// memory and a thread reads its partner there.
+// memory and a thread reads its partner there; pool_merge, the one that
+// runs in every hop, keeps each list in one warp's registers instead (the
+// warp route below) and uses the shared-memory network only for lists
+// longer than a warp holds.
 //
 // The order is total. Every entry is one 64-bit word: the key's bits made
 // monotone (-0 and +0 equal, NaN after +inf) in the high half, the entry's
@@ -33,7 +36,8 @@
 // Bound: memory, by the bytes that must move (each input read once, each
 // output written once); the compare-exchanges, log2(P)(log2(P)+1)/2 stages
 // of P/2 each on the CUDA cores, stay below it on paper and above it in
-// practice, since every stage is a shared-memory round trip. The design
+// practice, since every stage of the network is a shared-memory round
+// trip. The network's design
 // keeps a list on chip from load to store: one thread block holds 256 / T
 // lists of T = min(P/2, 256) threads each, so short lists share a block;
 // stages whose partner distance is at most 32 touch only words the same
@@ -282,6 +286,257 @@ pool_merge_kernel(const float* __restrict__ d1, const int* __restrict__ i1,
   }
 }
 
+// ------------------------------------------------------------------------
+// pool_merge, the warp route: one warp per list, the words in registers.
+//
+// A list of P = 32 R words (P a power of two, R = 1 .. 16) lives in one
+// warp, lane l holding the words l R .. l R + R - 1 of the list in w[0, R).
+// A stage of partner distance j < R is a compare-exchange between two of a
+// lane's own registers; a wider stage exchanges w[r] with lane l ^ (j / R)
+// through __shfl_xor_sync (two 32-bit shuffles per word), each lane keeping
+// the smaller or the larger word by its place in the pair and the
+// direction of the stage. No stage touches shared memory or a barrier.
+//
+// The hop's merge is three such pieces rather than one sort of the padded
+// concatenation:
+//   1. the L2 candidates are sorted alone (P2 = 256 at the hop: 36 stages;
+//      512 at the fusion index's hop, whose rows are twice as wide);
+//   2. the pool (L1 words) is sorted only if it is not ascending. It is the
+//      previous merge's output, ascending except where the dedup left an
+//      (inf, -1) hole; one __all_sync over the lanes decides;
+//   3. the first M = pow2(kout) words of each sorted list meet in a
+//      per-warp slot of shared memory; lane l takes C[i] = min(A[i],
+//      B[M - 1 - i]) for its i, the M smallest of both lists as a bitonic
+//      sequence, and one bitonic merge of M words (log2 M stages) sorts it.
+//      That slot is the one shared-memory round trip, between the sorts and
+//      the merge; no stage goes through it.
+// All words differ, so the first kout of C are exactly the first kout of
+// the stable sort of the concatenation: what pool_merge_kernel above
+// returns, bit for bit. Slots past a list's end hold ~0, above every real
+// word (a NaN key's word has a real position in its low half).
+//
+// Bound: as above, the bytes (6.6 MB at [4096, 64 + 256], 64 out); the
+// compare-exchanges are ~1,700 instructions per warp at the hop's shape.
+
+constexpr u64 kPadWord = ~0ull;
+constexpr int kWarpRoute = 512;   // longest list (and pow2(kout)) in a warp
+constexpr int kWarpBlock = 128;   // four lists per block
+
+template <int R>
+__device__ __forceinline__ void warp_stage(u64 (&w)[R], int lane, int size,
+                                           int j) {
+  if (j >= R) {
+    const int lj = j / R;
+    const bool lower = (lane & lj) == 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool up = ((lane * R + r) & size) == 0;
+      const u64 other = __shfl_xor_sync(0xffffffffu, w[r], lj);
+      const bool keep_min = lower == up;
+      const bool take = keep_min ? other < w[r] : other > w[r];
+      w[r] = take ? other : w[r];
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if ((r & j) == 0) {
+        const bool up = ((lane * R + r) & size) == 0;
+        const u64 a = w[r];
+        const u64 b = w[r | j];
+        if ((a > b) == up) {
+          w[r] = b;
+          w[r | j] = a;
+        }
+      }
+    }
+  }
+}
+
+// bitonic sort of the warp's 32 R words, ascending
+template <int R>
+__device__ __forceinline__ void warp_sort(u64 (&w)[R], int lane) {
+  constexpr int kLog = (R >= 32 ? 5 : R >= 16 ? 4 : R >= 8 ? 3
+                        : R >= 4 ? 2 : R >= 2 ? 1 : 0) + 5;
+#pragma unroll
+  for (int ls = 1; ls <= kLog; ++ls) {
+#pragma unroll
+    for (int lj = ls - 1; lj >= 0; --lj) {
+      warp_stage<R>(w, lane, 1 << ls, 1 << lj);
+    }
+  }
+}
+
+// Load one list of n keys (positions pos0 + idx) into the warp's registers,
+// sort it (the pool only if it is not ascending), and write its first m
+// words to s[0, m).
+template <int R>
+__device__ void warp_list(const float* __restrict__ keys, int n, int pos0,
+                          bool skip_if_ascending, u64* s, int m, int lane) {
+  u64 w[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int idx = lane * R + r;
+    w[r] = idx < n ? compose(__ldg(keys + idx), pos0 + idx) : kPadWord;
+  }
+  bool sorted = false;
+  if (skip_if_ascending) {
+    bool up = true;
+#pragma unroll
+    for (int r = 1; r < R; ++r) {
+      up = up && (w[r - 1] < w[r] || w[r] == kPadWord);
+    }
+    const u64 before = __shfl_up_sync(0xffffffffu, w[R - 1], 1);
+    up = up && (lane == 0 || before < w[0] || w[0] == kPadWord);
+    sorted = __all_sync(0xffffffffu, up);
+  }
+  if (!sorted) {
+    warp_sort<R>(w, lane);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int idx = lane * R + r;
+    if (idx < m) {
+      s[idx] = w[r];
+    }
+  }
+}
+
+// C[i] = min(A[i], B[m - 1 - i]) from the slot, sorted; entries out
+template <int R>
+__device__ void warp_merge_out(const u64* sa, const u64* sb, int pa, int pb,
+                               const float* d1, const int* i1,
+                               const uint8_t* f1, const float* d2,
+                               const int* i2, const uint8_t* f2, float* od,
+                               int* oi, uint8_t* of, int L1, int kout,
+                               int dedup, int lane) {
+  constexpr int m = 32 * R;
+  u64 w[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = lane * R + r;
+    const u64 a = i < pa ? sa[i] : kPadWord;
+    const u64 b = m - 1 - i < pb ? sb[m - 1 - i] : kPadWord;
+    w[r] = a < b ? a : b;
+  }
+#pragma unroll
+  for (int lj = (R >= 32 ? 5 : R >= 16 ? 4 : R >= 8 ? 3 : R >= 4 ? 2
+                 : R >= 2 ? 1 : 0) + 4; lj >= 0; --lj) {
+    warp_stage<R>(w, lane, m, 1 << lj);
+  }
+  Entry e[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (lane * R + r < kout) {
+      e[r] = entry_at(w[r], d1, i1, f1, d2, i2, f2, L1);
+    } else {
+      e[r].d = 0.f;
+      e[r].id = -2;
+      e[r].flag = 0;
+    }
+  }
+  // the entry before this lane's first: the last of the lane below
+  const int prev_id = __shfl_up_sync(0xffffffffu, e[R - 1].id, 1);
+  const int prev_flag = __shfl_up_sync(0xffffffffu, e[R - 1].flag, 1);
+#pragma unroll
+  for (int r = R - 1; r >= 0; --r) {
+    const int o = lane * R + r;
+    if (o >= kout) {
+      continue;
+    }
+    Entry x = e[r];
+    if (dedup && o > 0 && x.id >= 0 && isfinite(x.d)) {
+      const int pid = r > 0 ? e[r > 0 ? r - 1 : 0].id : prev_id;
+      const int pfl = r > 0 ? e[r > 0 ? r - 1 : 0].flag : prev_flag;
+      if (pid == x.id && pfl == x.flag) {
+        x.d = __int_as_float(0x7F800000);  // +inf
+        x.id = -1;
+        x.flag = 1;
+      }
+    }
+    od[o] = x.d;
+    oi[o] = x.id;
+    if (of != nullptr) {
+      of[o] = static_cast<uint8_t>(x.flag);
+    }
+  }
+}
+
+// R is 1, 2, 4, 8 or (kRMax 16) 16
+template <int kRMax>
+__device__ __forceinline__ void warp_list_r(int R, const float* keys, int n,
+                                            int pos0, bool skip, u64* s,
+                                            int m, int lane) {
+  switch (R) {
+    case 1: warp_list<1>(keys, n, pos0, skip, s, m, lane); break;
+    case 2: warp_list<2>(keys, n, pos0, skip, s, m, lane); break;
+    case 4: warp_list<4>(keys, n, pos0, skip, s, m, lane); break;
+    case 8: warp_list<8>(keys, n, pos0, skip, s, m, lane); break;
+    default: warp_list<kRMax>(keys, n, pos0, skip, s, m, lane); break;
+  }
+}
+
+// Lists and kout up to kWarpRoute = 512 words: the hops of every search
+// and build pool (ef up to 200 against 256 candidates, and the fusion
+// index's 512). Two instances: up to 8 words a lane (256), the hnsw and nsg
+// hops, and up to 16, so the wider lists' registers do not lower the
+// occupancy of the narrower ones. Longer lists take the network: a class of
+// 32 words a lane tripled the time chip_smoke.py spends building the
+// kernels, for merges that only the tests launch.
+template <int kRMax>
+__global__ void __launch_bounds__(kWarpBlock)
+pool_merge_warp_kernel(const float* __restrict__ d1, const int* __restrict__ i1,
+                       const uint8_t* __restrict__ f1,
+                       const float* __restrict__ d2,
+                       const int* __restrict__ i2,
+                       const uint8_t* __restrict__ f2, float* __restrict__ od,
+                       int* __restrict__ oi, uint8_t* __restrict__ of,
+                       long long B, int L1, int L2, int kout, int dedup,
+                       int R1, int R2, int RM) {
+  extern __shared__ u64 smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long b = static_cast<long long>(blockIdx.x) * (kWarpBlock / 32)
+                      + warp;
+  if (b >= B) {
+    return;  // the whole warp: no shuffle below waits on it
+  }
+  const int m = 32 * RM;
+  u64* sa = smem + static_cast<size_t>(warp) * 2 * m;
+  u64* sb = sa + m;
+  const long long r1 = b * L1;
+  const long long r2 = b * L2;
+  const int pa = 32 * R1 < m ? 32 * R1 : m;
+  const int pb = 32 * R2 < m ? 32 * R2 : m;
+  warp_list_r<kRMax>(R2, d2 + r2, L2, L1, false, sb, pb, lane);
+  warp_list_r<kRMax>(R1, d1 + r1, L1, 0, true, sa, pa, lane);
+  __syncwarp();
+  const uint8_t* g1 = f1 != nullptr ? f1 + r1 : nullptr;
+  const uint8_t* g2 = f2 != nullptr ? f2 + r2 : nullptr;
+  uint8_t* go = of != nullptr ? of + b * kout : nullptr;
+  float* o_d = od + b * kout;
+  int* o_i = oi + b * kout;
+#define ALAYA_MERGE_OUT(RR)                                                   \
+  warp_merge_out<RR>(sa, sb, pa, pb, d1 + r1, i1 + r1, g1, d2 + r2, i2 + r2, \
+                     g2, o_d, o_i, go, L1, kout, dedup, lane)
+  switch (RM) {
+    case 1: ALAYA_MERGE_OUT(1); break;
+    case 2: ALAYA_MERGE_OUT(2); break;
+    case 4: ALAYA_MERGE_OUT(4); break;
+    case 8: ALAYA_MERGE_OUT(8); break;
+    default: ALAYA_MERGE_OUT(kRMax); break;
+  }
+#undef ALAYA_MERGE_OUT
+}
+
+// words per lane for a list of n entries: pow2(n) / 32, at least 1
+int lane_words(long long n) {
+  int p = 32;
+  while (p < n) {
+    p <<= 1;
+  }
+  return p / 32;
+}
+
 // n circular shifts by 1 + (j mod 7), one after the other: every shift is
 // one partner read in shared memory and one barrier, the exchange a sort
 // stage is made of.
@@ -404,6 +659,44 @@ extern "C" int alaya_pool_merge(const void* d1, const void* i1, const void* f1,
       static_cast<const int*>(i2), static_cast<const uint8_t*>(f2),
       static_cast<float*>(od), static_cast<int*>(oi),
       static_cast<uint8_t*>(of), B, L1, L2, kout, dedup, p.P, p.T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same function through the warp route; the caller picks it for lists
+// and kout of at most kWarpRoute (returns cudaErrorInvalidValue past that).
+extern "C" int alaya_pool_merge_warp(const void* d1, const void* i1,
+                                     const void* f1, const void* d2,
+                                     const void* i2, const void* f2, void* od,
+                                     void* oi, void* of, long long B, int L1,
+                                     int L2, int kout, int dedup,
+                                     void* stream) {
+  if (B == 0 || kout == 0) {
+    return 0;
+  }
+  const int R1 = lane_words(L1);
+  const int R2 = lane_words(L2);
+  const int RM = lane_words(kout);
+  const int rmax = R1 > R2 ? (R1 > RM ? R1 : RM) : (R2 > RM ? R2 : RM);
+  if (rmax * 32 > kWarpRoute) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = static_cast<size_t>(kWarpBlock / 32) * 2 * 32 * RM *
+                      sizeof(u64);
+  const unsigned grid = static_cast<unsigned>(
+      (B + kWarpBlock / 32 - 1) / (kWarpBlock / 32));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto kernel = rmax <= 8 ? pool_merge_warp_kernel<8>
+                                : pool_merge_warp_kernel<16>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  kernel<<<grid, kWarpBlock, smem, s>>>(
+      static_cast<const float*>(d1), static_cast<const int*>(i1),
+      static_cast<const uint8_t*>(f1), static_cast<const float*>(d2),
+      static_cast<const int*>(i2), static_cast<const uint8_t*>(f2),
+      static_cast<float*>(od), static_cast<int*>(oi),
+      static_cast<uint8_t*>(of), B, L1, L2, kout, dedup, R1, R2, RM);
   return static_cast<int>(cudaGetLastError());
 }
 

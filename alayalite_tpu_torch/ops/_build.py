@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -24,6 +25,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[tuple, object] = {}
+# of the sources this process compiled: seconds of each nvcc, its output
+build_seconds: Dict[str, float] = {}
+build_logs: Dict[str, str] = {}
 
 
 def build_dir() -> Path:
@@ -61,27 +66,38 @@ def lib_path(name: str) -> Path:
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     """Compile every named source that has no up-to-date library yet, all
     ``nvcc`` processes in parallel. Raises with the compiler's output if
-    one fails. Returns {name: library path}."""
+    one fails. Returns {name: library path}; ``build_seconds`` and
+    ``build_logs`` keep each compile's wall seconds and output."""
     names = list(sources() if names is None else names)
     jobs = {}
+    t0 = time.time()
     for name in names:
         out = lib_path(name)
         if out.exists():
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        log = tmp.with_suffix(".log").open("w+")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      tmp, out)
+        jobs[name] = (subprocess.Popen(cmd, stdout=log,
+                                       stderr=subprocess.STDOUT), tmp, out,
+                      log)
     errors = []
-    for name, (proc, tmp, out) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu:\n{log}")
-        else:
-            os.replace(tmp, out)
+    while jobs:
+        for name in [n for n, job in jobs.items() if job[0].poll() is not None]:
+            proc, tmp, out, log = jobs.pop(name)
+            build_seconds[name] = time.time() - t0
+            log.seek(0)
+            build_logs[name] = log.read()
+            log.close()
+            os.remove(log.name)
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {name}.cu:\n"
+                              f"{build_logs[name]}")
+            else:
+                os.replace(tmp, out)
+        time.sleep(0.05)
     if errors:
         raise RuntimeError("\n".join(errors))
     return {name: lib_path(name) for name in names}
@@ -98,21 +114,30 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def entry(name: str, symbol: str, argtypes: list):
-    """The C function ``symbol`` of ``csrc/<name>.cu``, typed; every entry
-    point takes the CUDA stream last and returns a CUDA error code."""
-    fn = getattr(load(name), symbol)
-    fn.argtypes = [*argtypes, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    """The C function ``symbol`` of ``csrc/<name>.cu``, typed (once); every
+    entry point takes the CUDA stream last and returns a CUDA error code."""
+    key = (name, symbol)
+    fn = _entries.get(key)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _entries[key] = fn
     return fn
 
 
 def launch(fn, device, *args) -> None:
-    """Call a kernel entry point on ``device``'s current stream; raise with
-    the CUDA error if the launch was refused."""
+    """Call a kernel entry point on ``device``'s current stream (switching
+    the current device only when it is another); raise with the CUDA error
+    if the launch was refused."""
     import torch
 
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
                            f"{err}")

@@ -30,11 +30,15 @@ Replaces the TPU kernels ``scripts/proto_pallas_sort.py:111`` and ``:117``
 (``sort_kernel``, ``merge_kernel``), ``scripts/proto_pallas_sort2.py:81``,
 ``:87``, ``:92`` (the sort along columns, and without payload along columns
 and rows) and ``scripts/opt_hop2.py:120`` (``roll_kernel_n``). The kernels
-are bound by memory on paper (a [4096, 64 + 256] merge moves 6.6 MB) and by
-their shared-memory stages in practice; see the note in the source.
+are bound by memory on paper (a [4096, 64 + 256] merge moves 6.6 MB).
+``sort_kv``, ``merge_kv`` and ``roll_n`` run their stages in shared memory;
+``pool_merge`` keeps each list in one warp's registers and exchanges words
+by shuffles, up to ``WARP_LIST`` words a list, and sorts longer ones in
+shared memory; see the notes in the source.
 
 Each function counts its calls on any device (``.calls``) and its CUDA kernel
-launches and nothing else (``.launches``).
+launches and nothing else (``.launches``); ``pool_merge.route_launches``
+splits its launches by kernel.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ import torch
 
 Tensor = torch.Tensor
 MAX_LIST = 16384   # power-of-two stage of 8-byte words in 227 KB shared memory
+WARP_LIST = 512    # pool_merge keeps a list in one warp's registers up to here
 _SRC = "pool_sort"
 
 
@@ -119,6 +124,19 @@ def _check_width(width: int) -> None:
     if width > MAX_LIST:
         raise ValueError(f"a list of {width} entries exceeds the kernel's "
                          f"shared-memory stage ({MAX_LIST})")
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def pool_merge_route(L1: int, L2: int, k: int) -> str:
+    """The kernel ``pool_merge`` launches for a shape: "warp" (each list in
+    one warp's registers, sorted apart and merged) where both lists and
+    ``k`` pad to at most ``WARP_LIST`` words, else "network" (the padded
+    concatenation sorted in shared memory by a block)."""
+    return ("warp" if max(_pow2(L1), _pow2(L2), _pow2(k)) <= WARP_LIST
+            else "network")
 
 
 def _ptr(t: Optional[Tensor]):
@@ -212,7 +230,9 @@ def pool_merge(d1: Tensor, i1: Tensor, f1: Optional[Tensor], d2: Tensor,
     """(distances [B, k], ids [B, k], flags [B, k] bool or None): the
     smallest ``k`` of [d1 ‖ d2] ascending with their ids and flags, first
     operand first among ties. ``f1`` and ``f2`` are both bool tensors or both
-    None (then no flags come back and ``dedup`` must be off)."""
+    None (then no flags come back and ``dedup`` must be off). On the card
+    the shape picks the kernel (``pool_merge_route``); both return the same
+    bits."""
     from ._build import launch
 
     _check_2d("d1", d1, torch.float32)
@@ -241,12 +261,16 @@ def pool_merge(d1: Tensor, i1: Tensor, f1: Optional[Tensor], d2: Tensor,
     of = (None if f1 is None
           else torch.empty((B, k), dtype=torch.bool, device=dev))
     if B and k:
-        launch(_entry("alaya_pool_merge", [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                           _LL, _I, _I, _I, _I]),
+        route = pool_merge_route(L1, L2, k)
+        symbol = ("alaya_pool_merge_warp" if route == "warp"
+                  else "alaya_pool_merge")
+        launch(_entry(symbol, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I,
+                               _I, _I, _I]),
                dev, d1.data_ptr(), i1.data_ptr(), _ptr(f1), d2.data_ptr(),
                i2.data_ptr(), _ptr(f2), od.data_ptr(), oi.data_ptr(),
                _ptr(of), B, L1, L2, k, int(bool(dedup)))
         pool_merge.launches += 1
+        pool_merge.route_launches[route] += 1
     return od, oi, of
 
 
@@ -276,3 +300,4 @@ def roll_n(x: Tensor, n: int) -> Tensor:
 for _fn in (sort_kv, merge_kv, pool_merge, roll_n):
     _fn.calls = 0
     _fn.launches = 0
+pool_merge.route_launches = {"warp": 0, "network": 0}

@@ -15,11 +15,13 @@ its caller is the distance-tile benchmark (``scripts/torch_pallas_bench.py``)
 on the codes an ``SQSpace`` fit builds; flat + sq8 indices search the raw
 rows. It takes any Q, N and D. It is bound by bytes: at (4096, 65536, 128)
 it must move 1,084 MB, 0.324 ms at 3.35 TB/s on an H100, against 68.7 GFLOP
-that the bf16 tensor cores would do in 0.070 ms (see the note in the
-source).
+that the bf16 tensor cores do in 0.070 ms; the kernel runs the product on
+them through ``wgmma`` (see the note in the source).
 
-``sq8_tile.calls`` counts calls on any device; ``sq8_tile.launches`` counts
-CUDA kernel launches and nothing else.
+On the card one call runs two kernels of that source in turn: ``xsq`` of
+every code row into a scratch tensor, then the tile. ``sq8_tile.calls``
+counts calls on any device; ``sq8_tile.launches`` counts the calls that
+launched them, and nothing else.
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ def _kernel():
     from ._build import entry
 
     return entry("sq8_tile", "alaya_sq8_tile",
-                 [ctypes.c_void_p] * 5
+                 [ctypes.c_void_p] * 6
                  + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
                     ctypes.c_int])
 
@@ -91,10 +93,13 @@ def sq8_tile(q: torch.Tensor, codes: torch.Tensor, dmin: torch.Tensor,
         return sq8_tile_ref(q, codes, dmin, scale)
     (Q, D), N = q.shape, codes.shape[0]
     out = torch.empty((Q, N), dtype=torch.float32, device=q.device)
-    vec = int(D % 8 == 0 and q.data_ptr() % 16 == 0
-              and codes.data_ptr() % 8 == 0)
+    xsq = torch.empty(N, dtype=torch.float32, device=q.device)  # scratch
+    # 16-byte loads of code and query rows
+    vec = int(D % 16 == 0 and q.data_ptr() % 16 == 0
+              and codes.data_ptr() % 16 == 0)
     launch(_kernel(), q.device, q.data_ptr(), codes.data_ptr(),
-           dmin.data_ptr(), scale.data_ptr(), out.data_ptr(), Q, N, D, vec)
+           dmin.data_ptr(), scale.data_ptr(), xsq.data_ptr(), out.data_ptr(),
+           Q, N, D, vec)
     sq8_tile.launches += 1
     return out
 

@@ -4,7 +4,9 @@
 Needs one CUDA device and nvcc. Phases, in order; any failure raises and
 the script exits non-zero:
   1. card      nvidia-smi name and power limit, torch device name;
-  2. build     every CUDA source of the port, one nvcc each, in parallel;
+  2. build     every CUDA source of the port, one nvcc each, in parallel,
+               each one's seconds and compiler warnings logged; sq8_tile's
+               SASS must hold HGMMA (cuobjdump -sass);
   3. kernels   block_diagdot, gather_diagdot (direct and staged) and
                ring_probe against their plain PyTorch versions on the card
                at the main-path shapes and at ragged shapes, with CUDA-event
@@ -13,7 +15,14 @@ the script exits non-zero:
                number does; "ms_spin" is the device's time alone); then the
                pool's sort and merge: sort_kv (rows, columns, keys only),
                merge_kv, pool_merge (the hop's merge_topk_dedup, on ties,
-               duplicates, +inf / -1 slots, both zeros, negative keys) and
+               duplicates, +inf / -1 slots, both zeros, negative keys, and
+               on pools with dedup's holes, which are not ascending; both
+               of its kernels, the warp route and the shared-memory network
+               for lists past pool_sort.WARP_LIST; timed at ef 32, 64 and
+               128 against 256 candidates and at the fusion index's 64 +
+               512 beside the network; its launches on the paths are
+               counted by kernel, phase by phase, as pool_merge[warp] and
+               pool_merge[network]) and
                roll_n, each bit for bit against its plain version at the
                hop's shapes and at ragged ones; and an sq8 space's
                gather_dists (gather_diagdot on one-row blocks) against
@@ -67,7 +76,10 @@ The bsq8 index is freed, then the raw graph path runs:
 Then the flat path runs on the same data:
   7. tiles     l2_tile and sq8_tile against their plain versions at the flat
                scan's tile (4096 x 16384 x 128, l2), at 4096 x 65536 x 128
-               and at ragged shapes, with times, bounds and library calls;
+               and at ragged shapes (sq8 also D = 100 and 960), with times,
+               bounds and library calls (sq8: the bf16-output product, and
+               library_f32_ms, the same product with the kernel's f32
+               output);
   8. flat      Client().create_index(flat + sq8) fitted on the 1M rows; one
                exact search of the 8192 queries, k = 10: recall@10 against
                the ground truth of phase 5 (fails below 0.999), returned
@@ -114,7 +126,8 @@ L2_MAIN = (4096, 16384, 128)         # flat exact scan: qchunk x tile_n x D
 SQ8_MAIN = (4096, 65536, 128)        # distance-tile bench shape
 TILE_SHAPES = {"l2_tile": (L2_MAIN, SQ8_MAIN, (1000, 3000, 96),
                            (333, 777, 40)),
-               "sq8_tile": (SQ8_MAIN, (1000, 3000, 96), (333, 777, 40))}
+               "sq8_tile": (SQ8_MAIN, (1000, 3000, 96), (333, 777, 40),
+                            (97, 1000, 100), (130, 333, 960))}
 N_REMOVE, N_INSERT = 10_000, 1_000
 SPARE = 16_384                       # bsq8 capacity past the fitted rows
 CHURN_INSERT, CHURN_BATCH = 8_192, 4_096
@@ -133,8 +146,14 @@ SORT_RAGGED = ((1, 1), (333, 77), (1000, 200), (333, 320), (1, 200),
                (1000, 77))
 MERGE_SHAPES = ((4096, 64, 64), (4096, 32, 32))     # B, L1, L2 (ascending)
 POOL_MAIN = (4096, 64, 256)                         # B, pool ef, M*R
-POOL_RAGGED = ((4096, 32, 256), (1000, 100, 256), (333, 10, 8), (1, 200, 77),
-               (333, 128, 32), (1000, 10, 10))
+# every (B, ef, M*R) the hops launch, k = ef: the searches at ef 32, 64,
+# 128 and the build pools (ef 128) of both graph paths, and the fusion
+# index's search at ef 64 (rows of 64 ids: M*R = 512)
+POOL_HOP = ((4096, 32, 256), POOL_MAIN, (4096, 128, 256), (4096, 64, 512))
+# ragged shapes; the last two pass pool_sort.WARP_LIST and take the
+# shared-memory network
+POOL_RAGGED = ((1000, 100, 256), (333, 10, 8), (1, 200, 77), (333, 128, 32),
+               (1000, 10, 10), (333, 64, 2000), (100, 1500, 100))
 ROLLS = (36, 144)
 N_SMALL = 100_000                    # rows of phase 6d
 
@@ -342,6 +361,24 @@ def check_gather_on_index(torch, sp, what: str) -> dict:
             "top_byte_offset": top_offset, "errors": errs}
 
 
+def check_hgmma() -> dict:
+    """sq8_tile's library must hold the tensor cores' warpgroup product:
+    HGMMA instructions in the SASS cuobjdump prints."""
+    import subprocess
+
+    from alayalite_tpu_torch.ops import _build
+
+    lib = _build.lib_path("sq8_tile")
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    n = sum(1 for line in sass.splitlines() if "HGMMA" in line)
+    log(f"sq8_tile SASS ({lib.name}): {n} HGMMA instructions")
+    if n == 0:
+        raise AssertionError("sq8_tile's SASS holds no HGMMA")
+    return {"hgmma_instructions": n, "library": lib.name}
+
+
 def check_tiles(torch, dev) -> dict:
     """l2_tile and sq8_tile against their plain versions; times, bounds and
     library calls at each kernel's first shape."""
@@ -381,6 +418,13 @@ def check_tiles(torch, dev) -> dict:
                     return torch.matmul(
                         (q * scale).to(torch.bfloat16),
                         (codes.to(torch.int16) - 128).to(torch.bfloat16).T)
+
+                def library_f32(q=q, codes=codes, scale=scale):
+                    # the same product with the kernel's f32 output
+                    return torch.mm(
+                        (q * scale).to(torch.bfloat16),
+                        (codes.to(torch.int16) - 128).to(torch.bfloat16).T,
+                        out_dtype=torch.float32)
             got = kern(*args)
             torch.cuda.synchronize()
             want = ref(*args)
@@ -399,11 +443,16 @@ def check_tiles(torch, dev) -> dict:
                      "ms_spin": cuda_ms(lambda: kern(*args), spin=True),
                      "plain_ms": cuda_ms(lambda: ref(*args)),
                      "library_ms": cuda_ms(library)}
+            f32 = ""
+            if name == "sq8_tile":
+                times["library_f32_ms"] = cuda_ms(library_f32)
+                f32 = (f", the same with an f32 output "
+                       f"{times['library_f32_ms']:.4f} ms")
             out[name].update(max_abs_err=err, shape=[Q, Nx, D], **b, **times)
             log(f"kernel {name} {(Q, Nx, D)}: {times['ms']:.4f} ms "
                 f"({times['ms_spin']:.4f} device alone), plain "
                 f"{times['plain_ms']:.4f} ms, library {times['library_ms']:.4f}"
-                f" ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+                f" ms{f32}, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
             torch.cuda.empty_cache()
     return out
 
@@ -441,11 +490,13 @@ def _difference(got, want):
     return err, differing
 
 
-def _pool_rows(torch, rng, B, L1, L2, dev):
+def _pool_rows(torch, rng, B, L1, L2, dev, holes=False):
     """A pool and candidates as the hop holds them: an ascending pool whose
     tail is empty (+inf, -1), candidates with ties against the pool,
     duplicate (distance, id) pairs, masked slots, both zeros, negative
-    keys."""
+    keys. With ``holes`` the pool is what a dedup merge leaves: (inf, -1,
+    True) slots inside it with finite entries after them, so it is not
+    ascending, and candidates repeating pool entries (keys, and ids)."""
     d1 = np.sort(np.round(rng.normal(size=(B, L1)) * 4) / 4, axis=1)
     d2 = np.round(rng.normal(size=(B, L2)) * 4) / 4
     d1, d2 = d1.astype(np.float32), d2.astype(np.float32)
@@ -459,7 +510,39 @@ def _pool_rows(torch, rng, B, L1, L2, dev):
     d1[:, -tail:], i1[:, -tail:] = np.inf, -1
     f1 = rng.random(size=(B, L1)) < 0.5
     f2 = np.zeros((B, L2), bool)
+    if holes:
+        hole = np.zeros((B, L1), bool)
+        hole[:, 1:L1 - tail] = rng.random(size=(B, max(0, L1 - tail - 1))) < 0.25
+        d1[hole], i1[hole], f1[hole] = np.inf, -1, True
+        rep = rng.integers(0, max(1, L1 - tail), size=(B, L2 // 4))
+        rows = np.arange(B)[:, None]
+        d2[:, :L2 // 4] = d1[rows, rep]
+        same = rng.random(size=rep.shape) < 0.5
+        i2[:, :L2 // 4] = np.where(same, i1[rows, rep], i2[:, :L2 // 4])
     return [torch.as_tensor(a, device=dev) for a in (d1, i1, f1, d2, i2, f2)]
+
+
+def _network_pool_merge(torch, args, k):
+    """merge_topk_dedup through pool_sort.cu's shared-memory network, the
+    design the hop ran before the warp kernel, launched directly so the two
+    are timed in one run (pool_merge picks it only past WARP_LIST); not
+    counted as a launch."""
+    import ctypes
+
+    from alayalite_tpu_torch.ops import pool_sort
+    from alayalite_tpu_torch.ops._build import launch
+
+    d1, i1, f1, d2, i2, f2 = args
+    B, L1 = d1.shape
+    od = torch.empty((B, k), dtype=torch.float32, device=d1.device)
+    oi = torch.empty((B, k), dtype=torch.int32, device=d1.device)
+    of = torch.empty((B, k), dtype=torch.bool, device=d1.device)
+    P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn = pool_sort._entry("alaya_pool_merge", [P] * 9 + [LL, I, I, I, I])
+    launch(fn, d1.device, *(t.data_ptr() for t in (d1, i1, f1, d2, i2, f2,
+                                                   od, oi, of)),
+           B, L1, d2.shape[1], k, 1)
+    return od, oi, of
 
 
 def check_pool_sort(torch, dev) -> dict:
@@ -468,8 +551,9 @@ def check_pool_sort(torch, dev) -> dict:
     (torch.sort(stable=True) + gather) at the hop's shapes."""
     from alayalite_tpu_torch.ops.pool_sort import (merge_kv, merge_kv_ref,
                                                    pool_merge, pool_merge_ref,
-                                                   roll_n, roll_n_ref,
-                                                   sort_kv, sort_kv_ref)
+                                                   pool_merge_route, roll_n,
+                                                   roll_n_ref, sort_kv,
+                                                   sort_kv_ref)
     from alayalite_tpu_torch.utils.timing import bound, cuda_ms
 
     rng = np.random.default_rng(4)
@@ -578,31 +662,40 @@ def check_pool_sort(torch, dev) -> dict:
             f"({rep['bound_by']})")
     out["merge_kv"].update(out["merge_kv"]["64+64"])
 
-    # ---- pool_merge: merge_topk_dedup, merge_topk_with_flags, merge_topk
-    for B, L1, L2 in (POOL_MAIN, *POOL_RAGGED):
-        args = _pool_rows(torch, rng, B, L1, L2, dev)
-        plain = [a for i, a in enumerate(args) if i not in (2, 5)]
-        for k in (L1, max(1, L1 // 2), L1 + L2):
-            cases = [(pool_merge(*args, k, True),
-                      pool_merge_ref(*args, k, True)),
-                     (pool_merge(*args, k), pool_merge_ref(*args, k)),
-                     (pool_merge(plain[0], plain[1], None, plain[2],
-                                 plain[3], None, k),
-                      pool_merge_ref(plain[0], plain[1], None, plain[2],
-                                     plain[3], None, k))]
-            torch.cuda.synchronize()
-            for got, want in cases:
-                if not all(_same_bits(g, w) for g, w in zip(got, want)):
-                    fail("pool_merge", (B, L1, L2, k))
+    # ---- pool_merge: merge_topk_dedup, merge_topk_with_flags, merge_topk;
+    # pools ascending with an empty tail, and pools with dedup's holes
+    routes = dict(pool_merge.route_launches)
+    out["pool_merge"] = {"at": {}}
+    for B, L1, L2 in (*POOL_HOP, *POOL_RAGGED):
+        for holes in (False, True):
+            args = _pool_rows(torch, rng, B, L1, L2, dev, holes)
+            plain = [a for i, a in enumerate(args) if i not in (2, 5)]
+            for k in (L1, max(1, L1 // 2), L1 + L2):
+                cases = [(pool_merge(*args, k, True),
+                          pool_merge_ref(*args, k, True)),
+                         (pool_merge(*args, k), pool_merge_ref(*args, k)),
+                         (pool_merge(plain[0], plain[1], None, plain[2],
+                                     plain[3], None, k),
+                          pool_merge_ref(plain[0], plain[1], None, plain[2],
+                                         plain[3], None, k))]
+                torch.cuda.synchronize()
+                for got, want in cases:
+                    if not all(_same_bits(g, w) for g, w in zip(got, want)):
+                        fail("pool_merge", (B, L1, L2, k, holes))
+        d1 = args[0]
+        unsorted = int((d1[:, 1:] < d1[:, :-1]).any(1).sum())
         dups = int((pool_merge_ref(*args, L1, True)[1]
                     != pool_merge_ref(*args, L1)[1]).sum())
-        log(f"kernel pool_merge {(B, L1, L2)}: with and without dedup and "
-            f"without flags equal the plain version bit for bit ({dups} "
-            f"duplicates neutralized)")
-        if (B, L1, L2) != POOL_MAIN:
+        log(f"kernel pool_merge {(B, L1, L2)} ({pool_merge_route(L1, L2, L1)}"
+            f"): with and without dedup and without flags equal the plain "
+            f"version bit for bit, on ascending pools and on pools with holes "
+            f"({unsorted} of {B} rows not ascending, {dups} duplicates "
+            f"neutralized)")
+        if (B, L1, L2) not in POOL_HOP:
             continue
-        if dups == 0:
-            raise AssertionError("the pool_merge check holds no duplicate")
+        if dups == 0 or (L1 > 2 and unsorted == 0):
+            raise AssertionError("the pool_merge check holds no duplicate "
+                                 "or no pool row that is not ascending")
         cat_d = torch.cat([args[0], args[3]], 1)
         cat_p = torch.cat([args[1] * 2 + args[2], args[4] * 2 + args[5]], 1)
 
@@ -610,17 +703,38 @@ def check_pool_sort(torch, dev) -> dict:
             sd, order = torch.sort(cat_d, dim=1, stable=True)
             return sd, torch.gather(cat_p, 1, order)
 
-        ops = B * stages(L1 + L2)
-        out["pool_merge"] = timed(
-            lambda: pool_merge(*args, L1, True),
-            lambda: pool_merge_ref(*args, L1, True), library,
-            B * (L1 + L2 + L1) * 9, ops, (B, L1, L2), compare_exchanges=ops)
-        r = out["pool_merge"]
-        log(f"kernel pool_merge {(B, L1, L2)} (merge_topk_dedup): "
-            f"{r['ms']:.4f} ms ({r['ms_spin']:.4f} device alone), plain "
-            f"{r['plain_ms']:.4f} ms, library sort + gather of the packed "
-            f"row {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+        def network(args=args, L1=L1):
+            return _network_pool_merge(torch, args, L1)
+
+        if not all(_same_bits(g, w) for g, w in
+                   zip(network(), pool_merge_ref(*args, L1, True))):
+            fail("pool_merge[network]", (B, L1, L2))
+        # the warp kernel's compare-exchanges on these rows: the candidates
+        # sorted, the pools that are not ascending sorted, one bitonic merge
+        # of pow2(k) words
+        m = 1 << (L1 - 1).bit_length()
+        ops = (B * stages(L2) + unsorted * stages(L1)
+               + B * (m // 2) * (m.bit_length() - 1))
+        rep = timed(
+            lambda args=args, L1=L1: pool_merge(*args, L1, True),
+            lambda args=args, L1=L1: pool_merge_ref(*args, L1, True),
+            library, B * (L1 + L2 + L1) * 9, ops, (B, L1, L2),
+            compare_exchanges=ops, route=pool_merge_route(L1, L2, L1),
+            network_ms=cuda_ms(network),
+            network_ms_spin=cuda_ms(network, spin=True))
+        out["pool_merge"]["at"][f"{L1}+{L2}"] = rep
+        log(f"kernel pool_merge {(B, L1, L2)} k={L1} (merge_topk_dedup, "
+            f"pools with holes): {rep['ms']:.4f} ms ({rep['ms_spin']:.4f} "
+            f"device alone; the shared-memory network {rep['network_ms']:.4f}"
+            f" / {rep['network_ms_spin']:.4f}), plain {rep['plain_ms']:.4f} "
+            f"ms, library sort + gather of the packed row "
+            f"{rep['library_ms']:.4f} ms, bound {rep['bound_ms']:.4f} ms "
+            f"({rep['bound_by']})")
+    ran = {r: pool_merge.route_launches[r] - routes[r] for r in routes}
+    if min(ran.values()) <= 0:
+        raise AssertionError(f"a pool_merge kernel was not held: {ran}")
+    out["pool_merge"].update(out["pool_merge"]["at"]["64+256"])
+    out["pool_merge"]["checked_route_launches"] = ran
 
     # ---- roll_n
     out["roll_n"] = {}
@@ -909,14 +1023,40 @@ def churn_phase(torch, dev, idx, ds, counters) -> dict:
 POOL_KERNELS = ("pool_merge", "sort_kv", "merge_kv", "ring_probe")
 
 
+class RouteCount:
+    """pool_merge's launches through one of its two kernels, read and set
+    to 0 like a wrapper's own count, so that every phase counts them where
+    it counts pool_merge."""
+
+    def __init__(self, pool_merge, route: str):
+        self._fn, self.route = pool_merge, route
+        self.__name__ = f"pool_merge[{route}]"
+
+    @property
+    def launches(self) -> int:
+        return self._fn.route_launches[self.route]
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self._fn.route_launches[self.route] = n
+
+
+def merge_route_counters():
+    from alayalite_tpu_torch.ops.pool_sort import pool_merge
+
+    return tuple(RouteCount(pool_merge, r) for r in pool_merge.route_launches)
+
+
 def pool_counters():
     """The kernels a graph index can launch: the pool's three, the stale
-    check, and (an sq8 traversal's gathered dot) gather_diagdot."""
+    check, and (an sq8 traversal's gathered dot) gather_diagdot; then
+    pool_merge's launches by kernel."""
     from alayalite_tpu_torch.ops.gather_diagdot import gather_diagdot
     from alayalite_tpu_torch.ops.pool_sort import merge_kv, pool_merge, sort_kv
     from alayalite_tpu_torch.ops.ring_probe import ring_probe
 
-    return (pool_merge, sort_kv, merge_kv, ring_probe, gather_diagdot)
+    return (pool_merge, sort_kv, merge_kv, ring_probe, gather_diagdot,
+            *merge_route_counters())
 
 
 def graph_index_phase(torch, dev, name, data, queries, gt, floors: dict,
@@ -1187,14 +1327,27 @@ def main() -> int:
     t = time.time()
     built = _build.build()
     report["build_s"] = time.time() - t
-    log(f"build: {sorted(built)} in {report['build_s']:.2f}s")
+    report["build_seconds"] = dict(_build.build_seconds)
+    log(f"build: {sorted(built)} in {report['build_s']:.2f}s, by source "
+        + ", ".join(f"{k} {v:.2f}s" for k, v in
+                    sorted(_build.build_seconds.items())))
+    # ptxas C7520: wgmma serialized. A warning, but one that costs the
+    # tensor cores their overlap, so it is logged and counted
+    report["build_warnings"] = {
+        k: [ln for ln in v.splitlines() if "warning" in ln]
+        for k, v in _build.build_logs.items()}
+    for k, lines in report["build_warnings"].items():
+        for ln in lines:
+            log(f"build warning ({k}): {ln}")
+    report["sq8_sass"] = check_hgmma()
 
     report["block_diagdot"] = check_diagdot(torch, dev)
     report.update(check_gather_probe(torch, dev))
     report.update(check_pool_sort(torch, dev))
     report["sq8_gather"] = check_sq8_gather(torch, dev)
     hop = (gather_diagdot, ring_probe)       # the kernels of every block hop
-    pool = pool_counters()[:3]               # pool_merge, sort_kv, merge_kv
+    # pool_merge, sort_kv, merge_kv, and pool_merge by kernel
+    pool = (*pool_counters()[:3], *merge_route_counters())
 
     t = time.time()
     # bench.py's synthetic SIFT1M stand-in: one cluster per 2000 rows
@@ -1308,6 +1461,12 @@ def main() -> int:
                 "differing_entries": report[name]["differing_entries"],
                 "launched_by": launched_by, **more}
 
+    by_route = {c.route: bsq8_pool[c.__name__] + raw_launches(c.__name__)
+                for c in merge_route_counters()}
+    if sum(by_route.values()) != bsq8_pool["pool_merge"] + raw_launches(
+            "pool_merge"):
+        raise AssertionError(f"pool_merge's launches by kernel {by_route} "
+                             f"do not add up to its launches")
     gather = report["gather_diagdot"]
     kernels = {"kernels": [
         # off the hop since gather_diagdot took its place there: no entry
@@ -1350,7 +1509,15 @@ def main() -> int:
         pool_row("pool_merge", "scripts/proto_pallas_sort.py:111",
                  "ops/topk.merge_topk_dedup / merge_topk_with_flags / "
                  "merge_topk: the pool merge of every hop (raw and block)",
-                 also_replaces=["scripts/proto_pallas_sort.py:117"]),
+                 also_replaces=["scripts/proto_pallas_sort.py:117"],
+                 route=report["pool_merge"]["route"],
+                 launches_by_route=by_route,
+                 network_ms=report["pool_merge"]["network_ms"],
+                 network_ms_spin=report["pool_merge"]["network_ms_spin"],
+                 at={shape: {k: rep[k] for k in (
+                     "ms", "ms_spin", "plain_ms", "library_ms", "bound_ms",
+                     "network_ms", "network_ms_spin", "route")}
+                     for shape, rep in report["pool_merge"]["at"].items()}),
         # a calibration, as on the TPU: no path runs it
         {**row("roll_n", "alayalite_tpu_torch/csrc/pool_sort.cu",
                "scripts/opt_hop2.py:120", 0, report["roll_n"]),
@@ -1367,9 +1534,13 @@ def main() -> int:
             "alayalite_tpu/ops/pallas_distance.py:43",
             report["flat"]["exact"]["l2_tile_launches"],
             report["tiles"]["l2_tile"]),
-        row("sq8_tile", "alayalite_tpu_torch/csrc/sq8_tile.cu",
-            "alayalite_tpu/ops/pallas_distance.py:91",
-            report["flat"]["sq8"]["launches"], report["tiles"]["sq8_tile"]),
+        {**row("sq8_tile", "alayalite_tpu_torch/csrc/sq8_tile.cu",
+               "alayalite_tpu/ops/pallas_distance.py:91",
+               report["flat"]["sq8"]["launches"], report["tiles"]["sq8_tile"]),
+         "library_f32_ms": report["tiles"]["sq8_tile"]["library_f32_ms"],
+         "library_ms_is": "bf16 torch.matmul with a bf16 output; "
+                          "library_f32_ms: torch.mm(..., out_dtype=float32)",
+         "hgmma_instructions": report["sq8_sass"]["hgmma_instructions"]},
     ]}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:

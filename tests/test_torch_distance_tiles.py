@@ -22,6 +22,13 @@ from alayalite_tpu_torch.ops.sq8_tile import sq8_tile, sq8_tile_ref
 RTOL, ATOL = 1e-5, 1e-3
 GPU_SHAPES = [(256, 512, 128), (1000, 3000, 96), (333, 777, 40), (5, 17, 40),
               (1, 16384, 128)]
+# sq8_tile's blocks take 128 queries x 128 codes, 64 a warpgroup, with D in
+# 64-wide slices: Q and N off those multiples, D padded (40, 100), D past the
+# 256 whose query rows stay whole in shared memory (960), and an output
+# past 2^31 bytes
+SQ8_GPU_SHAPES = GPU_SHAPES + [(4096, 65536, 128), (97, 1000, 100),
+                               (130, 333, 960), (65, 129, 96),
+                               (8192, 65600, 128)]
 
 
 def _rows(rng, n, dim, spread=1.0):
@@ -80,6 +87,22 @@ def test_sq8_ref_matches_pallas_interpret():
     from alayalite_tpu.ops.pallas_distance import sq8_pairwise_pallas
 
     q, sp = _sq8_inputs((256, 512, 128), seed=1)
+    want = np.asarray(sq8_pairwise_pallas(
+        jnp.asarray(q), sp.codes, sp.dmin, sp.scale, sp.xhat_sq, tq=128,
+        tn=256, interpret=True))
+    got = sq8_tile_ref(_t(q), _t(sp.codes), _t(sp.dmin),
+                       _t(sp.scale)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_sq8_ref_matches_pallas_interpret_at_d100():
+    """D = 100: not a multiple of 16, which the card's kernel pads with
+    zeros."""
+    import jax.numpy as jnp
+
+    from alayalite_tpu.ops.pallas_distance import sq8_pairwise_pallas
+
+    q, sp = _sq8_inputs((128, 256, 100), seed=4)
     want = np.asarray(sq8_pairwise_pallas(
         jnp.asarray(q), sp.codes, sp.dmin, sp.scale, sp.xhat_sq, tq=128,
         tn=256, interpret=True))
@@ -165,18 +188,48 @@ def test_l2_kernel_matches_plain_version():
         _assert_close(got, l2_tile_ref(q, x), (Q, N, D))
 
 
+def _sq8_gpu_inputs(rng, Q, N, D, dev):
+    q = torch.from_numpy(_rows(rng, Q, D)).to(dev)
+    codes = torch.from_numpy(rng.integers(0, 256, size=(N, D),
+                                          dtype=np.uint8)).to(dev)
+    dmin = torch.from_numpy(_rows(rng, 1, D)[0] - 4.0).to(dev)
+    scale = torch.from_numpy(rng.uniform(0.01, 0.05, size=D)
+                             .astype(np.float32)).to(dev)
+    return q, codes, dmin, scale
+
+
+@pytest.mark.gpu
+def test_sq8_kernel_wide_d_on_both_load_routes():
+    """D past 6144: scale and shift (8·D bytes) pass the 48 KB of dynamic
+    shared memory a kernel may take without asking. The 16-byte-load route
+    (D % 16 == 0) and the element route are other kernel instances, and
+    each must ask for itself: the wider aligned call first, then a narrower
+    unaligned one, then the aligned one again."""
+    dev = _gpu()
+    rng = np.random.default_rng(9)
+    for Q, N, D in ((70, 300, 6400), (70, 300, 6200), (130, 200, 6400)):
+        q, codes, dmin, scale = _sq8_gpu_inputs(rng, Q, N, D, dev)
+        _assert_close(sq8_tile(q, codes, dmin, scale),
+                      sq8_tile_ref(q, codes, dmin, scale), (Q, N, D))
+
+
 @pytest.mark.gpu
 def test_sq8_kernel_matches_plain_version():
     dev = _gpu()
     rng = np.random.default_rng(8)
-    for Q, N, D in GPU_SHAPES:
-        q = torch.from_numpy(_rows(rng, Q, D)).to(dev)
-        codes = torch.from_numpy(rng.integers(0, 256, size=(N, D),
-                                              dtype=np.uint8)).to(dev)
-        dmin = torch.from_numpy(_rows(rng, 1, D)[0] - 4.0).to(dev)
-        scale = torch.from_numpy(rng.uniform(0.01, 0.05, size=D)
-                                 .astype(np.float32)).to(dev)
+    for Q, N, D in SQ8_GPU_SHAPES:
+        q, codes, dmin, scale = _sq8_gpu_inputs(rng, Q, N, D, dev)
         launches = sq8_tile.launches
         got = sq8_tile(q, codes, dmin, scale)
         assert sq8_tile.launches == launches + 1
-        _assert_close(got, sq8_tile_ref(q, codes, dmin, scale), (Q, N, D))
+        if Q * N * 4 < 2 ** 31:
+            _assert_close(got, sq8_tile_ref(q, codes, dmin, scale),
+                          (Q, N, D))
+            continue
+        # the plain version of the whole output would need three more
+        # copies of it: hold the last query rows, whose offsets pass 2^31
+        tail = slice(Q - 64, Q)
+        _assert_close(got[tail], sq8_tile_ref(q[tail], codes, dmin, scale),
+                      (Q, N, D, "rows past 2^31 bytes"))
+        del got
+        torch.cuda.empty_cache()

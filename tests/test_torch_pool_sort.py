@@ -20,9 +20,10 @@ import pytest
 import torch
 
 from alayalite_tpu_torch.ops import topk as ttopk
-from alayalite_tpu_torch.ops.pool_sort import (MAX_LIST, merge_kv,
-                                               merge_kv_ref, pool_merge,
-                                               pool_merge_ref, roll_n,
+from alayalite_tpu_torch.ops.pool_sort import (MAX_LIST, WARP_LIST,
+                                               merge_kv, merge_kv_ref,
+                                               pool_merge, pool_merge_ref,
+                                               pool_merge_route, roll_n,
                                                roll_n_ref, sort_kv,
                                                sort_kv_ref)
 
@@ -212,15 +213,21 @@ def test_roll_ref_matches_proto_roll_kernel(n, BT):
 
 # --------------------------------------------------- ops/topk against JAX's
 # (L1, L2, k): the search's ef 64 + M·R 256, a young pool at the seed merge,
-# ef 100 and 200 (no power of two), eps, exact_topk's [Q, k] + [Q, k]
+# ef 100 and 200 (no power of two), eps, exact_topk's [Q, k] + [Q, k],
+# k below the pool's width (L1 a power of two and not), and the fusion
+# index's hop (rows of 2R = 64 ids, 8 expanded: 512 candidates)
 MERGE_SHAPES = [(64, 256, 64), (32, 8, 32), (100, 256, 100), (200, 256, 200),
-                (10, 10, 10), (128, 33, 128), (1, 1, 1)]
+                (10, 10, 10), (128, 33, 128), (1, 1, 1), (100, 256, 64),
+                (48, 256, 32), (64, 512, 64)]
 
 
-def _pool_rows(seed, B, L1, L2):
+def _pool_rows(seed, B, L1, L2, holes=False):
     """A pool and candidates with what the hop really holds: ties between
     the operands, duplicate (distance, id) candidates, +inf / −1 slots,
-    both zeros, negative keys (IP), ids near 2³⁰."""
+    both zeros, negative keys (IP), ids near 2³⁰. With ``holes`` the pool
+    is what a dedup merge leaves: (inf, −1, True) slots inside it, finite
+    entries after them (so it is not ascending), and candidates that repeat
+    pool entries (equal keys, and equal ids too)."""
     rng = np.random.default_rng(seed)
     d1 = np.sort(np.round(rng.normal(size=(B, L1)) * 4) / 4, axis=1)
     d2 = np.round(rng.normal(size=(B, L2)) * 4) / 4
@@ -238,19 +245,36 @@ def _pool_rows(seed, B, L1, L2):
     i1[:, -tail:] = -1
     f1 = rng.random(size=(B, L1)) < 0.5
     f2 = np.zeros((B, L2), bool)
+    if holes:
+        finite = max(0, L1 - tail)
+        hole = np.zeros((B, L1), bool)
+        hole[:, :finite] = rng.random(size=(B, finite)) < 0.25
+        hole[:, :1] = False           # a finite entry comes after every hole
+        d1[hole], i1[hole], f1[hole] = np.inf, -1, True
+        if finite:
+            rep = rng.integers(0, finite, size=(B, L2 // 4))
+            rows = np.arange(B)[:, None]
+            d2[:, :L2 // 4] = d1[rows, rep]      # equal keys across operands
+            same = rng.random(size=rep.shape) < 0.5
+            i2[:, :L2 // 4] = np.where(same, i1[rows, rep], i2[:, :L2 // 4])
     return d1, i1, f1, d2, i2, f2
 
 
+@pytest.mark.parametrize("holes", [False, True])
 @pytest.mark.parametrize("fn", ["merge_topk", "merge_topk_with_flags",
                                 "merge_topk_dedup"])
 @pytest.mark.parametrize("shape", MERGE_SHAPES)
-def test_merges_match_jax_on_pool_rows(fn, shape):
+def test_merges_match_jax_on_pool_rows(fn, shape, holes):
     import jax.numpy as jnp
 
     from alayalite_tpu.ops import topk as jtopk
 
     L1, L2, k = shape
-    args = _pool_rows(sum(shape), 37, L1, L2)
+    args = _pool_rows(sum(shape), 37, L1, L2, holes)
+    if holes and L1 - max(1, L1 // 3) > 1:
+        d1 = args[0]
+        assert (~np.isfinite(d1[:, :-1]) & np.isfinite(d1[:, 1:])).any(), \
+            "the pool rows must hold finite entries after a hole"
     if fn == "merge_topk":
         args = (args[0], args[1], args[3], args[4])
     want = getattr(jtopk, fn)(*map(jnp.asarray, args), k)
@@ -329,6 +353,19 @@ def test_cpu_wrappers_run_plain_versions_and_count_calls():
     assert pool_merge(keys, pay, None, keys, pay, None, 1000)[2] is None
 
 
+def test_pool_merge_route_by_shape():
+    """The hop's shapes (ef 32 / 64 / 128 against 256 candidates, the build
+    pools' ef 128, the fusion index's 512 candidates) take the warp kernel;
+    a list or k past WARP_LIST words takes the shared-memory network."""
+    for L1 in (32, 64, 100, 128, 200):
+        assert pool_merge_route(L1, 256, L1) == "warp"
+        assert pool_merge_route(L1, 512, L1) == "warp"
+    assert pool_merge_route(WARP_LIST, WARP_LIST, WARP_LIST) == "warp"
+    assert pool_merge_route(WARP_LIST + 1, 1, 1) == "network"
+    assert pool_merge_route(1, WARP_LIST + 1, 1) == "network"
+    assert pool_merge_route(700, 900, 1600) == "network"
+
+
 @pytest.mark.parametrize("case", ["keys_dtype", "payload_dtype",
                                   "payload_shape", "not_contiguous", "k",
                                   "axis", "too_wide", "rows_differ",
@@ -405,18 +442,32 @@ def test_cuda_sort_kv_matches_plain_version(B, K):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", MERGE_SHAPES + [(0, 5, 3), (700, 900, 1600)])
+@pytest.mark.parametrize("holes", [False, True])
+@pytest.mark.parametrize("shape", MERGE_SHAPES + [(0, 5, 3), (100, 256, 356),
+                                                  (300, 400, 300),
+                                                  (512, 512, 512),
+                                                  (513, 64, 64),
+                                                  (700, 900, 1600),
+                                                  (300, 1024, 500),
+                                                  (64, 2000, 64)])
 @pytest.mark.parametrize("B", [1, 333, 4096])
-def test_cuda_merges_match_plain_versions(B, shape):
+def test_cuda_merges_match_plain_versions(B, shape, holes):
+    """Both kernels of pool_merge: the warp route up to WARP_LIST words a
+    list and k (its two instances: up to 8 and up to 16 words a lane), the
+    shared-memory network past it (the last four shapes)."""
     _need_cuda()
     L1, L2, k = shape
     d1, i1, f1, d2, i2, f2 = (torch.from_numpy(a).cuda()
-                              for a in _pool_rows(B + sum(shape), B, L1, L2))
+                              for a in _pool_rows(B + sum(shape), B, L1, L2,
+                                                  holes))
+    route = pool_merge_route(L1, L2, min(k, L1 + L2))
     for dedup in (False, True):
         launches = pool_merge.launches
+        by_route = pool_merge.route_launches[route]
         got = pool_merge(d1, i1, f1, d2, i2, f2, k, dedup)
         torch.cuda.synchronize()
         assert pool_merge.launches == launches + 1
+        assert pool_merge.route_launches[route] == by_route + 1
         _equal(got, pool_merge_ref(d1, i1, f1, d2, i2, f2, k, dedup),
                (B, shape, dedup))
     _equal(pool_merge(d1, i1, None, d2, i2, None, k),
