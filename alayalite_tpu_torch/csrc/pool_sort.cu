@@ -1,5 +1,6 @@
 // pool_sort: the sort and merge of a beam search's candidate pool, written
-// for Hopper (sm_90a). Four kernels over one compare-exchange:
+// for Hopper (sm_90a). Three kernels over one compare-exchange
+// (roll_n, the exchange's calibration, is in roll_n.cu):
 //
 //   sort_kv     each list of f32 keys ascending, with an optional i32 payload
 //               and the source positions; lists along rows [B, K] or along
@@ -10,19 +11,17 @@
 //               [B, L1] ‖ [B, L2] of (distance, id, flag) sorted ascending,
 //               the first kout kept, the later of two adjacent equal
 //               (distance, id, flag) entries turned into (inf, -1, true)
-//   roll_n      n circular shifts of each row, one after the other
 //
 // Replaces the TPU kernels scripts/proto_pallas_sort.py:111 (sort_kernel)
-// and :117 (merge_kernel), scripts/proto_pallas_sort2.py:81, :87, :92
+// and :117 (merge_kernel) and scripts/proto_pallas_sort2.py:81, :87, :92
 // (sort_sub_kernel, sort_sub_pack_kernel, sort_lane_pack_kernel: layouts of
-// the same sort, with and without payload) and scripts/opt_hop2.py:120
-// (roll_kernel_n). Those hold 32 or 128 lists as one [BT, K] or [K, BT] tile
-// and reach a lane's partner with two circular rolls per stage; neither the
-// tile nor the roll is part of the function. Here a list lives in shared
-// memory and a thread reads its partner there; pool_merge, the one that
-// runs in every hop, keeps each list in one warp's registers instead (the
-// warp route below) and uses the shared-memory network only for lists
-// longer than a warp holds.
+// the same sort, with and without payload). Those hold 32 or 128 lists as
+// one [BT, K] or [K, BT] tile and reach a lane's partner with two circular
+// rolls per stage; neither the tile nor the roll is part of the function.
+// Here a list lives in shared memory and a thread reads its partner there;
+// pool_merge, the one that runs in every hop, keeps each list in one warp's
+// registers instead (the warp route below) and uses the shared-memory
+// network only for lists longer than a warp holds.
 //
 // The order is total. Every entry is one 64-bit word: the key's bits made
 // monotone (-0 and +0 equal, NaN after +inf) in the high half, the entry's
@@ -537,36 +536,6 @@ int lane_words(long long n) {
   return p / 32;
 }
 
-// n circular shifts by 1 + (j mod 7), one after the other: every shift is
-// one partner read in shared memory and one barrier, the exchange a sort
-// stage is made of.
-__global__ void __launch_bounds__(kBlock)
-roll_n_kernel(const float* __restrict__ x, float* __restrict__ out, int K,
-              int n) {
-  extern __shared__ u64 smem[];
-  float* cur = reinterpret_cast<float*>(smem);
-  float* nxt = cur + K;
-  const long long base = static_cast<long long>(blockIdx.x) * K;
-  for (int idx = threadIdx.x; idx < K; idx += kBlock) {
-    cur[idx] = __ldg(x + base + idx);
-  }
-  __syncthreads();
-  for (int j = 0; j < n; ++j) {
-    const int shift = (1 + j % 7) % K;
-    for (int idx = threadIdx.x; idx < K; idx += kBlock) {
-      const int src = idx - shift;
-      nxt[idx] = cur[src < 0 ? src + K : src];
-    }
-    __syncthreads();
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  for (int idx = threadIdx.x; idx < K; idx += kBlock) {
-    out[base + idx] = cur[idx];
-  }
-}
-
 struct Plan {
   int P;          // list length padded to a power of two
   int T;          // threads per list
@@ -697,21 +666,5 @@ extern "C" int alaya_pool_merge_warp(const void* d1, const void* i1,
       static_cast<const int*>(i2), static_cast<const uint8_t*>(f2),
       static_cast<float*>(od), static_cast<int*>(oi),
       static_cast<uint8_t*>(of), B, L1, L2, kout, dedup, R1, R2, RM);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int alaya_roll_n(const void* x, void* out, long long B, int K,
-                            int n, void* stream) {
-  if (B == 0 || K == 0) {
-    return 0;
-  }
-  const size_t smem = static_cast<size_t>(2) * K * sizeof(float);
-  cudaError_t err = allow_smem(roll_n_kernel, smem);
-  if (err != cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  roll_n_kernel<<<static_cast<unsigned>(B), kBlock, smem,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), K, n);
   return static_cast<int>(cudaGetLastError());
 }

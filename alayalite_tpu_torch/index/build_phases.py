@@ -110,7 +110,7 @@ def block_pool_dev(bspace, eps: np.ndarray, ef: int, n: int,
                    max_iters: int = 0, seed_sample=None, n_expand: int = 8,
                    ) -> Tuple[Tensor, Tensor]:
     """Beam-search pools over a block space whose neighbor blocks were
-    packed from the kNN graph: one ``gather_diagdot`` and one ``ring_probe``
+    packed from the kNN graph: one ``gather_estimate`` and one ``ring_probe``
     per hop. The in-search exact rerank makes the returned pool_d exact f32."""
     dev = bspace.device
     eps_dev = torch.as_tensor(np.asarray(eps, np.int32), device=dev)

@@ -6,7 +6,7 @@ prune → reverse edges + re-prune → degree fill → connectivity repair →
 neighbor-block encode. The pools come from beam searches over a bf16 copy
 of the raw space below 250k rows ("beam") and from block searches over an
 interim block space packed from the kNN rows from 250k up ("block"), which
-runs ``gather_diagdot`` and ``ring_probe`` on every hop. ``pool_mode``
+runs ``gather_estimate`` and ``ring_probe`` on every hop. ``pool_mode``
 forces one of the two.
 
 The JAX package's environment switches (ALAYA_POOL_MODE, ALAYA_POOL_ITERS,

@@ -266,8 +266,8 @@ def block_beam_search(space, seeds: Tensor, queries: Tensor, k: int, ef: int,
                       max_iters: int = 0, valid: Optional[Tensor] = None,
                       n_expand: int = 1) -> Tuple[Tensor, Tensor]:
     """Beam search over a block space (BQGSpace): each popped node costs one
-    fat row read inside ``gather_diagdot``, neighbors are scored by the
-    block estimator, ``ring_probe`` drops the ones already expanded or
+    fat row read inside ``gather_estimate``, which scores the neighbors with
+    the block estimator, ``ring_probe`` drops the ones already expanded or
     pooled, and the final pool is re-ranked with exact raw distances."""
     B = queries.shape[0]
     C = space.capacity

@@ -1,6 +1,6 @@
 """Fused u8 decode + per-query dot over code blocks already gathered
-(``BQGSpace.estimate_for``); on the hop itself ``gather_diagdot`` reads the
-blocks inside the kernel.
+(``BQGSpace.estimate_for``); on the hop itself ``gather_estimate``
+(``ops/gather_diagdot.py``) reads the blocks inside the kernel.
 
     dot[b, k] = sum_d (codes[b, k, d] - 128) * qs[b, d]
     codes u8 [B, K, Dp], qs bf16 [B, Dp] -> f32 [B, K]

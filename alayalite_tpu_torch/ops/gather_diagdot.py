@@ -1,61 +1,95 @@
 """The block hop's estimate stage with the neighbor-block gather inside the
-kernel.
+kernel, and with the estimate's epilogue fused in.
 
-    out[b, m*R + r] = sum_d (codes[u[b, m], r, d] - 128) * qs[b, d]
-    codes u8 [C, R, Dp], u i32 [B, M] in [0, C), qs bf16 [B, Dp]
-    -> f32 [B, M*R]
+    gather_diagdot(codes, u, qs)
+        out[b, m*R + r] = sum_d (codes[u[b, m], r, d] - 128) * qs[b, d]
+        codes u8 [C, R, Dp], u i32 [B, M], qs bf16 [B, Dp] -> f32 [B, M*R]
+    gather_estimate(codes, u, qs, qconst, coef, xsq, nbr_ids, clamp)
+        (est, ids): est = (qconst[b] - coef * dot) + xsq[node, r], clamped
+        at 0 where ``clamp`` (L2), ids = nbr_ids[node, r]; both [B, M*R]:
+        ``BQGSpace.estimate_many``'s two outputs in one launch
 
-On CUDA tensors ``gather_diagdot`` launches one of the two hand-written
-kernels of ``csrc/gather_diagdot.cu`` (sm_90a, built with nvcc on first
-use, see ``_build``), or raises:
-  "direct"  a block per (query, popped node) reads the node's code block
-            straight from device memory;
-  "staged"  a block walks a run of (query, node) pairs through two
-            shared-memory stages, the next block's 16-byte ``cp.async``
-            copies in flight while it computes.
-On CPU tensors it runs the plain PyTorch version ``gather_diagdot_ref``
-(``index_select`` + ``block_diagdot_ref``). There is no other route and no
-fallback. ``u`` is not checked on the device: the callers clamp it into
-[0, C).
+``u`` is clamped into [0, C) (inside the kernel on the card). On CUDA
+tensors each wrapper launches one of the two hand-written entries of
+``csrc/gather_diagdot.cu`` (sm_90a, built with nvcc on first use, see
+``_build``), or raises:
+  "rows"  the unit of work is a code row: lanes that share a row keep
+          their slice of qs in registers and start every row load before
+          their first multiply-add; no shared memory, no barrier;
+  "bulk"  each popped node's R*Dp bytes move by a TMA bulk copy into a ring
+          of shared-memory stages, a few items ahead of the compute; it
+          takes R*Dp % 16 == 0 and 16-byte aligned codes and raises
+          elsewhere (``bulk_fits``).
+On CPU tensors they run the plain PyTorch versions ``gather_diagdot_ref``
+(``index_select`` + ``block_diagdot_ref``) and ``gather_estimate_ref`` (the
+epilogue of ``estimate_many`` written out over it). There is no other route
+and no fallback. The estimate is evaluated in the epilogue's f32 order
+(multiply, subtract, add, no FMA), so for the same dot it equals the plain
+epilogue bit for bit.
 
-Replaces the TPU kernels ``scripts/proto_dma_gather.py:48`` (``kernel`` via
-``dma_diagdot``, the direct variant) and ``scripts/proto_dma_gather2.py:48``
-(``kernel`` via ``dma2_diagdot``, the staged variant). Both take any B, M,
-R and Dp, with byte loads where 16-byte accesses are not possible. The
-kernels are bound by memory: at the main-path shape (B 4096, M 8, R 32,
-Dp 128) they must move 139.6 MB, ~42 us at 3.35 TB/s on an H100, a third
-of what ``index_select`` followed by ``block_diagdot`` moves (see the note
-in the source).
+Replaces the TPU kernels ``scripts/proto_dma_gather.py:93`` (``dma_diagdot``,
+the rows entry) and ``scripts/proto_dma_gather2.py:124`` (``dma2_diagdot``,
+its double-buffered copies: the bulk entry). The kernels are bound by
+memory: at the hop's shape (B 4096, M 8, R 32, Dp 128) each pop reads a
+4 KB block, 139.6 MB in all (~42 us at 3.35 TB/s), but a block that several
+pops share needs its bytes once: chip_smoke.py's bound over the distinct
+blocks is 0.0322 ms (see the note in the source).
 
-``gather_diagdot.calls`` counts calls on any device;
-``gather_diagdot.launches`` counts CUDA kernel launches (of either variant)
-and nothing else.
+``.calls`` counts calls on any device, ``.launches`` CUDA kernel launches
+and nothing else, ``.route_launches`` the launches by entry.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from .diagdot import block_diagdot_ref
 
-_MAX_SMEM = 227 * 1024  # dynamic shared memory one block may use on sm_90
-_MAX_GRID_Y = 65535
-VARIANTS = ("direct", "staged")
+Tensor = torch.Tensor
+_MAX_SMEM = 227 * 1024      # dynamic shared memory one block may use on sm_90
+# the bulk entry's shared memory: barriers and node ids, then 4 stages of up
+# to 128 pops or 16 KB
+_BULK_STAGES, _BULK_TARGET, _BULK_HEADER, _BULK_POPS = 4, 16384, 2688, 128
+VARIANTS = ("rows", "bulk")
 
 
-def gather_diagdot_ref(codes: torch.Tensor, u: torch.Tensor,
-                       qs: torch.Tensor) -> torch.Tensor:
+def gather_diagdot_ref(codes: Tensor, u: Tensor, qs: Tensor) -> Tensor:
     """Plain version: gather the popped nodes' blocks into [B, M*R, Dp],
     then the plain decode + dot."""
     B, M = u.shape
-    _, R, Dp = codes.shape
-    g = codes.index_select(0, u.reshape(-1)).view(B, M * R, Dp)
+    C, R, Dp = codes.shape
+    safe = u.clamp(0, C - 1).reshape(-1)
+    g = codes.index_select(0, safe).view(B, M * R, Dp)
     return block_diagdot_ref(g, qs)
 
 
-def _check(codes: torch.Tensor, u: torch.Tensor, qs: torch.Tensor) -> None:
+def estimate_epilogue(dot: Tensor, u: Tensor, qconst: Tensor, coef: float,
+                      xsq: Tensor, nbr_ids: Tensor,
+                      clamp: bool) -> Tuple[Tensor, Tensor]:
+    """``estimate_many``'s epilogue on given dots [B, M*R]: (est, ids)."""
+    B, M = u.shape
+    C, R = xsq.shape
+    flat = u.clamp(0, C - 1).reshape(-1)
+    est = (qconst[:, None] - coef * dot
+           + xsq.index_select(0, flat).view(B, M * R))
+    if clamp:
+        est = torch.clamp(est, min=0.0)
+    return est, nbr_ids.index_select(0, flat).view(B, M * R)
+
+
+def gather_estimate_ref(codes: Tensor, u: Tensor, qs: Tensor, qconst: Tensor,
+                        coef: float, xsq: Tensor, nbr_ids: Tensor,
+                        clamp: bool) -> Tuple[Tensor, Tensor]:
+    """Plain version of the fused entry: the epilogue over
+    ``gather_diagdot_ref``."""
+    return estimate_epilogue(gather_diagdot_ref(codes, u, qs), u, qconst,
+                             coef, xsq, nbr_ids, clamp)
+
+
+def _check(codes: Tensor, u: Tensor, qs: Tensor) -> None:
     if codes.dtype != torch.uint8 or codes.dim() != 3:
         raise TypeError(f"codes must be uint8 [C, R, Dp], got {codes.dtype} "
                         f"{tuple(codes.shape)}")
@@ -79,12 +113,36 @@ def _check(codes: torch.Tensor, u: torch.Tensor, qs: torch.Tensor) -> None:
         raise ValueError("codes holds no node to gather from")
 
 
-def _staged_fits(R: int, Dp: int) -> bool:
-    """Whether two stages of one [R, Dp] block and qs fit a block's shared
-    memory."""
-    def r16(n):
-        return -(-n // 16) * 16
-    return r16(Dp * 4) + 2 * r16(R * Dp) <= _MAX_SMEM
+def _check_estimate(codes: Tensor, u: Tensor, qconst: Tensor, xsq: Tensor,
+                    nbr_ids: Tensor) -> None:
+    C, R, _ = codes.shape
+    for name, t, dtype, shape in (("qconst", qconst, torch.float32,
+                                   (u.shape[0],)),
+                                  ("xsq", xsq, torch.float32, (C, R)),
+                                  ("nbr_ids", nbr_ids, torch.int32, (C, R))):
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise TypeError(f"{name} must be {dtype} {list(shape)}, got "
+                            f"{t.dtype} {tuple(t.shape)}")
+        if t.device != codes.device:
+            raise ValueError(f"{name} on {t.device}, codes on {codes.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _vec(codes: Tensor, qs: Tensor) -> bool:
+    """16-byte loads of code rows and of qs."""
+    return (codes.shape[2] % 16 == 0 and codes.data_ptr() % 16 == 0
+            and qs.data_ptr() % 16 == 0)
+
+
+def bulk_fits(codes: Tensor) -> bool:
+    """Whether the bulk entry takes these codes: whole 16-byte blocks at a
+    16-byte aligned base, and four stages of a block in shared memory."""
+    _, R, Dp = codes.shape
+    blk = R * Dp
+    T = min(_BULK_POPS, max(1, _BULK_TARGET // blk)) if blk else 1
+    return (blk % 16 == 0 and codes.data_ptr() % 16 == 0
+            and _BULK_HEADER + _BULK_STAGES * T * blk <= _MAX_SMEM)
 
 
 def _kernel(variant: str):
@@ -92,16 +150,31 @@ def _kernel(variant: str):
     use)."""
     from ._build import entry
 
-    flags = [ctypes.c_int] * (2 if variant == "staged" else 1)
+    P, LL = ctypes.c_void_p, ctypes.c_longlong
     return entry("gather_diagdot", f"alaya_gather_diagdot_{variant}",
-                 [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + flags)
+                 [P] * 4 + [LL] * 5 + [ctypes.c_int] + [P] * 4
+                 + [ctypes.c_float, ctypes.c_int])
 
 
-def gather_diagdot(codes: torch.Tensor, u: torch.Tensor, qs: torch.Tensor,
-                   variant: str = "direct") -> torch.Tensor:
-    """out[b, m*R + r] = sum_d (codes[u[b,m], r, d] - 128) * qs[b, d]."""
+def _launch(fn, codes: Tensor, u: Tensor, qs: Tensor, out: Tensor,
+            variant: str, est_args=(None, None, None, None, 0.0, 0)) -> None:
     from ._build import launch
 
+    if variant == "bulk" and not bulk_fits(codes):
+        raise ValueError(f"the bulk entry does not take codes "
+                         f"{tuple(codes.shape)} at this base address")
+    B, M = u.shape
+    C, R, Dp = codes.shape
+    launch(_kernel(variant), codes.device, codes.data_ptr(), u.data_ptr(),
+           qs.data_ptr(), out.data_ptr(), C, B, M, R, Dp,
+           int(_vec(codes, qs)), *est_args)
+    fn.launches += 1
+    fn.route_launches[variant] += 1
+
+
+def gather_diagdot(codes: Tensor, u: Tensor, qs: Tensor,
+                   variant: str = "rows") -> Tensor:
+    """out[b, m*R + r] = sum_d (codes[u[b,m], r, d] - 128) * qs[b, d]."""
     _check(codes, u, qs)
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
@@ -109,27 +182,39 @@ def gather_diagdot(codes: torch.Tensor, u: torch.Tensor, qs: torch.Tensor,
     if codes.device.type == "cpu":
         return gather_diagdot_ref(codes, u, qs)
     B, M = u.shape
-    _, R, Dp = codes.shape
-    out = torch.empty((B, M * R), dtype=torch.float32, device=codes.device)
-    if out.numel() == 0:
-        return out
-    aligned = codes.data_ptr() % 16 == 0
-    if variant == "staged":
-        if not _staged_fits(R, Dp):
-            raise ValueError(f"a [{R}, {Dp}] block exceeds the staged "
-                             "kernel's shared memory")
-        # 16-byte copies into the stage; 16-byte reads of its rows
-        flags = (int(aligned and (R * Dp) % 16 == 0), int(Dp % 16 == 0))
-    else:
-        if M > _MAX_GRID_Y or Dp * 4 + 16 > _MAX_SMEM:
-            raise ValueError(f"M={M}, Dp={Dp} exceed the direct kernel's "
-                             "grid or shared memory")
-        flags = (int(aligned and Dp % 16 == 0),)
-    launch(_kernel(variant), codes.device, codes.data_ptr(), u.data_ptr(),
-           qs.data_ptr(), out.data_ptr(), B, M, R, Dp, *flags)
-    gather_diagdot.launches += 1
+    out = torch.empty((B, M * codes.shape[1]), dtype=torch.float32,
+                      device=codes.device)
+    if out.numel():
+        _launch(gather_diagdot, codes, u, qs, out, variant)
     return out
 
 
-gather_diagdot.calls = 0
-gather_diagdot.launches = 0
+def gather_estimate(codes: Tensor, u: Tensor, qs: Tensor, qconst: Tensor,
+                    coef: float, xsq: Tensor, nbr_ids: Tensor, clamp: bool,
+                    variant: str = "rows") -> Tuple[Tensor, Tensor]:
+    """(est, ids) [B, M*R]: est = (qconst[b] - coef * dot) + xsq[node, r]
+    (clamped at 0 where ``clamp``), ids = nbr_ids[node, r], node = u[b, m]
+    clamped into [0, C)."""
+    _check(codes, u, qs)
+    _check_estimate(codes, u, qconst, xsq, nbr_ids)
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    gather_estimate.calls += 1
+    if codes.device.type == "cpu":
+        return gather_estimate_ref(codes, u, qs, qconst, coef, xsq, nbr_ids,
+                                   clamp)
+    B, M = u.shape
+    shape = (B, M * codes.shape[1])
+    est = torch.empty(shape, dtype=torch.float32, device=codes.device)
+    ids = torch.empty(shape, dtype=torch.int32, device=codes.device)
+    if est.numel():
+        _launch(gather_estimate, codes, u, qs, est, variant,
+                (qconst.data_ptr(), xsq.data_ptr(), nbr_ids.data_ptr(),
+                 ids.data_ptr(), float(coef), int(bool(clamp))))
+    return est, ids
+
+
+for _fn in (gather_diagdot, gather_estimate):
+    _fn.calls = 0
+    _fn.launches = 0
+    _fn.route_launches = {v: 0 for v in VARIANTS}

@@ -21,8 +21,8 @@ operand first). −0.0 equals +0.0; a NaN key sorts after +inf, as in
 ``torch.sort``. Keys and payloads come out bit for bit as they went in.
 
 On a CUDA tensor each function launches its hand-written kernel in
-``csrc/pool_sort.cu`` (sm_90a, built with nvcc on first use, see ``_build``),
-or raises. On a CPU tensor it runs the plain PyTorch version beside it
+``csrc/pool_sort.cu`` (``roll_n``: ``csrc/roll_n.cu``; sm_90a, built with nvcc
+on first use, see ``_build``), or raises. On a CPU tensor it runs the plain PyTorch version beside it
 (``*_ref``: ``torch.sort(stable=True)`` and a gather, ``torch.roll``). There
 is no other route and no fallback.
 
@@ -31,14 +31,15 @@ Replaces the TPU kernels ``scripts/proto_pallas_sort.py:111`` and ``:117``
 ``:87``, ``:92`` (the sort along columns, and without payload along columns
 and rows) and ``scripts/opt_hop2.py:120`` (``roll_kernel_n``). The kernels
 are bound by memory on paper (a [4096, 64 + 256] merge moves 6.6 MB).
-``sort_kv``, ``merge_kv`` and ``roll_n`` run their stages in shared memory;
+``sort_kv`` and ``merge_kv`` run their stages in shared memory;
 ``pool_merge`` keeps each list in one warp's registers and exchanges words
 by shuffles, up to ``WARP_LIST`` words a list, and sorts longer ones in
-shared memory; see the notes in the source.
+shared memory; ``roll_n`` exchanges by shuffles where a row is 32·W words
+(W ≤ 16) and in shared memory elsewhere; see the notes in the sources.
 
 Each function counts its calls on any device (``.calls``) and its CUDA kernel
-launches and nothing else (``.launches``); ``pool_merge.route_launches``
-splits its launches by kernel.
+launches and nothing else (``.launches``); ``pool_merge.route_launches`` and
+``roll_n.route_launches`` split their launches by kernel.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ import torch
 Tensor = torch.Tensor
 MAX_LIST = 16384   # power-of-two stage of 8-byte words in 227 KB shared memory
 WARP_LIST = 512    # pool_merge keeps a list in one warp's registers up to here
+WARP_ROLL = 512    # roll_n keeps a row of 32·W words in registers up to here
 _SRC = "pool_sort"
 
 
@@ -139,14 +141,21 @@ def pool_merge_route(L1: int, L2: int, k: int) -> str:
             else "network")
 
 
+def roll_n_route(K: int) -> str:
+    """The kernel ``roll_n`` launches for rows of ``K`` words: "warp" (a row
+    in one warp's registers, shifted by shuffles) where K is a multiple of
+    32 up to ``WARP_ROLL``, else "shared" (a row in shared memory)."""
+    return "warp" if K % 32 == 0 and 0 < K <= WARP_ROLL else "shared"
+
+
 def _ptr(t: Optional[Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _entry(symbol: str, argtypes: list):
+def _entry(symbol: str, argtypes: list, src: str = _SRC):
     from ._build import entry
 
-    return entry(_SRC, symbol, argtypes)
+    return entry(src, symbol, argtypes)
 
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -277,7 +286,8 @@ def pool_merge(d1: Tensor, i1: Tensor, f1: Optional[Tensor], d2: Tensor,
 def roll_n(x: Tensor, n: int) -> Tensor:
     """``x`` [B, K] f32 after ``n`` circular shifts along the rows, the j-th
     by 1 + (j mod 7), done one by one: time / n / B is the card's cost of one
-    exchange step of the sort."""
+    exchange step of the sort. On the card the width picks the kernel
+    (``roll_n_route``); both return the same bits."""
     from ._build import launch
 
     _check_2d("x", x, torch.float32)
@@ -291,9 +301,12 @@ def roll_n(x: Tensor, n: int) -> Tensor:
     out = torch.empty_like(x)
     B, K = x.shape
     if B and K:
-        launch(_entry("alaya_roll_n", [_P, _P, _LL, _I, _I]), x.device,
-               x.data_ptr(), out.data_ptr(), B, K, n)
+        route = roll_n_route(K)
+        launch(_entry(f"alaya_roll_n_{route}", [_P, _P, _LL, _I, _I],
+                      "roll_n"), x.device, x.data_ptr(), out.data_ptr(), B,
+               K, n)
         roll_n.launches += 1
+        roll_n.route_launches[route] += 1
     return out
 
 
@@ -301,3 +314,4 @@ for _fn in (sort_kv, merge_kv, pool_merge, roll_n):
     _fn.calls = 0
     _fn.launches = 0
 pool_merge.route_launches = {"warp": 0, "network": 0}
+roll_n.route_launches = {"warp": 0, "shared": 0}

@@ -7,8 +7,9 @@ grid; the distance factors as
 
     d² = (|q|² − 2 q·(m + 128 s)) − 2 (q∘s)·(c − 128) + |x̂|²
 
-and the middle term is ``ops.gather_diagdot.gather_diagdot`` on the hop
-(``estimate_many``: the popped nodes' blocks are read inside the kernel) and
+and the middle term is taken by ``ops.gather_diagdot.gather_estimate`` on
+the hop (``estimate_many``: one kernel reads the popped nodes' blocks, the
+norms and the ids, and writes the estimates) and by
 ``ops.diagdot.block_diagdot`` on blocks already gathered (``estimate_for``).
 IP uses dot coefficient 1 and stores |x̂|² as 0; COS is normalize-then-L2.
 Codes are padded from D to Dp (a multiple of 128) with the centre byte 128,
@@ -30,21 +31,19 @@ import torch
 
 from ..ops.diagdot import block_diagdot
 from ..ops.distance import normalize_rows
-from ..ops.gather_diagdot import gather_diagdot
+from ..ops.gather_diagdot import gather_estimate
 from .raw import bump_slots, tombstone
 
 Tensor = torch.Tensor
 
-# The gather_diagdot kernel that estimate_many launches. At the hop's shape
+# The gather_estimate entry that estimate_many launches. At the hop's shape
 # (B 4096, M 8, R 32, Dp 128, codes of 100,000 nodes) chip_smoke.py timed
-# direct at 0.1100 ms and staged at 0.1232 ms of device time on an NVIDIA
-# H100 80GB HBM3 at its 700.00 W power limit (0.1408 against 0.1743 ms with
-# the host's launch latency counted in; direct was the faster in all six
-# runs): with one 4 KB block in flight per resident thread block either
-# way, the second stage buys nothing. The staged entry stays as the
-# counterpart of the TPU's double-buffered prototype, checked and timed by
-# chip_smoke.py, and is launched by no entry point of the index.
-ESTIMATE_VARIANT = "direct"
+# rows at 0.0631 ms and bulk at 0.1373 ms of device time, the dot alone
+# 0.0546 and 0.1001, on an NVIDIA H100 80GB HBM3 at its 700.00 W power
+# limit (bound 0.0322 ms for the dot alone): bulk's persistent blocks walk
+# their items one after another (wait, compute, barrier, next copy), rows
+# keeps 24 warps an SM with 8 loads in flight each.
+ESTIMATE_VARIANT = "rows"
 ENCODE_CHUNK = 8192   # rows per step of set_neighbor_rows' encode
 
 
@@ -247,19 +246,15 @@ class BQGSpace:
 
     def estimate_many(self, ctx, u: Tensor) -> Tuple[Tensor, Tensor]:
         """Estimated d² (L2) / −q·x̂ (IP) to the neighbors of all popped
-        nodes u [B, M]: ([B, M*R] estimates, [B, M*R] ids). The code blocks
-        are read inside the ``gather_diagdot`` kernel; only the ids and the
-        norms are gathered here."""
+        nodes u [B, M] (clamped into [0, capacity)): ([B, M*R] estimates,
+        [B, M*R] ids). On the card one ``gather_estimate`` launch reads the
+        code blocks, the norms and the ids and writes both."""
         _, qs, qconst = ctx
-        B, M = u.shape
-        MR = M * self.degree
-        safe = u.clamp(0, self.capacity - 1).to(torch.int32).contiguous()
-        dot = gather_diagdot(self.nbr_codes, safe, qs,
-                             variant=ESTIMATE_VARIANT)
-        flat = safe.reshape(-1)
-        est = (qconst[:, None] - self._dot_coef * dot
-               + self.nbr_xsq.index_select(0, flat).view(B, MR))
-        return self._clamp(est), self.nbr_ids.index_select(0, flat).view(B, MR)
+        return gather_estimate(self.nbr_codes,
+                               u.to(torch.int32).contiguous(), qs,
+                               qconst.contiguous(), self._dot_coef,
+                               self.nbr_xsq, self.nbr_ids,
+                               self.metric == "l2", variant=ESTIMATE_VARIANT)
 
     def gather_dists(self, q: Tensor, ids: Tensor) -> Tensor:
         """Exact f32 distances (seed scoring + final rerank)."""

@@ -7,7 +7,12 @@ the script exits non-zero:
   2. build     every CUDA source of the port, one nvcc each, in parallel,
                each one's seconds and compiler warnings logged; sq8_tile's
                SASS must hold HGMMA (cuobjdump -sass);
-  3. kernels   block_diagdot, gather_diagdot (direct and staged) and
+  3. kernels   block_diagdot, gather_diagdot (its rows and bulk entries,
+               at the hop's shape, the sq8 traversal's R = 1, Dp % 16 != 0;
+               bulk must raise where it does not take the codes),
+               gather_estimate (the same entries with estimate_many's
+               epilogue fused in: est bit for bit against the PyTorch
+               epilogue on the entry's own dot, ids exactly, L2 and IP) and
                ring_probe against their plain PyTorch versions on the card
                at the main-path shapes and at ragged shapes, with CUDA-event
                times of the kernel, the plain version and a library route
@@ -23,21 +28,26 @@ the script exits non-zero:
                512 beside the network; its launches on the paths are
                counted by kernel, phase by phase, as pool_merge[warp] and
                pool_merge[network]) and
-               roll_n, each bit for bit against its plain version at the
-               hop's shapes and at ragged ones; and an sq8 space's
-               gather_dists (gather_diagdot on one-row blocks) against
-               index_select + bmm written out here, timed at the hop's shape;
+               roll_n (both of its kernels: the warp route for rows of 32·W
+               words and the shared-memory one, timed beside one torch.roll
+               by the summed shift), each bit for bit against its plain
+               version at the hop's shapes and at ragged ones; and an sq8
+               space's gather_dists (gather_diagdot on one-row blocks)
+               against index_select + bmm written out here, timed at the
+               hop's shape with the kernel's own time beside it;
   4. fit       Client().create_index(hnsw + bsq8, the repository's
                headline parameters, capacity 1M + 16,384) and fit on
                bench.py's data, random_dataset(1M x 128, seed 42, 500
                clusters), with per-phase seconds and kernel launches;
-               then gather_diagdot (both variants) against its plain
-               version on the fitted index's own code tensor, at node ids
-               up to num - 1, whose byte offsets pass 2^31;
+               then gather_diagdot and gather_estimate (both entries)
+               against their plain versions on the fitted index's own code
+               tensor, norms and ids, at node ids up to num - 1, whose byte
+               offsets pass 2^31; every CUDA kernel one estimate_many call
+               launches, counted by torch.profiler (fails unless one);
   5. search    batch_search of 8192 queries at ef 32 and 64, k = 10,
                recall@10 against exact ground truth computed here on the
                card, wall QPS and kernel launches; fails below 0.95 at
-               ef = 64;
+               ef = 64, and unless every hop launched gather_estimate once;
   6. small     a 2000 x 32 index searched on the card and with the plain
                versions on the CPU must agree;
   6b. churn    on the 1M index: remove 10,000 ids and search (none may come
@@ -133,9 +143,12 @@ SPARE = 16_384                       # bsq8 capacity past the fitted rows
 CHURN_INSERT, CHURN_BATCH = 8_192, 4_096
 CHURN_FLOOR = 0.95                   # own top-1 share and recall@10 at ef 64
 # gather_diagdot: (nodes C, R, Dp, B, M); the main shape is the hop's, over
-# codes for 100,000 nodes
+# codes for 100,000 nodes; R = 1 is the sq8 traversal's (4096 queries x 256
+# ids over 100,000 x 128 codes viewed as one-row blocks)
 GATHER_MAIN = (100_000, 32, 128, 4096, 8)
-GATHER_SHAPES = (GATHER_MAIN, (5_000, 24, 96, 1000, 5), (900, 7, 40, 333, 3))
+GATHER_R1 = (100_000, 1, 128, 4096, 256)
+GATHER_SHAPES = (GATHER_MAIN, GATHER_R1, (5_000, 24, 96, 1000, 5),
+                 (900, 7, 40, 333, 3), (5_000, 1, 100, 1000, 77))
 # ring_probe: (B, K, S); the main shape is the search's at ef 64 (K = M*R,
 # S = pop ring 96 + pool 64)
 PROBE_MAIN = (4096, 256, 160)
@@ -209,18 +222,79 @@ def check_diagdot(torch, dev) -> dict:
     return result
 
 
-def check_gather_probe(torch, dev) -> dict:
-    """gather_diagdot (both variants) and ring_probe against their plain
-    versions; times, bounds and library routes at the main shapes."""
-    from alayalite_tpu_torch.ops.gather_diagdot import (VARIANTS,
+def estimate_inputs(torch, rng, codes, B, dev):
+    """qconst [B], xsq [C, R] with inf on -1 slots, nbr_ids [C, R]: the
+    fused estimate's operands, as a bsq8 space holds them."""
+    C, R, _ = codes.shape
+    ids = rng.integers(-1, C, size=(C, R)).astype(np.int32)
+    xsq = (rng.random((C, R)) * 40).astype(np.float32)
+    xsq[ids < 0] = np.inf
+    qconst = (rng.normal(size=B) * 60).astype(np.float32)
+    return tuple(torch.as_tensor(a, device=dev) for a in (qconst, xsq, ids))
+
+
+def snapshot_counts(*fns):
+    """Calls, launches and launches by entry of wrappers, to be put back
+    after launches that only compare a kernel with its plain version."""
+    return [(f, f.calls, f.launches, dict(f.route_launches)) for f in fns]
+
+
+def restore_counts(saved) -> None:
+    for f, calls, n, routes in saved:
+        f.calls, f.launches = calls, n
+        f.route_launches.clear()
+        f.route_launches.update(routes)
+
+
+def check_estimate_bits(torch, codes, u, qs, est_args, variant, what):
+    """The fused entry's (est, ids) against the PyTorch epilogue applied to
+    the same entry's dot: bit for bit, L2 (coef 2, clamp) and IP (coef 1).
+    Returns the largest difference of est from the plain version's."""
+    from alayalite_tpu_torch.ops.gather_diagdot import (estimate_epilogue,
                                                         gather_diagdot,
-                                                        gather_diagdot_ref)
+                                                        gather_estimate,
+                                                        gather_estimate_ref)
+
+    qconst, xsq, ids = est_args
+    worst = 0.0
+    for coef, clamp in ((2.0, True), (1.0, False)):
+        est, nid = gather_estimate(codes, u, qs, qconst, coef, xsq, ids,
+                                   clamp, variant=variant)
+        dot = gather_diagdot(codes, u, qs, variant=variant)
+        torch.cuda.synchronize()
+        want, want_ids = estimate_epilogue(dot, u, qconst, coef, xsq, ids,
+                                           clamp)
+        if not (torch.equal(nid, want_ids) and torch.equal(
+                est.view(torch.int32), want.view(torch.int32))):
+            raise AssertionError(f"gather_estimate[{variant}] differs from "
+                                 f"the epilogue on its own dot: {what}")
+        plain, _ = gather_estimate_ref(codes, u, qs, qconst, coef, xsq, ids,
+                                       clamp)
+        fin = torch.isfinite(plain)
+        if not torch.equal(fin, torch.isfinite(est)):
+            raise AssertionError(f"gather_estimate[{variant}]: inf slots "
+                                 f"differ at {what}")
+        worst = max(worst, float((est[fin] - plain[fin]).abs().max()))
+    return worst
+
+
+def check_gather_probe(torch, dev) -> dict:
+    """gather_diagdot (both entries), gather_estimate (the fused estimate,
+    both entries) and ring_probe against their plain versions; times,
+    bounds and library routes at the main shapes: the hop's and the sq8
+    traversal's (R = 1)."""
+    from alayalite_tpu_torch.ops.gather_diagdot import (
+        VARIANTS, bulk_fits, gather_diagdot, gather_diagdot_ref,
+        gather_estimate, gather_estimate_ref)
     from alayalite_tpu_torch.ops.ring_probe import ring_probe, ring_probe_ref
     from alayalite_tpu_torch.spaces.bqg import ESTIMATE_VARIANT
+    from alayalite_tpu_torch.spaces.sq import GATHER_VARIANT
     from alayalite_tpu_torch.utils.timing import bound, cuda_ms
 
     rng = np.random.default_rng(2)
-    out = {"gather_diagdot": {"errors": {}}, "ring_probe": {"errors": {}}}
+    out = {"gather_diagdot": {"errors": {}}, "gather_estimate": {"errors": {}},
+           "ring_probe": {"errors": {}}}
+    saved = snapshot_counts(gather_diagdot, gather_estimate)
     for shape in GATHER_SHAPES:
         C, R, Dp, B, M = shape
         codes = torch.as_tensor(rng.integers(0, 256, size=(C, R, Dp),
@@ -230,20 +304,34 @@ def check_gather_probe(torch, dev) -> dict:
         u[: B // 8] = 0              # inactive pops all read node 0's block
         qs = torch.as_tensor(rng.normal(size=(B, Dp)).astype(np.float32),
                              device=dev).to(torch.bfloat16)
+        est_args = estimate_inputs(torch, rng, codes, B, dev)
         want = gather_diagdot_ref(codes, u, qs)
         tol = tolerance(want)
-        errs = {}
+        errs, est_errs = {}, {}
         for variant in VARIANTS:
+            if variant == "bulk" and not bulk_fits(codes):
+                try:
+                    gather_diagdot(codes, u, qs, variant=variant)
+                except ValueError:
+                    log(f"kernel gather_diagdot[bulk] {shape}: not taken "
+                        f"(R*Dp % 16 = {R * Dp % 16}), raises")
+                    continue
+                raise AssertionError(f"gather_diagdot[bulk] took {shape}")
             got = gather_diagdot(codes, u, qs, variant=variant)
             torch.cuda.synchronize()
             errs[variant] = float((got - want).abs().max())
+            est_errs[variant] = check_estimate_bits(
+                torch, codes, u, qs, est_args, variant, str(shape))
             log(f"kernel gather_diagdot[{variant}] {shape}: max_abs_err="
-                f"{errs[variant]:.3e} (tol {tol:.3e})")
+                f"{errs[variant]:.3e} (tol {tol:.3e}); gather_estimate"
+                f"[{variant}] equals the epilogue on its dot bit for bit, "
+                f"est against the plain version {est_errs[variant]:.3e}")
             if not errs[variant] <= tol:
                 raise AssertionError(f"gather_diagdot[{variant}] disagrees "
                                      f"at {shape}: {errs[variant]} > {tol}")
         out["gather_diagdot"]["errors"][str(shape)] = errs
-        if shape != GATHER_MAIN:
+        out["gather_estimate"]["errors"][str(shape)] = est_errs
+        if shape not in (GATHER_MAIN, GATHER_R1):
             continue
 
         def library():
@@ -251,35 +339,64 @@ def check_gather_probe(torch, dev) -> dict:
             return torch.bmm((g.to(torch.int16) - 128).to(torch.bfloat16),
                              qs.unsqueeze(2))
 
-        times = {v: cuda_ms(lambda v=v: gather_diagdot(codes, u, qs,
-                                                       variant=v))
-                 for v in VARIANTS}
-        spins = {v: cuda_ms(lambda v=v: gather_diagdot(codes, u, qs,
-                                                       variant=v), spin=True)
-                 for v in VARIANTS}
-        # each distinct popped block must be read once: the pops that share
-        # a node (the inactive ones all name node 0) need its bytes once
+        def dot_fn(v):
+            return lambda: gather_diagdot(codes, u, qs, variant=v)
+
+        def est_fn(v):
+            return lambda: gather_estimate(codes, u, qs, *est_args[:1], 2.0,
+                                           *est_args[1:], True, variant=v)
+
+        # each distinct popped block is read once: the pops that share a
+        # node (the inactive ones all name node 0) need its bytes once
         distinct = int(torch.unique(u).numel())
-        b = bound(distinct * R * Dp + B * Dp * 2 + B * M * R * 4 + B * M * 4,
-                  2 * B * M * R * Dp, "f32")
-        out["gather_diagdot"].update(
-            max_abs_err=errs[ESTIMATE_VARIANT], ms=times[ESTIMATE_VARIANT],
-            ms_spin=spins[ESTIMATE_VARIANT],
-            variant=ESTIMATE_VARIANT, direct_ms=times["direct"],
-            staged_ms=times["staged"], direct_ms_spin=spins["direct"],
-            staged_ms_spin=spins["staged"], distinct_nodes=distinct,
-            plain_ms=cuda_ms(lambda: gather_diagdot_ref(codes, u, qs)),
-            library_ms=cuda_ms(library), shape=list(shape), **b)
-        g = out["gather_diagdot"]
-        log(f"kernel gather_diagdot {shape}: direct {times['direct']:.4f} ms "
-            f"({spins['direct']:.4f} device alone), staged "
-            f"{times['staged']:.4f} ms ({spins['staged']:.4f}), plain "
-            f"{g['plain_ms']:.4f} ms, library index_select + bmm "
-            f"{g['library_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms "
-            f"({b['bytes']} bytes, {distinct} distinct nodes of {B * M} "
-            f"pops)")
+        dot_bytes = (distinct * R * Dp + B * Dp * 2 + B * M * R * 4
+                     + B * M * 4)
+        b_dot = bound(dot_bytes, 2 * B * M * R * Dp, "f32")
+        # and the fused estimate: xsq and ids of each distinct row, qconst,
+        # and the ids as a second output
+        b_est = bound(dot_bytes + distinct * R * 8 + B * 4 + B * M * R * 4,
+                      2 * B * M * R * Dp + 3 * B * M * R, "f32")
+        rep = {"shape": list(shape), "distinct_nodes": distinct,
+               "plain_ms": cuda_ms(lambda: gather_diagdot_ref(codes, u, qs)),
+               "library_ms": cuda_ms(library), **b_dot}
+        est_rep = {"shape": list(shape), "distinct_nodes": distinct,
+                   "plain_ms": cuda_ms(lambda: gather_estimate_ref(
+                       codes, u, qs, est_args[0], 2.0, est_args[1],
+                       est_args[2], True)),
+                   "library_ms": None, **b_est}
+        for v in VARIANTS:
+            if v not in errs:
+                continue
+            rep[f"{v}_ms"] = cuda_ms(dot_fn(v))
+            rep[f"{v}_ms_spin"] = cuda_ms(dot_fn(v), spin=True)
+            est_rep[f"{v}_ms"] = cuda_ms(est_fn(v))
+            est_rep[f"{v}_ms_spin"] = cuda_ms(est_fn(v), spin=True)
+        route = ESTIMATE_VARIANT if shape == GATHER_MAIN else GATHER_VARIANT
+        rep.update(variant=route, max_abs_err=errs[route],
+                   ms=rep[f"{route}_ms"], ms_spin=rep[f"{route}_ms_spin"])
+        est_rep.update(variant=ESTIMATE_VARIANT,
+                       max_abs_err=est_errs[ESTIMATE_VARIANT],
+                       ms=est_rep[f"{ESTIMATE_VARIANT}_ms"],
+                       ms_spin=est_rep[f"{ESTIMATE_VARIANT}_ms_spin"])
+        key = "main" if shape == GATHER_MAIN else "r1"
+        out["gather_diagdot"][key] = rep
+        out["gather_estimate"][key] = est_rep
+        times = ", ".join(
+            f"{v} {rep[f'{v}_ms']:.4f} ms ({rep[f'{v}_ms_spin']:.4f} device "
+            f"alone), fused {est_rep[f'{v}_ms']:.4f} "
+            f"({est_rep[f'{v}_ms_spin']:.4f})" for v in VARIANTS if v in errs)
+        log(f"kernel gather_diagdot {shape}: {times}; plain "
+            f"{rep['plain_ms']:.4f} ms (fused {est_rep['plain_ms']:.4f}), "
+            f"library index_select + bmm {rep['library_ms']:.4f} ms, bound "
+            f"{b_dot['bound_ms']:.4f} ms (fused {b_est['bound_ms']:.4f}; "
+            f"{distinct} distinct nodes of {B * M} pops)")
         del codes
         torch.cuda.empty_cache()
+    restore_counts(saved)
+    # the numbers at the shape each is launched at on the paths: the dot
+    # alone by the sq8 traversal (R = 1), the fused estimate by the hop
+    out["gather_diagdot"].update(out["gather_diagdot"]["r1"])
+    out["gather_estimate"].update(out["gather_estimate"]["main"])
 
     for shape in PROBE_SHAPES:
         B, Kp, S = shape
@@ -318,15 +435,17 @@ def check_gather_probe(torch, dev) -> dict:
 
 
 def check_gather_on_index(torch, sp, what: str) -> dict:
-    """gather_diagdot (both variants) against its plain version on the
-    index's own code tensor [capacity, R, Dp], at the hop's B and M: node
-    ids drawn over [0, num), the last rows of ``u`` walking down from
-    num - 1 (byte offsets past 2^31 at 1M x 32 x 128) and the first eighth
-    naming node 0, as the hop's inactive pops do. The kernel's launch
-    count is left as it was."""
+    """gather_diagdot (both entries) against its plain version, and
+    gather_estimate (both entries) against the epilogue on its own dot, on
+    the index's own code tensor [capacity, R, Dp], norms and ids, at the
+    hop's B and M: node ids drawn over [0, num), the last rows of ``u``
+    walking down from num - 1 (byte offsets past 2^31 at 1M x 32 x 128)
+    and the first eighth naming node 0, as the hop's inactive pops do. The
+    kernels' launch counts are left as they were."""
     from alayalite_tpu_torch.ops.gather_diagdot import (VARIANTS,
                                                         gather_diagdot,
-                                                        gather_diagdot_ref)
+                                                        gather_diagdot_ref,
+                                                        gather_estimate)
 
     _, R, Dp, B, M = GATHER_MAIN
     num = sp.num
@@ -337,28 +456,35 @@ def check_gather_on_index(torch, sp, what: str) -> dict:
     codes = sp.nbr_codes
     dev = codes.device
     u = torch.as_tensor(u, device=dev)
-    qs = torch.as_tensor(rng.normal(size=(B, codes.shape[2]))
-                         .astype(np.float32), device=dev).to(torch.bfloat16)
+    q = torch.as_tensor(rng.normal(size=(B, sp.dim)).astype(np.float32),
+                        device=dev)
+    _, qs, qconst = sp.query_ctx(q)
     top_offset = int(u.max()) * codes.shape[1] * codes.shape[2]
     if top_offset < 2 ** 31 and num >= N:
         raise AssertionError("the index check does not reach past 2^31")
     want = gather_diagdot_ref(codes, u, qs)
     tol = tolerance(want)
-    launches = gather_diagdot.launches
-    errs = {}
+    saved = snapshot_counts(gather_diagdot, gather_estimate)
+    errs, est_errs = {}, {}
     for variant in VARIANTS:
         got = gather_diagdot(codes, u, qs, variant=variant)
         torch.cuda.synchronize()
         errs[variant] = float((got - want).abs().max())
+        est_errs[variant] = check_estimate_bits(
+            torch, codes, u, qs, (qconst, sp.nbr_xsq, sp.nbr_ids), variant,
+            f"the {what} index")
         log(f"kernel gather_diagdot[{variant}] on the {what} index's codes "
             f"{tuple(codes.shape)}, ids to {int(u.max())} (byte offset "
-            f"{top_offset}): max_abs_err={errs[variant]:.3e} (tol {tol:.3e})")
+            f"{top_offset}): max_abs_err={errs[variant]:.3e} (tol {tol:.3e}); "
+            f"gather_estimate[{variant}] equals the epilogue on its dot bit "
+            f"for bit (est against the plain version {est_errs[variant]:.3e})")
         if not errs[variant] <= tol:
             raise AssertionError(f"gather_diagdot[{variant}] disagrees on "
                                  f"the {what} index: {errs[variant]} > {tol}")
-    gather_diagdot.launches = launches
+    restore_counts(saved)
     return {"codes": list(codes.shape), "top_id": int(u.max()),
-            "top_byte_offset": top_offset, "errors": errs}
+            "top_byte_offset": top_offset, "errors": errs,
+            "estimate_errors_against_plain": est_errs}
 
 
 def check_hgmma() -> dict:
@@ -545,6 +671,22 @@ def _network_pool_merge(torch, args, k):
     return od, oi, of
 
 
+def _shared_roll_n(torch, x, n):
+    """roll_n through the shared-memory kernel at any width (the wrapper
+    routes 32·W-word rows to the warp kernel)."""
+    import ctypes
+
+    from alayalite_tpu_torch.ops import pool_sort
+    from alayalite_tpu_torch.ops._build import launch
+
+    out = torch.empty_like(x)
+    P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn = pool_sort._entry("alaya_roll_n_shared", [P, P, LL, I, I], "roll_n")
+    launch(fn, x.device, x.data_ptr(), out.data_ptr(), x.shape[0],
+           x.shape[1], n)
+    return out
+
+
 def check_pool_sort(torch, dev) -> dict:
     """sort_kv, merge_kv, pool_merge and roll_n against their plain
     versions, bit for bit; times, bounds and the library route
@@ -552,8 +694,8 @@ def check_pool_sort(torch, dev) -> dict:
     from alayalite_tpu_torch.ops.pool_sort import (merge_kv, merge_kv_ref,
                                                    pool_merge, pool_merge_ref,
                                                    pool_merge_route, roll_n,
-                                                   roll_n_ref, sort_kv,
-                                                   sort_kv_ref)
+                                                   roll_n_ref, roll_n_route,
+                                                   sort_kv, sort_kv_ref)
     from alayalite_tpu_torch.utils.timing import bound, cuda_ms
 
     rng = np.random.default_rng(4)
@@ -736,34 +878,54 @@ def check_pool_sort(torch, dev) -> dict:
     out["pool_merge"].update(out["pool_merge"]["at"]["64+256"])
     out["pool_merge"]["checked_route_launches"] = ran
 
-    # ---- roll_n
+    # ---- roll_n: both kernels, the width's own and the shared-memory one
+    # called directly, bit for bit
     out["roll_n"] = {}
-    for shape in (SORT_MAIN, (333, 77), (1, 1)):
+    routes = dict(roll_n.route_launches)
+    for shape in (SORT_MAIN, (333, 77), (1, 1), (1000, 32), (333, 512)):
         x = torch.as_tensor(rng.normal(size=shape).astype(np.float32),
                             device=dev)
         for n in (0, 1, *ROLLS):
+            want = roll_n_ref(x, n)
             got = roll_n(x, n)
             torch.cuda.synchronize()
-            if not _same_bits(got, roll_n_ref(x, n)):
+            if not (_same_bits(got, want)
+                    and _same_bits(_shared_roll_n(torch, x, n), want)):
                 fail("roll_n", (*shape, n))
+        log(f"kernel roll_n {shape} ({roll_n_route(shape[1])}; and the "
+            f"shared kernel): equal to the plain version bit for bit at n = "
+            f"0, 1, {', '.join(map(str, ROLLS))}")
         if shape != SORT_MAIN:
             continue
         B, Kw = shape
         for n in ROLLS:
             total = sum(1 + j % 7 for j in range(n))
+
+            def shared(n=n):
+                return _shared_roll_n(torch, x, n)
+
             # one read and one write of a word per exchange step
             rep = timed(lambda n=n: roll_n(x, n), lambda n=n: roll_n_ref(x, n),
                         lambda: torch.roll(x, total, dims=1),
-                        2 * B * Kw * 4, B * Kw * n // 2, shape, n=n)
+                        2 * B * Kw * 4, B * Kw * n // 2, shape, n=n,
+                        route=roll_n_route(Kw), shared_ms=cuda_ms(shared),
+                        shared_ms_spin=cuda_ms(shared, spin=True),
+                        library_ms_spin=cuda_ms(
+                            lambda: torch.roll(x, total, dims=1), spin=True))
             rep["ns_per_exchange_step_and_list"] = (
                 rep["ms_spin"] * 1e6 / n / B)
             out["roll_n"][str(n)] = rep
-            log(f"kernel roll_n {shape} n={n}: {rep['ms']:.4f} ms "
-                f"({rep['ms_spin']:.4f} device alone, "
+            log(f"kernel roll_n {shape} n={n} ({rep['route']}): "
+                f"{rep['ms']:.4f} ms ({rep['ms_spin']:.4f} device alone, "
                 f"{rep['ns_per_exchange_step_and_list']:.4f} ns per step and "
-                f"list), plain {rep['plain_ms']:.4f} ms, one torch.roll by "
-                f"the sum {rep['library_ms']:.4f} ms, bound "
+                f"list), the shared kernel {rep['shared_ms']:.4f} "
+                f"({rep['shared_ms_spin']:.4f}), plain {rep['plain_ms']:.4f} "
+                f"ms, one torch.roll by the sum {rep['library_ms']:.4f} "
+                f"({rep['library_ms_spin']:.4f}), bound "
                 f"{rep['bound_ms']:.4f} ms ({rep['bound_by']})")
+    ran = {r: roll_n.route_launches[r] - routes[r] for r in routes}
+    if min(ran.values()) <= 0:
+        raise AssertionError(f"a roll_n kernel was not held: {ran}")
     out["roll_n"].update(out["roll_n"][str(ROLLS[0])])
     return out
 
@@ -775,7 +937,7 @@ def check_sq8_gather(torch, dev) -> dict:
     library route for the same distances, written out here (index_select +
     decode + torch.bmm); both are timed."""
     from alayalite_tpu_torch.ops.gather_diagdot import gather_diagdot
-    from alayalite_tpu_torch.spaces.sq import SQSpace
+    from alayalite_tpu_torch.spaces.sq import GATHER_VARIANT, SQSpace
     from alayalite_tpu_torch.utils.timing import cuda_ms
 
     rng = np.random.default_rng(6)
@@ -798,20 +960,34 @@ def check_sq8_gather(torch, dev) -> dict:
              + sp.xhat_sq.index_select(0, flat).view(4096, 256))
         return torch.clamp(d, min=0.0)
 
+    saved = snapshot_counts(gather_diagdot)
     launches = gather_diagdot.launches
     got = sp.gather_dists(q, ids)
     torch.cuda.synchronize()
     launched = gather_diagdot.launches - launches
     want = library()
     err, tol = float((got - want).abs().max()), tolerance(want)
+    qs = (q * sp.scale[None, :]).to(torch.bfloat16).contiguous()
+    codes = sp.codes.view(N_SMALL, 1, -1)
+
+    def kernel():
+        return gather_diagdot(codes, ids, qs, variant=GATHER_VARIANT)
+
     rep = {"max_abs_err": err, "launches_per_call": launched,
+           "variant": GATHER_VARIANT,
            "kernel_ms": cuda_ms(lambda: sp.gather_dists(q, ids)),
+           "kernel_ms_spin": cuda_ms(lambda: sp.gather_dists(q, ids),
+                                     spin=True),
+           "dot_ms": cuda_ms(kernel), "dot_ms_spin": cuda_ms(kernel,
+                                                             spin=True),
            "bmm_ms": cuda_ms(library)}
-    gather_diagdot.launches = launches
+    restore_counts(saved)
     log(f"sq8 gather_dists (4096, 256) over {N_SMALL} x {DIM} codes: "
-        f"through gather_diagdot {rep['kernel_ms']:.4f} ms ({launched} "
-        f"launch per call), index_select + bmm {rep['bmm_ms']:.4f} ms, "
-        f"max_abs_err {err:.3e} (tol {tol:.3e})")
+        f"through gather_diagdot[{GATHER_VARIANT}] {rep['kernel_ms']:.4f} ms "
+        f"({rep['kernel_ms_spin']:.4f} device alone; the kernel alone "
+        f"{rep['dot_ms']:.4f} / {rep['dot_ms_spin']:.4f}; {launched} launch "
+        f"per call), index_select + bmm {rep['bmm_ms']:.4f} ms, max_abs_err "
+        f"{err:.3e} (tol {tol:.3e})")
     if launched != 1 or not err <= tol:
         raise AssertionError("sq8 gather_dists: no kernel launch, or it "
                              "disagrees with index_select + bmm")
@@ -1021,6 +1197,54 @@ def churn_phase(torch, dev, idx, ds, counters) -> dict:
 
 
 POOL_KERNELS = ("pool_merge", "sort_kv", "merge_kv", "ring_probe")
+
+
+class CallCount:
+    """A wrapper's calls on any device, read and set to 0 like a launch
+    count: beside gather_estimate's launches it counts the hops (one
+    estimate_many call each)."""
+
+    def __init__(self, fn, name: str):
+        self._fn, self.__name__ = fn, name
+
+    @property
+    def launches(self) -> int:
+        return self._fn.calls
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self._fn.calls = n
+
+
+def estimate_kernels(torch, sp) -> dict:
+    """Every CUDA kernel one ``BQGSpace.estimate_many`` call launches on the
+    fitted index at the hop's B and M (torch.profiler, the port's kernels
+    and PyTorch's alike): it must be one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from alayalite_tpu_torch.ops.gather_diagdot import gather_estimate
+
+    _, _, _, B, M = GATHER_MAIN
+    rng = np.random.default_rng(7)
+    u = torch.as_tensor(rng.integers(0, sp.num, size=(B, M))
+                        .astype(np.int32), device=sp.device)
+    ctx = sp.query_ctx(torch.as_tensor(
+        rng.normal(size=(B, sp.dim)).astype(np.float32), device=sp.device))
+    saved = snapshot_counts(gather_estimate)
+    sp.estimate_many(ctx, u)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sp.estimate_many(ctx, u)
+        torch.cuda.synchronize()
+    restore_counts(saved)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    log(f"estimate_many at ({B}, {M}): {len(names)} CUDA kernel(s) per call "
+        f"({sorted(set(names))})")
+    if len(names) != 1:
+        raise AssertionError(f"estimate_many launched {len(names)} kernels, "
+                             f"not one")
+    return {"kernels_per_call": len(names), "names": sorted(set(names))}
 
 
 class RouteCount:
@@ -1309,7 +1533,7 @@ def main() -> int:
     from alayalite_tpu_torch.device import resolve_device
     from alayalite_tpu_torch.ops import _build
     from alayalite_tpu_torch.ops.diagdot import block_diagdot
-    from alayalite_tpu_torch.ops.gather_diagdot import gather_diagdot
+    from alayalite_tpu_torch.ops.gather_diagdot import gather_estimate
     from alayalite_tpu_torch.ops.l2_tile import l2_tile
     from alayalite_tpu_torch.ops.ring_probe import ring_probe
     from alayalite_tpu_torch.ops.sq8_tile import sq8_tile
@@ -1345,7 +1569,9 @@ def main() -> int:
     report.update(check_gather_probe(torch, dev))
     report.update(check_pool_sort(torch, dev))
     report["sq8_gather"] = check_sq8_gather(torch, dev)
-    hop = (gather_diagdot, ring_probe)       # the kernels of every block hop
+    # the kernels of every block hop, and the hops (estimate_many calls)
+    hop = (gather_estimate, ring_probe,
+           CallCount(gather_estimate, "estimate_many_calls"))
     # pool_merge, sort_kv, merge_kv, and pool_merge by kernel
     pool = (*pool_counters()[:3], *merge_route_counters())
 
@@ -1384,6 +1610,8 @@ def main() -> int:
 
     report["gather_on_index"] = {"fitted": check_gather_on_index(
         torch, idx._engine.search_space, "fitted")}
+    report["estimate_many"] = estimate_kernels(torch,
+                                               idx._engine.search_space)
 
     t = time.time()
     xd = torch.as_tensor(ds.data, device=dev)
@@ -1408,8 +1636,13 @@ def main() -> int:
         if min(launches[k] for k in (*search_launches, "pool_merge",
                                      "sort_kv")) <= 0:
             raise AssertionError("the search launched a hop kernel no time")
+        if launches["gather_estimate"] != launches["estimate_many_calls"]:
+            raise AssertionError("a hop's estimate_many did not launch "
+                                 "gather_estimate exactly once")
         report["search"][ef] = {"recall": rec, "qps": NQ / wall,
                                 "wall_s": wall, "launches": launches}
+        report["estimate_many"][f"launches_per_hop_ef{ef}"] = (
+            launches["gather_estimate"] / launches["estimate_many_calls"])
     if report["search"][64]["recall"] < RECALL_FLOOR:
         raise AssertionError(f"recall@10 at ef=64 below {RECALL_FLOOR}")
 
@@ -1467,7 +1700,15 @@ def main() -> int:
             "pool_merge"):
         raise AssertionError(f"pool_merge's launches by kernel {by_route} "
                              f"do not add up to its launches")
-    gather = report["gather_diagdot"]
+    gather, fused = report["gather_diagdot"], report["gather_estimate"]
+
+    def entries(rep):
+        """Both entries' times at the hop's shape and at R = 1."""
+        keys = ("rows_ms", "rows_ms_spin", "bulk_ms", "bulk_ms_spin",
+                "bound_ms", "plain_ms", "shape", "distinct_nodes")
+        return {at: {k: rep[at][k] for k in keys if k in rep[at]}
+                for at in ("main", "r1")}
+
     kernels = {"kernels": [
         # off the hop since gather_diagdot took its place there: no entry
         # point of Index reaches it; its launches are the churn phase's
@@ -1477,16 +1718,24 @@ def main() -> int:
                churn_launches["block_diagdot"], report["block_diagdot"]),
          "launched_by": "BQGSpace.estimate_for in the churn phase's block "
                         "audit; 0 launches from Index entry points"},
-        # one source, two entry points; the hop launches `variant`
+        # one source, two entry points (rows, bulk), each with the estimate
+        # fused in or not. The dot alone is the sq8 traversal's (R = 1,
+        # the numbers above); the hop launches the fused estimate
         {**row("gather_diagdot", "alayalite_tpu_torch/csrc/gather_diagdot.cu",
-               "scripts/proto_dma_gather.py:48",
-               hop_launches("gather_diagdot")
-               + raw_launches("gather_diagdot"), gather),
-         "also_replaces": "scripts/proto_dma_gather2.py:48",
-         "launches_sq8_traversal": raw_launches("gather_diagdot"),
-         **{k: gather[k] for k in ("variant", "direct_ms", "staged_ms",
-                                   "direct_ms_spin", "staged_ms_spin",
-                                   "distinct_nodes")}},
+               "scripts/proto_dma_gather.py:93",
+               raw_launches("gather_diagdot"), gather),
+         "also_replaces": "scripts/proto_dma_gather2.py:124",
+         "launched_by": "SQSpace.gather_dists: the sq8 traversal's dot",
+         "variant": gather["variant"], "at": entries(gather)},
+        {**row("gather_estimate", "alayalite_tpu_torch/csrc/gather_diagdot.cu",
+               "scripts/proto_dma_gather.py:93",
+               hop_launches("gather_estimate"), fused),
+         "also_replaces": "scripts/proto_dma_gather2.py:124",
+         "launched_by": "BQGSpace.estimate_many: every block hop (fit pools, "
+                        "search, insert), one launch a hop",
+         "variant": fused["variant"], "at": entries(fused),
+         "kernels_per_estimate_many": report["estimate_many"][
+             "kernels_per_call"]},
         row("ring_probe", "alayalite_tpu_torch/csrc/ring_probe.cu",
             "scripts/proto_pallas_sort2.py:105",
             hop_launches("ring_probe") + raw_launches("ring_probe"),
@@ -1510,7 +1759,7 @@ def main() -> int:
                  "ops/topk.merge_topk_dedup / merge_topk_with_flags / "
                  "merge_topk: the pool merge of every hop (raw and block)",
                  also_replaces=["scripts/proto_pallas_sort.py:117"],
-                 route=report["pool_merge"]["route"],
+                 kernel_route=report["pool_merge"]["route"],
                  launches_by_route=by_route,
                  network_ms=report["pool_merge"]["network_ms"],
                  network_ms_spin=report["pool_merge"]["network_ms_spin"],
@@ -1519,8 +1768,12 @@ def main() -> int:
                      "network_ms", "network_ms_spin", "route")}
                      for shape, rep in report["pool_merge"]["at"].items()}),
         # a calibration, as on the TPU: no path runs it
-        {**row("roll_n", "alayalite_tpu_torch/csrc/pool_sort.cu",
-               "scripts/opt_hop2.py:120", 0, report["roll_n"]),
+        {**row("roll_n", "alayalite_tpu_torch/csrc/roll_n.cu",
+               "scripts/opt_hop2.py:132", 0, report["roll_n"]),
+         "kernel_route": report["roll_n"]["route"],
+         "shared_ms": report["roll_n"]["shared_ms"],
+         "shared_ms_spin": report["roll_n"]["shared_ms_spin"],
+         "library_ms_spin": report["roll_n"]["library_ms_spin"],
          "launched_by": "no path: it calibrates the cost of one exchange "
                         "step, as scripts/opt_hop2.py does on the TPU",
          "n": ROLLS[0],
@@ -1528,7 +1781,8 @@ def main() -> int:
          "ns_per_exchange_step_and_list":
              report["roll_n"]["ns_per_exchange_step_and_list"],
          **{f"n{n}": {k: report["roll_n"][str(n)][k] for k in (
-             "ms", "ms_spin", "plain_ms", "library_ms",
+             "ms", "ms_spin", "plain_ms", "library_ms", "library_ms_spin",
+             "shared_ms", "shared_ms_spin",
              "ns_per_exchange_step_and_list")} for n in ROLLS}},
         row("l2_tile", "alayalite_tpu_torch/csrc/l2_tile.cu",
             "alayalite_tpu/ops/pallas_distance.py:43",
@@ -1556,6 +1810,7 @@ def main() -> int:
                   "removed_returned": churn["removed_returned"],
                   "removed_in_live_rows": churn["removed_in_live_rows"]},
         "raw": report["raw"], "sq8_gather": report["sq8_gather"],
+        "estimate_many": report["estimate_many"],
         "bsq8_pool_launches": bsq8_pool,
         "flat": {k: report["flat"][k] for k in ("fit_s", "exact", "fast")},
         "total_s": report["total_s"]}}))

@@ -1,11 +1,13 @@
-"""gather_diagdot and ring_probe: the port's plain versions against the JAX
-functions and the TPU kernels' formulas, the CPU wrappers' routing and
-checks, the hop that calls them, and (with a CUDA device) the hand-written
-kernels.
+"""gather_diagdot, gather_estimate and ring_probe: the port's plain
+versions against the JAX functions and the TPU kernels' formulas, the CPU
+wrappers' routing and checks, the hop that calls them, and (with a CUDA
+device) the hand-written kernels.
 
 Tolerance of gather_diagdot, rtol 1e-5 / atol 1e-3: (c − 128) is exact in
 bf16 and every bf16 × bf16 product is exact in f32, so the sides differ
-only in the order of the f32 sums. ring_probe is exact.
+only in the order of the f32 sums. On the card the fused estimate equals
+the plain epilogue applied to the same entry's dot bit for bit, and its ids
+exactly. ring_probe is exact.
 
 JAX is imported inside the tests that use it, so the card's cases run where
 JAX is absent: ``python -m pytest --noconftest -m gpu
@@ -15,12 +17,17 @@ import numpy as np
 import pytest
 import torch
 
-from alayalite_tpu_torch.ops.gather_diagdot import (gather_diagdot,
-                                                    gather_diagdot_ref)
+from alayalite_tpu_torch.ops.gather_diagdot import (VARIANTS, bulk_fits,
+                                                    estimate_epilogue,
+                                                    gather_diagdot,
+                                                    gather_diagdot_ref,
+                                                    gather_estimate,
+                                                    gather_estimate_ref)
 from alayalite_tpu_torch.ops.ring_probe import ring_probe, ring_probe_ref
 
-# (C, R, Dp, B, M)
-GATHER_SHAPES = [(300, 16, 128, 32, 8), (50, 24, 96, 9, 5), (20, 7, 40, 13, 3)]
+# (C, R, Dp, B, M); R = 1 is the sq8 traversal's view of its codes
+GATHER_SHAPES = [(300, 16, 128, 32, 8), (50, 24, 96, 9, 5), (20, 7, 40, 13, 3),
+                 (300, 1, 128, 32, 256), (50, 1, 96, 9, 20)]
 # (B, K, S)
 PROBE_SHAPES = [(64, 128, 96), (7, 33, 10), (5, 1, 3)]
 
@@ -90,14 +97,34 @@ def test_probe_ref_matches_tpu_formula(shape):
     assert pad.tolist() == [[True, False]]
 
 
+def _estimate_inputs(codes, u, seed):
+    C, R, _ = codes.shape
+    rng = np.random.default_rng(seed)
+    qconst = torch.from_numpy(rng.normal(size=u.shape[0]).astype(np.float32)
+                              * 50)
+    xsq = rng.random((C, R)).astype(np.float32) * 20
+    ids = rng.integers(-1, C, size=(C, R)).astype(np.int32)
+    xsq[ids < 0] = np.inf                # -1 slots carry |x̂|² = inf
+    return qconst, torch.from_numpy(xsq), torch.from_numpy(ids)
+
+
 def test_cpu_wrappers_run_plain_versions_and_count_calls():
     codes, u, qs = _as_torch(*_gather_inputs(GATHER_SHAPES[1], seed=1))
-    for variant in ("direct", "staged"):
+    est_args = _estimate_inputs(codes, u, seed=1)
+    for variant in VARIANTS:
         calls, launches = gather_diagdot.calls, gather_diagdot.launches
         got = gather_diagdot(codes, u, qs, variant=variant)
         assert gather_diagdot.calls == calls + 1
         assert gather_diagdot.launches == launches   # no kernel on the CPU
         assert torch.equal(got, gather_diagdot_ref(codes, u, qs))
+        calls, launches = gather_estimate.calls, gather_estimate.launches
+        qconst, xsq, ids = est_args
+        est, nid = gather_estimate(codes, u, qs, qconst, 2.0, xsq, ids, True,
+                                   variant=variant)
+        assert (gather_estimate.calls, gather_estimate.launches) == (
+            calls + 1, launches)
+        want = gather_estimate_ref(codes, u, qs, qconst, 2.0, xsq, ids, True)
+        assert torch.equal(est, want[0]) and torch.equal(nid, want[1])
     nids, seen = map(torch.from_numpy, _probe_inputs(PROBE_SHAPES[1], seed=1))
     calls, launches = ring_probe.calls, ring_probe.launches
     got = ring_probe(nids, seen)
@@ -122,6 +149,19 @@ def test_gather_wrapper_rejects_bad_inputs():
         gather_diagdot(codes, u, qs, variant="tiled")
     with pytest.raises(ValueError):
         gather_diagdot(codes[:0], u, qs)
+    qconst, xsq, ids = _estimate_inputs(codes, u, seed=2)
+    with pytest.raises(TypeError):
+        gather_estimate(codes, u, qs, qconst[:2], 2.0, xsq, ids, True)
+    with pytest.raises(TypeError):
+        gather_estimate(codes, u, qs, qconst, 2.0, xsq.double(), ids, True)
+    with pytest.raises(TypeError):
+        gather_estimate(codes, u, qs, qconst, 2.0, xsq, ids.long(), True)
+    with pytest.raises(ValueError):
+        gather_estimate(codes, u, qs, qconst, 2.0, xsq.T.contiguous().T, ids,
+                        True)
+    with pytest.raises(ValueError):
+        gather_estimate(codes, u, qs, qconst, 2.0, xsq, ids, True,
+                        variant="staged")
 
 
 def test_probe_wrapper_rejects_bad_inputs():
@@ -136,10 +176,14 @@ def test_probe_wrapper_rejects_bad_inputs():
         ring_probe(nids[:, ::2], seen)
 
 
+@pytest.mark.parametrize("pops", ["random", "inactive_on_node0"])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-def test_estimate_many_matches_jax_and_estimate_for(metric):
-    """``BQGSpace.estimate_many`` (gather_diagdot) against the JAX space on
-    the same rows and adjacency, and against the port's own one-node
+def test_estimate_many_matches_jax_and_estimate_for(metric, pops):
+    """``BQGSpace.estimate_many`` (``gather_estimate``) and the fused entry's
+    plain version ``gather_estimate_ref`` against the JAX space on the same
+    rows and adjacency (−1 neighbor slots among them, and with
+    ``inactive_on_node0`` a quarter of the queries popping node 0 only, as
+    the hop's inactive pops do), and against the port's own one-node
     ``estimate_for`` (block_diagdot). rtol 1e-4 / atol 1e-2: one ulp of the
     f32 estimate near |q|² + |x̂|² ~ 500."""
     import jax.numpy as jnp
@@ -153,6 +197,8 @@ def test_estimate_many_matches_jax_and_estimate_for(metric):
     nbrs = rng.integers(-1, n, size=(n, r)).astype(np.int32)
     q = rng.normal(size=(B, dim)).astype(np.float32)
     u = rng.integers(0, n, size=(B, M)).astype(np.int32)
+    if pops == "inactive_on_node0":
+        u[: B // 4] = 0
     jsp = JaxBQG.create(n, dim, metric=metric, degree=r).fit(jnp.asarray(data))
     jsp = jsp.update_neighbors(nbrs)
     jest, jids = jsp.estimate_many(jsp.query_ctx(jnp.asarray(q)),
@@ -161,12 +207,17 @@ def test_estimate_many_matches_jax_and_estimate_for(metric):
         torch.from_numpy(data))
     sp.update_neighbors(torch.from_numpy(nbrs))
     ctx = sp.query_ctx(torch.from_numpy(q))
-    calls = gather_diagdot.calls
+    calls = gather_estimate.calls
     est, ids = sp.estimate_many(ctx, torch.from_numpy(u))
-    assert gather_diagdot.calls == calls + 1
-    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
-    np.testing.assert_allclose(est.numpy(), np.asarray(jest), rtol=1e-4,
-                               atol=1e-2)
+    assert gather_estimate.calls == calls + 1
+    ref = gather_estimate_ref(sp.nbr_codes, torch.from_numpy(u), ctx[1],
+                              ctx[2], sp._dot_coef, sp.nbr_xsq, sp.nbr_ids,
+                              metric == "l2")
+    assert (ids == -1).any() and torch.isinf(est[ids == -1]).all()
+    for e, i in ((est, ids), ref):
+        np.testing.assert_array_equal(i.numpy(), np.asarray(jids))
+        np.testing.assert_allclose(e.numpy(), np.asarray(jest), rtol=1e-4,
+                                   atol=1e-2)
     for m in range(M):
         e1, i1 = sp.estimate_for(ctx, torch.from_numpy(u[:, m]))
         assert torch.equal(i1, ids[:, m * r:(m + 1) * r])
@@ -176,7 +227,7 @@ def test_estimate_many_matches_jax_and_estimate_for(metric):
 
 
 def test_hop_goes_through_both_wrappers():
-    """One block search calls gather_diagdot and ring_probe once per hop;
+    """One block search calls gather_estimate and ring_probe once per hop;
     one raw beam search calls ring_probe once per expansion."""
     from alayalite_tpu_torch.index.search import beam_search, block_beam_search
     from alayalite_tpu_torch.spaces.bqg import BQGSpace
@@ -190,9 +241,9 @@ def test_hop_goes_through_both_wrappers():
     sp.update_neighbors(nbrs)
     q = data[:6] + 0.01
     seeds = torch.arange(6, dtype=torch.int32)[:, None]   # each row's own node
-    g, p = gather_diagdot.calls, ring_probe.calls
+    g, p = gather_estimate.calls, ring_probe.calls
     d, i = block_beam_search(sp, seeds, q, k=5, ef=16, n_expand=2)
-    hops = gather_diagdot.calls - g
+    hops = gather_estimate.calls - g
     assert hops > 0 and ring_probe.calls - p == hops
     assert (i[:, 0] == torch.arange(6)).all() and torch.isfinite(d).all()
     raw = RawSpace.create(n, dim).fit(data)
@@ -202,29 +253,81 @@ def test_hop_goes_through_both_wrappers():
     assert (i2[:, 0] == torch.arange(6)).all()
 
 
+# the hop's shape, the sq8 traversal's (R = 1), ragged ones, Dp % 16 != 0
+GPU_GATHER_SHAPES = GATHER_SHAPES + [
+    (5000, 24, 96, 1000, 5), (900, 7, 40, 333, 3), (100_000, 32, 128, 4096, 8),
+    (100_000, 1, 128, 4096, 256), (5000, 1, 100, 333, 77),
+    (2000, 4, 960, 64, 9), (3000, 2, 2048, 16, 3)]
+
+
+def _unaligned(codes):
+    """The same codes at a base one byte past a 16-byte boundary."""
+    flat = torch.empty(codes.numel() + 1, dtype=torch.uint8,
+                       device=codes.device)
+    return flat[1:].view(codes.shape).copy_(codes)
+
+
 @pytest.mark.gpu
-def test_cuda_gather_kernels_match_plain_version():
+@pytest.mark.parametrize("shape", GPU_GATHER_SHAPES)
+def test_cuda_gather_kernels_match_plain_version(shape):
+    """Both entries against the plain version, at an aligned base and at an
+    unaligned one (byte loads); the bulk entry raises where it does not
+    take the codes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    shapes = GATHER_SHAPES + [(5000, 24, 96, 1000, 5), (900, 7, 40, 333, 3),
-                              (100_000, 32, 128, 4096, 8)]
-    for shape in shapes:
-        codes, u, qs = _as_torch(*_gather_inputs(shape, seed=7), "cuda")
-        want = gather_diagdot_ref(codes, u, qs)
-        tol = 1e-4 * float(want.abs().max()) + 1e-3
-        for variant in ("direct", "staged"):
-            launches = gather_diagdot.launches
-            got = gather_diagdot(codes, u, qs, variant=variant)
+    codes, u, qs = _as_torch(*_gather_inputs(shape, seed=7), "cuda")
+    want = gather_diagdot_ref(codes, u, qs)
+    tol = 1e-4 * float(want.abs().max()) + 1e-3
+    for base in (codes, _unaligned(codes)):
+        for variant in VARIANTS:
+            if variant == "bulk" and not bulk_fits(base):
+                with pytest.raises(ValueError):
+                    gather_diagdot(base, u, qs, variant=variant)
+                continue
+            launches = dict(gather_diagdot.route_launches)
+            got = gather_diagdot(base, u, qs, variant=variant)
             torch.cuda.synchronize()
-            assert gather_diagdot.launches == launches + 1
-            assert float((got - want).abs().max()) <= tol, (shape, variant)
-        # a base that is not 16-byte aligned takes the byte-load paths
-        flat = torch.empty(codes.numel() + 1, dtype=torch.uint8,
-                           device="cuda")
-        off = flat[1:].view(codes.shape).copy_(codes)
-        for variant in ("direct", "staged"):
-            got = gather_diagdot(off, u, qs, variant=variant)
-            assert float((got - want).abs().max()) <= tol, (shape, variant)
+            assert gather_diagdot.route_launches[variant] == (
+                launches[variant] + 1)
+            err = float((got - want).abs().max())
+            assert err <= tol, (shape, variant, base is codes, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("shape", [(300, 16, 128, 32, 8), (900, 7, 40, 333, 3),
+                                   (100_000, 32, 128, 4096, 8),
+                                   (5000, 1, 100, 333, 77)])
+def test_cuda_gather_estimate_matches_epilogue_bits(shape, metric):
+    """The fused entry's est equals the PyTorch epilogue applied to the same
+    entry's dot bit for bit, and its ids exactly; u outside [0, C) is
+    clamped as the plain version clamps it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    codes, u, qs = _as_torch(*_gather_inputs(shape, seed=8), "cuda")
+    u[1, 0], u[-1, -1] = -5, shape[0] + 3
+    qconst, xsq, ids = (t.cuda() for t in _estimate_inputs(codes, u, 8))
+    coef, clamp = (2.0, True) if metric == "l2" else (1.0, False)
+    for variant in VARIANTS:
+        if variant == "bulk" and not bulk_fits(codes):
+            continue
+        launches = gather_estimate.launches
+        est, nid = gather_estimate(codes, u, qs, qconst, coef, xsq, ids,
+                                   clamp, variant=variant)
+        dot = gather_diagdot(codes, u, qs, variant=variant)
+        torch.cuda.synchronize()
+        assert gather_estimate.launches == launches + 1
+        want, want_ids = estimate_epilogue(dot, u, qconst, coef, xsq, ids,
+                                           clamp)
+        assert torch.equal(nid, want_ids), (shape, variant)
+        assert torch.equal(est.view(torch.int32), want.view(torch.int32)), (
+            shape, variant)
+        plain, _ = gather_estimate_ref(codes, u, qs, qconst, coef, xsq, ids,
+                                       clamp)
+        fin = torch.isfinite(plain)
+        assert torch.equal(fin, torch.isfinite(est))
+        tol = 2e-4 * float(plain[fin].abs().max()) + 1e-2
+        assert float((est[fin] - plain[fin]).abs().max()) <= tol
 
 
 @pytest.mark.gpu

@@ -21,11 +21,11 @@ import torch
 
 from alayalite_tpu_torch.ops import topk as ttopk
 from alayalite_tpu_torch.ops.pool_sort import (MAX_LIST, WARP_LIST,
-                                               merge_kv, merge_kv_ref,
+                                               WARP_ROLL, merge_kv, merge_kv_ref,
                                                pool_merge, pool_merge_ref,
                                                pool_merge_route, roll_n,
-                                               roll_n_ref, sort_kv,
-                                               sort_kv_ref)
+                                               roll_n_ref, roll_n_route,
+                                               sort_kv, sort_kv_ref)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = os.path.join(ROOT, "scripts")
@@ -188,15 +188,18 @@ def _roll_kernel_n():
     return scope["roll_kernel_n"]
 
 
+@pytest.mark.parametrize("K", [256, 32, 96, 512])
 @pytest.mark.parametrize("n", [36, 144])
 @pytest.mark.parametrize("BT", [8, 32])
-def test_roll_ref_matches_proto_roll_kernel(n, BT):
+def test_roll_ref_matches_proto_roll_kernel(n, BT, K):
+    """At the calibration's width 256 and at other widths of 32·W words,
+    the rows the card's warp route holds in registers."""
     import jax
     import jax.numpy as jnp
     from jax.experimental import pallas as pl
     from jax.experimental.pallas import tpu as pltpu
 
-    B, K = 64, 256
+    B = 64
     x = np.random.default_rng(n).normal(size=(B, K)).astype(np.float32)
     spec = pl.BlockSpec((BT, K), lambda i: (i, 0), memory_space=pltpu.VMEM)
     f = pl.pallas_call(_roll_kernel_n()(n),
@@ -366,6 +369,15 @@ def test_pool_merge_route_by_shape():
     assert pool_merge_route(700, 900, 1600) == "network"
 
 
+def test_roll_n_route_by_shape():
+    """Rows of 32·W words up to WARP_ROLL take the warp kernel; any other
+    width the shared-memory one."""
+    for K in (32, 96, 256, WARP_ROLL):
+        assert roll_n_route(K) == "warp"
+    for K in (1, 31, 77, 200, WARP_ROLL + 32, 5000):
+        assert roll_n_route(K) == "shared"
+
+
 @pytest.mark.parametrize("case", ["keys_dtype", "payload_dtype",
                                   "payload_shape", "not_contiguous", "k",
                                   "axis", "too_wide", "rows_differ",
@@ -482,17 +494,25 @@ def test_cuda_merges_match_plain_versions(B, shape, holes):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(4096, 256), (333, 77), (1, 1), (5, 5000)])
+@pytest.mark.parametrize("shape", [(4096, 256), (333, 77), (1, 1), (5, 5000),
+                                   (1000, 32), (333, 512), (7, 96),
+                                   (4097, 256)])
 def test_cuda_roll_n_matches_torch_roll(shape):
+    """Bit for bit on both kernels; the launches by kernel add up to the
+    launches."""
     _need_cuda()
     x = torch.from_numpy(np.random.default_rng(0).normal(size=shape)
                          .astype(np.float32)).cuda()
+    route = roll_n_route(shape[1])
     for n in (0, 1, 36, 144):
-        launches = roll_n.launches
+        launches, routes = roll_n.launches, dict(roll_n.route_launches)
         got = roll_n(x, n)
         torch.cuda.synchronize()
         assert roll_n.launches == launches + 1
-        assert torch.equal(got, roll_n_ref(x, n)), (shape, n)
+        assert roll_n.route_launches[route] == routes[route] + 1
+        assert sum(roll_n.route_launches.values()) - sum(routes.values()) == 1
+        assert torch.equal(got.view(torch.int32),
+                           roll_n_ref(x, n).view(torch.int32)), (shape, n)
 
 
 @pytest.mark.gpu

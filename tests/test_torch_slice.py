@@ -17,7 +17,7 @@ from alayalite_tpu import IndexParams as JaxParams
 from alayalite_tpu_torch import Index, IndexParams
 from alayalite_tpu_torch.convert import from_jax_arrays
 from alayalite_tpu_torch.index.engine import IndexEngine
-from alayalite_tpu_torch.ops.gather_diagdot import gather_diagdot
+from alayalite_tpu_torch.ops.gather_diagdot import gather_estimate
 from alayalite_tpu_torch.utils.datasets import random_dataset
 from alayalite_tpu_torch.utils.evaluate import calc_gt, calc_recall
 
@@ -165,10 +165,10 @@ def test_block_pools_run_the_kernel_path(ds, jax_built):
     for mode in ("beam", "block"):
         raw = RawSpace.create(N, DIM).fit(data)
         bqg = BQGSpace.create(N, DIM, degree=16).fit(data)
-        calls = gather_diagdot.calls
+        calls = gather_estimate.calls
         graph, bqg = QGBuilder(r=16, ef=128, pool_mode=mode).build_graph(
             raw, bqg, N)
-        used = gather_diagdot.calls - calls
+        used = gather_estimate.calls - calls
         assert (used > 0) == (mode == "block"), (mode, used)
         eng = IndexEngine(IndexParams(**PARAMS), device="cpu")
         eng.space, eng.search_space, eng.graph = raw, bqg, graph
