@@ -1,6 +1,7 @@
 // pool_sort: the sort and merge of a beam search's candidate pool, written
-// for Hopper (sm_90a). Three kernels over one compare-exchange
-// (roll_n, the exchange's calibration, is in roll_n.cu):
+// for Hopper (sm_90a). Three functions over one compare-exchange, two of
+// them with a warp route beside the shared-memory network (roll_n, the
+// exchange's calibration, is in roll_n.cu):
 //
 //   sort_kv     each list of f32 keys ascending, with an optional i32 payload
 //               and the source positions; lists along rows [B, K] or along
@@ -19,9 +20,10 @@
 // one [BT, K] or [K, BT] tile and reach a lane's partner with two circular
 // rolls per stage; neither the tile nor the roll is part of the function.
 // Here a list lives in shared memory and a thread reads its partner there;
-// pool_merge, the one that runs in every hop, keeps each list in one warp's
-// registers instead (the warp route below) and uses the shared-memory
-// network only for lists longer than a warp holds.
+// pool_merge, the one that runs in every hop, and sort_kv along rows keep
+// each list in one warp's registers instead (the warp routes below) and use
+// the shared-memory network only for lists longer than a warp holds (and
+// sort_kv for lists along columns).
 //
 // The order is total. Every entry is one 64-bit word: the key's bits made
 // monotone (-0 and +0 equal, NaN after +inf) in the high half, the entry's
@@ -321,9 +323,43 @@ constexpr u64 kPadWord = ~0ull;
 constexpr int kWarpRoute = 512;   // longest list (and pow2(kout)) in a warp
 constexpr int kWarpBlock = 128;   // four lists per block
 
-template <int R>
+// One stage (partner distance j, bitonic block size) of the warp's sort.
+// kLean (sort_kv's warp route) writes the same exchange in fewer
+// instructions: the direction of a shuffle stage is the lane's alone (size >
+// j >= R, so r never carries into the size bit), and one 64-bit compare
+// decides the exchange (the words differ, and two equal pads are the same
+// either way). pool_merge keeps the first form for now, so that its code
+// and times stay as they were measured; the lean form gives it the same
+// bits (scripts/torch_sort_ab.py --lean-pool-merge), and once it is
+// switched over the first form and kLean go.
+template <int R, bool kLean = false>
 __device__ __forceinline__ void warp_stage(u64 (&w)[R], int lane, int size,
                                            int j) {
+  if constexpr (kLean) {
+    if (j >= R) {
+      const int lj = j / R;
+      const bool keep_min = ((lane & lj) == 0) == (((lane * R) & size) == 0);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const u64 other = __shfl_xor_sync(0xffffffffu, w[r], lj);
+        w[r] = ((other < w[r]) == keep_min) ? other : w[r];
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if ((r & j) == 0) {
+          const bool up = size >= R ? ((lane * R) & size) == 0
+                                    : (r & size) == 0;
+          const u64 a = w[r];
+          const u64 b = w[r | j];
+          const bool swap = (a > b) == up;
+          w[r] = swap ? b : a;
+          w[r | j] = swap ? a : b;
+        }
+      }
+    }
+    return;
+  }
   if (j >= R) {
     const int lj = j / R;
     const bool lower = (lane & lj) == 0;
@@ -352,7 +388,7 @@ __device__ __forceinline__ void warp_stage(u64 (&w)[R], int lane, int size,
 }
 
 // bitonic sort of the warp's 32 R words, ascending
-template <int R>
+template <int R, bool kLean = false>
 __device__ __forceinline__ void warp_sort(u64 (&w)[R], int lane) {
   constexpr int kLog = (R >= 32 ? 5 : R >= 16 ? 4 : R >= 8 ? 3
                         : R >= 4 ? 2 : R >= 2 ? 1 : 0) + 5;
@@ -360,7 +396,7 @@ __device__ __forceinline__ void warp_sort(u64 (&w)[R], int lane) {
   for (int ls = 1; ls <= kLog; ++ls) {
 #pragma unroll
     for (int lj = ls - 1; lj >= 0; --lj) {
-      warp_stage<R>(w, lane, 1 << ls, 1 << lj);
+      warp_stage<R, kLean>(w, lane, 1 << ls, 1 << lj);
     }
   }
 }
@@ -527,6 +563,95 @@ pool_merge_warp_kernel(const float* __restrict__ d1, const int* __restrict__ i1,
 #undef ALAYA_MERGE_OUT
 }
 
+// ------------------------------------------------------------------------
+// sort_kv, the warp route: lists along rows of up to kWarpRoute keys.
+//
+// One warp per list, its P = 32 R words in registers (lane l holds words
+// l R .. l R + R - 1), sorted by warp_sort<R>, the network pool_merge's
+// warp route runs, in its lean form: stages of distance < R inside a lane's
+// registers, wider ones by __shfl_xor_sync; no barrier. The words are the
+// same as the network's (compose: monotone key bits, position), so the
+// first kout come out as the stable sort's, bit for bit what
+// sort_kv_kernel above returns. A lane loads its R consecutive keys as
+// float4 where the row allows (K % 4 == 0, a 16-byte aligned base, R >= 4);
+// the first kout sorted positions pass through shared memory, lane l then
+// writing outputs l, l + 32, ... (coalesced) with keys and payloads taken
+// from the input at those positions. Slots past K hold ~0, above every real
+// word.
+//
+// Bound: the bytes, as above (at [4096, 256] with a payload, 8.4 MB in and
+// 8.4 MB out: 5.0 us at 3.35 TB/s). The network spends a shared-memory
+// round trip on each of its 36 stages at that width, and a block barrier on
+// each stage wider than 32; here the 21 stages of distance < 8 (R = 8)
+// stay in a lane's registers and the other 15 are one shuffle pair a word.
+template <int R>
+__global__ void __launch_bounds__(kWarpBlock)
+sort_kv_warp_kernel(const float* __restrict__ keys, const int* __restrict__ pay,
+                    float* __restrict__ okeys, int* __restrict__ opay,
+                    long long* __restrict__ oidx, long long B, int K,
+                    int kout, int vec) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long b = static_cast<long long>(blockIdx.x) * (kWarpBlock / 32)
+                      + warp;
+  if (b >= B) {
+    return;  // the whole warp: no shuffle below waits on it
+  }
+  const float* row = keys + b * K;
+  const int i0 = lane * R;
+  u64 w[R];
+  bool loaded = false;
+  if constexpr (R >= 4) {
+    if (vec) {
+#pragma unroll
+      for (int r = 0; r < R; r += 4) {
+        const int idx = i0 + r;
+        if (idx < K) {  // K % 4 == 0: the four are all in the row or all out
+          const float4 x = __ldg(reinterpret_cast<const float4*>(row + idx));
+          w[r] = compose(x.x, idx);
+          w[r + 1] = compose(x.y, idx + 1);
+          w[r + 2] = compose(x.z, idx + 2);
+          w[r + 3] = compose(x.w, idx + 3);
+        } else {
+          w[r] = w[r + 1] = w[r + 2] = w[r + 3] = kPadWord;
+        }
+      }
+      loaded = true;
+    }
+  }
+  if (!loaded) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int idx = i0 + r;
+      w[r] = idx < K ? compose(__ldg(row + idx), idx) : kPadWord;
+    }
+  }
+  warp_sort<R, true>(w, lane);
+  // the sorted positions through shared memory, so that lane l writes
+  // outputs l, l + 32, ...: coalesced stores (a row of R + 1 words a lane
+  // keeps the writes free of bank conflicts)
+  __shared__ int spos[kWarpBlock / 32][32 * (R + 1)];
+  int* sp = spos[warp];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (i0 + r < kout) {
+      sp[lane * (R + 1) + r] = position(w[r]);
+    }
+  }
+  __syncwarp();
+  const long long ob = b * kout;
+  for (int o = lane; o < kout; o += 32) {
+    const int pos = sp[(o / R) * (R + 1) + o % R];
+    okeys[ob + o] = __ldg(row + pos);
+    if (opay != nullptr) {
+      opay[ob + o] = __ldg(pay + b * K + pos);
+    }
+    if (oidx != nullptr) {
+      oidx[ob + o] = pos;
+    }
+  }
+}
+
 // words per lane for a list of n entries: pow2(n) / 32, at least 1
 int lane_words(long long n) {
   int p = 32;
@@ -584,6 +709,39 @@ extern "C" int alaya_sort_kv(const void* keys, const void* pay, void* okeys,
       static_cast<const float*>(keys), static_cast<const int*>(pay),
       static_cast<float*>(okeys), static_cast<int*>(opay),
       static_cast<long long*>(oidx), B, K, kout, ls, is, ols, ois, p.P, p.T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sort_kv through the warp route, lists along rows; the caller picks it
+// for K <= kWarpRoute (returns cudaErrorInvalidValue past that). vec: K % 4
+// == 0 and a 16-byte aligned keys.
+extern "C" int alaya_sort_kv_warp(const void* keys, const void* pay,
+                                  void* okeys, void* opay, void* oidx,
+                                  long long B, int K, int kout, int vec,
+                                  void* stream) {
+  if (B == 0 || K == 0 || kout == 0) {
+    return 0;
+  }
+  const int R = lane_words(K);
+  if (R * 32 > kWarpRoute || kout > K) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned grid = static_cast<unsigned>(
+      (B + kWarpBlock / 32 - 1) / (kWarpBlock / 32));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define ALAYA_SORT_WARP(RR)                                                  \
+  sort_kv_warp_kernel<RR><<<grid, kWarpBlock, 0, s>>>(                       \
+      static_cast<const float*>(keys), static_cast<const int*>(pay),         \
+      static_cast<float*>(okeys), static_cast<int*>(opay),                   \
+      static_cast<long long*>(oidx), B, K, kout, vec)
+  switch (R) {
+    case 1: ALAYA_SORT_WARP(1); break;
+    case 2: ALAYA_SORT_WARP(2); break;
+    case 4: ALAYA_SORT_WARP(4); break;
+    case 8: ALAYA_SORT_WARP(8); break;
+    default: ALAYA_SORT_WARP(16); break;
+  }
+#undef ALAYA_SORT_WARP
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -296,8 +296,8 @@ def block_beam_search(space, seeds: Tensor, queries: Tensor, k: int, ef: int,
         est, nids = space.estimate_many(ctx, u_safe)           # [B, M*R]
         R = nids.shape[1] // M
         nids = _neg1_where_not(active.repeat_interleave(R, dim=1), nids)
-        # stale = already expanded or already pooled
-        stale = ring_probe(nids, torch.cat([popring, pool_i], dim=1))
+        # stale = already expanded (the pop ring) or already pooled
+        stale = ring_probe(nids, popring, pool_i)
         fresh = (nids >= 0) & ~stale
         pool_d, pool_i, pool_c = merge_topk_dedup(
             pool_d, pool_i, pool_c, _inf_where_not(fresh, est),

@@ -31,15 +31,17 @@ Replaces the TPU kernels ``scripts/proto_pallas_sort.py:111`` and ``:117``
 ``:87``, ``:92`` (the sort along columns, and without payload along columns
 and rows) and ``scripts/opt_hop2.py:120`` (``roll_kernel_n``). The kernels
 are bound by memory on paper (a [4096, 64 + 256] merge moves 6.6 MB).
-``sort_kv`` and ``merge_kv`` run their stages in shared memory;
-``pool_merge`` keeps each list in one warp's registers and exchanges words
-by shuffles, up to ``WARP_LIST`` words a list, and sorts longer ones in
-shared memory; ``roll_n`` exchanges by shuffles where a row is 32·W words
-(W ≤ 16) and in shared memory elsewhere; see the notes in the sources.
+``merge_kv`` runs its stages in shared memory; ``pool_merge`` and
+``sort_kv`` (lists along rows) keep each list in one warp's registers and
+exchange words by shuffles, up to ``WARP_LIST`` words a list, and sort
+longer ones (and ``sort_kv`` lists along columns) in shared memory;
+``roll_n`` exchanges by shuffles where a row is 32·W words (W ≤ 16) and in
+shared memory elsewhere; see the notes in the sources.
 
 Each function counts its calls on any device (``.calls``) and its CUDA kernel
-launches and nothing else (``.launches``); ``pool_merge.route_launches`` and
-``roll_n.route_launches`` split their launches by kernel.
+launches and nothing else (``.launches``); ``sort_kv.route_launches``,
+``pool_merge.route_launches`` and ``roll_n.route_launches`` split their
+launches by kernel.
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ import torch
 
 Tensor = torch.Tensor
 MAX_LIST = 16384   # power-of-two stage of 8-byte words in 227 KB shared memory
-WARP_LIST = 512    # pool_merge keeps a list in one warp's registers up to here
+WARP_LIST = 512    # pool_merge and sort_kv keep a list in one warp's registers
+                   # up to here
 WARP_ROLL = 512    # roll_n keeps a row of 32·W words in registers up to here
 _SRC = "pool_sort"
 
@@ -141,6 +144,14 @@ def pool_merge_route(L1: int, L2: int, k: int) -> str:
             else "network")
 
 
+def sort_kv_route(K: int, axis: int = 1) -> str:
+    """The kernel ``sort_kv`` launches for lists of ``K`` keys along
+    ``axis``: "warp" (a list in one warp's registers) for lists along rows
+    of at most ``WARP_LIST`` keys, else "network" (a list in shared memory,
+    sorted by a block)."""
+    return "warp" if axis == 1 and 0 < K <= WARP_LIST else "network"
+
+
 def roll_n_route(K: int) -> str:
     """The kernel ``roll_n`` launches for rows of ``K`` words: "warp" (a row
     in one warp's registers, shifted by shuffles) where K is a multiple of
@@ -162,14 +173,59 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
 # ----------------------------------------------------------------- wrappers
+def sort_kv_on(route: str, keys: Tensor, payload: Optional[Tensor], k: int,
+               axis: int = 1, return_index: bool = False,
+               counted: bool = True):
+    """The CUDA kernel of ``route`` ("warp" or "network") on checked
+    operands: ``sort_kv``'s launch, and the way to hold one kernel against
+    the other at the same shape. A launch adds one to ``sort_kv.launches``
+    and to its route's count unless ``counted`` is off, as it is for a
+    comparison that is not part of a path. Returns
+    (keys, payload or None, positions or None)."""
+    from ._build import launch
+
+    if route not in sort_kv.route_launches:
+        raise ValueError(f"unknown sort_kv route {route!r}")
+    K = keys.shape[axis]
+    B = keys.shape[1 - axis]
+    if route == "warp" and sort_kv_route(K, axis) != "warp":
+        raise ValueError(f"the warp kernel takes lists along rows of at "
+                         f"most {WARP_LIST} keys, not {K} along axis {axis}")
+    shape = (B, k) if axis == 1 else (k, B)
+    dev = keys.device
+    ok = torch.empty(shape, dtype=torch.float32, device=dev)
+    op = (None if payload is None
+          else torch.empty(shape, dtype=torch.int32, device=dev))
+    oi = (torch.empty(shape, dtype=torch.int64, device=dev)
+          if return_index else None)
+    if not (B and k):
+        return ok, op, oi
+    if route == "warp":
+        vec = K % 4 == 0 and keys.data_ptr() % 16 == 0
+        launch(_entry("alaya_sort_kv_warp", [_P, _P, _P, _P, _P, _LL, _I,
+                                             _I, _I]),
+               dev, keys.data_ptr(), _ptr(payload), ok.data_ptr(), _ptr(op),
+               _ptr(oi), B, K, k, int(vec))
+    else:
+        # (list stride, item stride) of the input and of the output
+        ls, is_, ols, ois = (K, 1, k, 1) if axis == 1 else (1, B, 1, B)
+        launch(_entry("alaya_sort_kv", [_P, _P, _P, _P, _P, _LL, _I, _I,
+                                        _LL, _LL, _LL, _LL]),
+               dev, keys.data_ptr(), _ptr(payload), ok.data_ptr(), _ptr(op),
+               _ptr(oi), B, K, k, ls, is_, ols, ois)
+    if counted:
+        sort_kv.launches += 1
+        sort_kv.route_launches[route] += 1
+    return ok, op, oi
+
+
 def sort_kv(keys: Tensor, payload: Optional[Tensor] = None,
             k: Optional[int] = None, axis: int = 1,
             return_index: bool = False):
     """(sorted keys, sorted payload or None[, positions int64]) of the first
     ``k`` entries of every list; ``axis`` 1: lists are the rows of
-    ``keys`` [B, K]; 0: its columns [K, B]."""
-    from ._build import launch
-
+    ``keys`` [B, K]; 0: its columns [K, B]. On the card the layout and the
+    width pick the kernel (``sort_kv_route``); both return the same bits."""
     _check_2d("keys", keys, torch.float32)
     if payload is not None:
         _check_2d("payload", payload, torch.int32, keys, same_shape=True)
@@ -184,21 +240,8 @@ def sort_kv(keys: Tensor, payload: Optional[Tensor] = None,
     sort_kv.calls += 1
     if keys.device.type == "cpu":
         return sort_kv_ref(keys, payload, k, axis, return_index)
-    shape = (B, k) if axis == 1 else (k, B)
-    dev = keys.device
-    ok = torch.empty(shape, dtype=torch.float32, device=dev)
-    op = (None if payload is None
-          else torch.empty(shape, dtype=torch.int32, device=dev))
-    oi = (torch.empty(shape, dtype=torch.int64, device=dev)
-          if return_index else None)
-    # (list stride, item stride) of the input and of the output
-    ls, is_, ols, ois = (K, 1, k, 1) if axis == 1 else (1, B, 1, B)
-    if B and k:
-        launch(_entry("alaya_sort_kv", [_P, _P, _P, _P, _P, _LL, _I, _I,
-                                        _LL, _LL, _LL, _LL]),
-               dev, keys.data_ptr(), _ptr(payload), ok.data_ptr(), _ptr(op),
-               _ptr(oi), B, K, k, ls, is_, ols, ois)
-        sort_kv.launches += 1
+    ok, op, oi = sort_kv_on(sort_kv_route(K, axis), keys, payload, k, axis,
+                            return_index)
     return (ok, op, oi) if return_index else (ok, op)
 
 
@@ -314,4 +357,5 @@ for _fn in (sort_kv, merge_kv, pool_merge, roll_n):
     _fn.calls = 0
     _fn.launches = 0
 pool_merge.route_launches = {"warp": 0, "network": 0}
+sort_kv.route_launches = {"warp": 0, "network": 0}
 roll_n.route_launches = {"warp": 0, "shared": 0}

@@ -12,13 +12,26 @@ the script exits non-zero:
                bulk must raise where it does not take the codes),
                gather_estimate (the same entries with estimate_many's
                epilogue fused in: est bit for bit against the PyTorch
-               epilogue on the entry's own dot, ids exactly, L2 and IP) and
-               ring_probe against their plain PyTorch versions on the card
-               at the main-path shapes and at ragged shapes, with CUDA-event
-               times of the kernel, the plain version and a library route
-               ("ms" holds the host's launch latency, as every earlier
-               number does; "ms_spin" is the device's time alone); then the
-               pool's sort and merge: sort_kv (rows, columns, keys only),
+               epilogue on the entry's own dot, ids exactly, L2 and IP)
+               against their plain PyTorch versions on the card at the
+               main-path shapes and at ragged shapes, with CUDA-event times
+               of the kernel, the plain version and a library route ("ms"
+               holds the host's launch latency, as every earlier number
+               does; "ms_spin" is the device's time alone); ring_probe's two
+               kernels ("hash", a table per query in shared memory; "scan")
+               and its routed call against the plain version, bit for bit,
+               at the paths' shapes (the bsq8 search's pop ring 96 + pool
+               64, the build pools' 96 + 128 and 96 + 200, the raw ring
+               walk's 96, the fusion hop's 512 ids), ragged shapes and ids
+               that break a hash table (INT_MIN, INT_MAX, -1, rows of one
+               id, one seen entry, a width past the hash kernel's), the
+               routed call and both kernels timed at every path shape, its
+               bound from the bytes it moves and the hash's own O(K + S)
+               work (the scan's O(K * S) compares kept beside it); then the
+               pool's sort and merge: sort_kv (rows, columns, keys only;
+               its warp route and its network, both bit for bit and timed
+               at [4096, 256] with a payload, NN-Descent's 180 -> 32 and
+               the search's 64 -> 10, keys with NaN, both zeros, +inf),
                merge_kv, pool_merge (the hop's merge_topk_dedup, on ties,
                duplicates, +inf / -1 slots, both zeros, negative keys, and
                on pools with dedup's holes, which are not ascending; both
@@ -43,7 +56,11 @@ the script exits non-zero:
                against their plain versions on the fitted index's own code
                tensor, norms and ids, at node ids up to num - 1, whose byte
                offsets pass 2^31; every CUDA kernel one estimate_many call
-               launches, counted by torch.profiler (fails unless one);
+               launches, counted by torch.profiler (fails unless one); the
+               concatenation kernels a block hop launches, counted by
+               torch.profiler (fails unless one a hop: the pop ring's
+               shift; the stale check takes the pop ring and the pool as
+               two operands);
   5. search    batch_search of 8192 queries at ef 32 and 64, k = 10,
                recall@10 against exact ground truth computed here on the
                card, wall QPS and kernel launches; fails below 0.95 at
@@ -67,7 +84,10 @@ The bsq8 index is freed, then the raw graph path runs:
                queries at ef 32, 64 and 128 with recall@10, wall QPS, host
                syncs of the overlay descent and launches of pool_merge,
                sort_kv, merge_kv and ring_probe (each must be launched in
-               the fit and in the search); save, load, and the same ids.
+               the fit and in the search; the launches of pool_merge,
+               sort_kv and ring_probe are counted by kernel on every path,
+               and every path launch of sort_kv must take "warp" and of
+               ring_probe "hash"); save, load, and the same ids.
                With alpha 1.0 the prune leaves ~10 of 32 edges per node at
                this size and the walk starts from one descent seed, so
                recall@10 at ef 64 reads 0.917-0.921 here, under the 0.95
@@ -149,14 +169,26 @@ GATHER_MAIN = (100_000, 32, 128, 4096, 8)
 GATHER_R1 = (100_000, 1, 128, 4096, 256)
 GATHER_SHAPES = (GATHER_MAIN, GATHER_R1, (5_000, 24, 96, 1000, 5),
                  (900, 7, 40, 333, 3), (5_000, 1, 100, 1000, 77))
-# ring_probe: (B, K, S); the main shape is the search's at ef 64 (K = M*R,
-# S = pop ring 96 + pool 64)
-PROBE_MAIN = (4096, 256, 160)
-PROBE_SHAPES = (PROBE_MAIN, (1000, 200, 77), (333, 77, 1))
-# the pool's sort and merge: the hop sorts [qchunk, ef + M*R]
+# ring_probe: (B, K, S, S2) at the paths' shapes: the bsq8 search at ef 64
+# (K = M*R 256; S the pop ring, 96; S2 the pool, 64) first, then the build
+# pools at ef 128 and at ef_construction 200, the raw ring walk at ef 64
+# (the pop ring alone) and the fusion hop (64 neighbors of 8 pops); then
+# ragged shapes
+PROBE_MAIN = (4096, 256, 96, 64)
+PROBE_PATHS = (PROBE_MAIN, (4096, 256, 96, 128), (4096, 256, 96, 200),
+               (4096, 256, 96, 0), (4096, 512, 96, 0))
+PROBE_RAGGED = ((1000, 200, 77, 0), (333, 77, 1, 0), (1000, 77, 13, 5),
+                (333, 300, 0, 37))
+# the pool's sort and merge: the hop sorts [qchunk, ef + M*R]; the last
+# ragged width passes pool_sort.WARP_LIST and takes sort_kv's network
 SORT_MAIN = (4096, 256)
 SORT_RAGGED = ((1, 1), (333, 77), (1000, 200), (333, 320), (1, 200),
-               (1000, 77))
+               (1000, 77), (100, 1000))
+# sort_kv's warp route against its network at the paths' shapes: (B, K, k,
+# payload): the hop's width with a payload, NN-Descent's join (32 + 148 ->
+# 32) and the search's final k (ef 64 -> 10), keys only with positions
+SORT_PATHS = ((4096, 256, 256, True), (4096, 180, 32, False),
+              (4096, 64, 10, False))
 MERGE_SHAPES = ((4096, 64, 64), (4096, 32, 32))     # B, L1, L2 (ascending)
 POOL_MAIN = (4096, 64, 256)                         # B, pool ef, M*R
 # every (B, ef, M*R) the hops launch, k = ef: the searches at ef 32, 64,
@@ -278,22 +310,20 @@ def check_estimate_bits(torch, codes, u, qs, est_args, variant, what):
     return worst
 
 
-def check_gather_probe(torch, dev) -> dict:
-    """gather_diagdot (both entries), gather_estimate (the fused estimate,
-    both entries) and ring_probe against their plain versions; times,
-    bounds and library routes at the main shapes: the hop's and the sq8
-    traversal's (R = 1)."""
+def check_gather(torch, dev) -> dict:
+    """gather_diagdot (both entries) and gather_estimate (the fused
+    estimate, both entries) against their plain versions; times, bounds and
+    library routes at the main shapes: the hop's and the sq8 traversal's
+    (R = 1)."""
     from alayalite_tpu_torch.ops.gather_diagdot import (
         VARIANTS, bulk_fits, gather_diagdot, gather_diagdot_ref,
         gather_estimate, gather_estimate_ref)
-    from alayalite_tpu_torch.ops.ring_probe import ring_probe, ring_probe_ref
     from alayalite_tpu_torch.spaces.bqg import ESTIMATE_VARIANT
     from alayalite_tpu_torch.spaces.sq import GATHER_VARIANT
     from alayalite_tpu_torch.utils.timing import bound, cuda_ms
 
     rng = np.random.default_rng(2)
-    out = {"gather_diagdot": {"errors": {}}, "gather_estimate": {"errors": {}},
-           "ring_probe": {"errors": {}}}
+    out = {"gather_diagdot": {"errors": {}}, "gather_estimate": {"errors": {}}}
     saved = snapshot_counts(gather_diagdot, gather_estimate)
     for shape in GATHER_SHAPES:
         C, R, Dp, B, M = shape
@@ -398,39 +428,142 @@ def check_gather_probe(torch, dev) -> dict:
     out["gather_diagdot"].update(out["gather_diagdot"]["r1"])
     out["gather_estimate"].update(out["gather_estimate"]["main"])
 
-    for shape in PROBE_SHAPES:
-        B, Kp, S = shape
-        # ids drawn from a range a few times S wide, so some are members
-        nids = torch.as_tensor(rng.integers(-1, 4 * S + 4, size=(B, Kp))
-                               .astype(np.int32), device=dev)
-        seen = torch.as_tensor(rng.integers(-1, 4 * S + 4, size=(B, S))
-                               .astype(np.int32), device=dev)
-        got = ring_probe(nids, seen)
+    return out
+
+
+def _probe_rows(torch, rng, B, K, S, S2, dev):
+    """A hop's operands: a pop ring whose older half is still -1, a pool
+    with an empty (-1) tail, neighbor ids repeating both and each other,
+    inactive pops' -1 ids."""
+    hi = 3 * (S + S2) + 8
+    ring = rng.integers(0, hi, size=(B, S)).astype(np.int32)
+    ring[:, : S // 2] = -1
+    pool = rng.integers(0, hi, size=(B, S2)).astype(np.int32)
+    pool[:, S2 - S2 // 4:] = -1
+    nids = rng.integers(-1, hi, size=(B, K)).astype(np.int32)
+    nids[:, : K // 8] = nids[:, K // 8: 2 * (K // 8)]
+    return (torch.as_tensor(nids, device=dev),
+            torch.as_tensor(ring, device=dev),
+            torch.as_tensor(pool, device=dev) if S2 else None)
+
+
+def _probe_edges(torch, rng, dev):
+    """Operands that break a hash table: INT_MIN, INT_MAX and -1 as ids and
+    as seen entries, seen rows of one id, one seen entry, a seen width past
+    the hash kernel's (scan only)."""
+    from alayalite_tpu_torch.ops.ring_probe import HASH_SEEN
+
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    B, K = 4096, 256
+    nids = rng.integers(-1, 400, size=(B, K)).astype(np.int32)
+    nids[:, :3] = (lo, hi, -1)
+    seen = rng.integers(0, 60, size=(B, 160)).astype(np.int32)
+    seen[0::2, :3] = (lo, hi, -1)
+    seen[1::2, :3] = (lo + 1, hi - 1, -2)
+    one = np.full((B, 160), 7, np.int32)
+    one[1::3], one[2::3] = -1, lo
+    wide = rng.integers(-1, 3 * HASH_SEEN, size=(333, HASH_SEEN + 5))
+    t = [torch.as_tensor(np.ascontiguousarray(a), device=dev) for a in (
+        nids, seen[:, :96], seen[:, 96:], one[:, :96], one[:, 96:],
+        seen[:, :1], wide[:, :1000].astype(np.int32),
+        wide[:, 1000:].astype(np.int32),
+        rng.integers(-1, 3 * HASH_SEEN, size=(333, 77)).astype(np.int32))]
+    return [("int_extremes", t[0], t[1], t[2]),
+            ("one_id_rows", t[0], t[3], t[4]),
+            ("one_seen", t[0], t[5], None),
+            ("past_hash_limit", t[8], t[6], t[7])]
+
+
+def check_ring_probe(torch, dev) -> dict:
+    """ring_probe's two kernels ("hash", "scan") and the wrapper's route
+    against the plain version, bit for bit, at the paths' shapes, ragged
+    shapes and on the ids that break a hash table; both kernels timed at
+    every path shape, the plain version and the eager compare at the
+    search's."""
+    from alayalite_tpu_torch.ops.ring_probe import (HASH_SEEN, ring_probe,
+                                                    ring_probe_on,
+                                                    ring_probe_ref,
+                                                    ring_probe_route)
+    from alayalite_tpu_torch.utils.timing import bound, cuda_ms
+
+    rng = np.random.default_rng(3)
+    out = {"errors": {}, "at": {}}
+    saved = snapshot_counts(ring_probe)
+    cases = [(str(shape), *_probe_rows(torch, rng, *shape, dev))
+             for shape in (*PROBE_PATHS, *PROBE_RAGGED)]
+    for name, nids, seen, seen2 in cases + _probe_edges(torch, rng, dev):
+        S2 = 0 if seen2 is None else seen2.shape[1]
+        want = ring_probe_ref(nids, seen, seen2)
+        wrong = {}
+        for route in ("hash", "scan"):
+            if route == "hash" and seen.shape[1] + S2 > HASH_SEEN:
+                continue
+            got = ring_probe_on(route, nids, seen, seen2, counted=False)
+            torch.cuda.synchronize()
+            wrong[route] = int((got != want).sum())
+        got = ring_probe(nids, seen, seen2)
         torch.cuda.synchronize()
-        want = ring_probe_ref(nids, seen)
-        wrong = int((got != want).sum())
-        log(f"kernel ring_probe {shape}: {wrong} of {B * Kp} differ, "
-            f"{int(want.sum())} members")
-        if wrong or got.dtype != torch.bool:
-            raise AssertionError(f"ring_probe disagrees at {shape}")
-        out["ring_probe"]["errors"][str(shape)] = wrong
-        if shape != PROBE_MAIN:
-            continue
-        # a compare and an or per (id, seen entry) pair, on the CUDA cores
-        b = bound(B * Kp * 4 + B * S * 4 + B * Kp, 2 * B * Kp * S, "f32")
-        out["ring_probe"].update(
-            max_abs_err=0.0, ms=cuda_ms(lambda: ring_probe(nids, seen)),
-            ms_spin=cuda_ms(lambda: ring_probe(nids, seen), spin=True),
-            plain_ms=cuda_ms(lambda: ring_probe_ref(nids, seen)),
-            library_ms=cuda_ms(lambda: (nids[:, :, None]
-                                        == seen[:, None, :]).any(2)),
-            shape=list(shape), **b)
-        p = out["ring_probe"]
-        log(f"kernel ring_probe {shape}: {p['ms']:.4f} ms "
-            f"({p['ms_spin']:.4f} device alone), plain "
-            f"{p['plain_ms']:.4f} ms, eager compare + any "
-            f"{p['library_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms "
-            f"({b['bound_by']}; bytes {b['bytes_ms']:.4f} ms)")
+        route = ring_probe_route(seen.shape[1], S2)
+        wrong[f"routed ({route})"] = int((got != want).sum())
+        log(f"kernel ring_probe {name} ({tuple(nids.shape)} against "
+            f"{seen.shape[1]} + {S2}): differing entries {wrong}, "
+            f"{int(want.sum())} members of {want.numel()}")
+        if any(wrong.values()) or got.dtype != torch.bool:
+            raise AssertionError(f"ring_probe disagrees at {name}")
+        out["errors"][name] = wrong
+    restore_counts(saved)
+
+    for shape in PROBE_PATHS:
+        B, K, S, S2 = shape
+        nids, seen, seen2 = _probe_rows(torch, rng, *shape, dev)
+        if ring_probe_route(S, S2) != "hash":
+            raise AssertionError(f"the path shape {shape} is not routed to "
+                                 f"the hash kernel")
+
+        def on(route, nids=nids, seen=seen, seen2=seen2):
+            return lambda: ring_probe_on(route, nids, seen, seen2,
+                                         counted=False)
+
+        def routed(nids=nids, seen=seen, seen2=seen2):
+            return ring_probe(nids, seen, seen2)
+
+        # bytes: the ids and both seen rows read once, a byte written per
+        # id; operations: the hash route's own work, a hash and a compare
+        # per seen id inserted and per id probed, O(K + S + S2) a query, on
+        # the CUDA cores. The scan's bound counts its compare and or per
+        # (id, seen entry) pair, O(K * (S + S2)), and is kept beside it.
+        w = S + S2
+        nbytes = B * K * 4 + B * w * 4 + B * K
+        rep = {"shape": list(shape), "route": "hash",
+               **bound(nbytes, 2 * B * (K + w), "f32")}
+        rep["scan_bound_ms"] = bound(nbytes, 2 * B * K * w, "f32")["bound_ms"]
+        rep["ms"] = cuda_ms(routed)
+        rep["ms_spin"] = cuda_ms(routed, spin=True)
+        for route in ("hash", "scan"):
+            rep[f"{route}_ms"] = cuda_ms(on(route))
+            rep[f"{route}_ms_spin"] = cuda_ms(on(route), spin=True)
+        if shape == PROBE_MAIN:
+            cat = torch.cat([seen, seen2], dim=1)
+            rep.update(
+                plain_ms=cuda_ms(lambda: ring_probe_ref(nids, seen, seen2)),
+                library_ms=cuda_ms(lambda: (nids[:, :, None]
+                                            == cat[:, None, :]).any(2)),
+                cat_ms_spin=cuda_ms(lambda: torch.cat([seen, seen2], dim=1),
+                                    spin=True))
+        out["at"][f"{K}x{S}+{S2}"] = rep
+        log(f"kernel ring_probe {shape}: routed {rep['ms']:.4f} ms "
+            f"({rep['ms_spin']:.4f} device alone), hash kernel "
+            f"{rep['hash_ms']:.4f} ({rep['hash_ms_spin']:.4f}), scan kernel "
+            f"{rep['scan_ms']:.4f} ({rep['scan_ms_spin']:.4f}), bound "
+            f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}; the scan's "
+            f"compares {rep['scan_bound_ms']:.4f} ms)")
+    restore_counts(saved)
+    main = out["at"]["{1}x{2}+{3}".format(*PROBE_MAIN)]
+    out.update(main, max_abs_err=0.0)
+    log(f"kernel ring_probe {PROBE_MAIN}: plain {main['plain_ms']:.4f} ms, "
+        f"eager compare + any over the concatenated rows "
+        f"{main['library_ms']:.4f} ms, the concatenation the hop no longer "
+        f"launches {main['cat_ms_spin']:.4f} ms device alone")
     return out
 
 
@@ -695,7 +828,8 @@ def check_pool_sort(torch, dev) -> dict:
                                                    pool_merge, pool_merge_ref,
                                                    pool_merge_route, roll_n,
                                                    roll_n_ref, roll_n_route,
-                                                   sort_kv, sort_kv_ref)
+                                                   sort_kv, sort_kv_on,
+                                                   sort_kv_ref, sort_kv_route)
     from alayalite_tpu_torch.utils.timing import bound, cuda_ms
 
     rng = np.random.default_rng(4)
@@ -720,12 +854,19 @@ def check_pool_sort(torch, dev) -> dict:
         raise AssertionError(f"{name} differs from its plain version at "
                              f"{shape}")
 
-    # ---- sort_kv
-    for B, Kw in (SORT_MAIN, *SORT_RAGGED):
+    def sort_keys(B, Kw):
+        """Keys with ties, both zeros, +inf and NaN."""
         keys = np.round(rng.normal(size=(B, Kw)) * 8) / 8
         keys[rng.random((B, Kw)) < 0.3] = np.inf
+        keys[rng.random((B, Kw)) < 0.01] = np.nan
         keys[keys == 0] *= rng.choice([-1.0, 1.0], size=int((keys == 0).sum()))
-        keys = torch.as_tensor(keys.astype(np.float32), device=dev)
+        return torch.as_tensor(keys.astype(np.float32), device=dev)
+
+    # ---- sort_kv: rows (the warp route up to WARP_LIST keys, the network
+    # past it), columns (the network), keys only
+    routes = dict(sort_kv.route_launches)
+    for B, Kw in (SORT_MAIN, *SORT_RAGGED):
+        keys = sort_keys(B, Kw)
         pay = torch.as_tensor(rng.integers(-1, 1 << 30, size=(B, Kw))
                               .astype(np.int32), device=dev)
         kt, pt = keys.T.contiguous(), pay.T.contiguous()
@@ -740,8 +881,8 @@ def check_pool_sort(torch, dev) -> dict:
             for layout, (got, want) in cases.items():
                 if not all(_same_bits(g, w) for g, w in zip(got, want)):
                     fail(f"sort_kv[{layout}]", (B, Kw, k))
-        log(f"kernel sort_kv {(B, Kw)}: rows, columns and keys only equal "
-            f"the plain version bit for bit")
+        log(f"kernel sort_kv {(B, Kw)} (rows: {sort_kv_route(Kw)}): rows, "
+            f"columns and keys only equal the plain version bit for bit")
         if (B, Kw) != SORT_MAIN:
             continue
 
@@ -752,7 +893,7 @@ def check_pool_sort(torch, dev) -> dict:
         ops = B * stages(Kw)
         out["sort_kv"] = timed(
             lambda: sort_kv(keys, pay), lambda: sort_kv_ref(keys, pay),
-            library, 4 * B * Kw * 4, ops, (B, Kw),
+            library, 4 * B * Kw * 4, ops, (B, Kw), route=sort_kv_route(Kw),
             columns_ms=cuda_ms(lambda: sort_kv(kt, pt, axis=0)),
             columns_ms_spin=cuda_ms(lambda: sort_kv(kt, pt, axis=0),
                                     spin=True),
@@ -766,6 +907,64 @@ def check_pool_sort(torch, dev) -> dict:
             f"{r['keys_only_ms_spin']:.4f}), plain {r['plain_ms']:.4f} ms, "
             f"library sort + gather {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    ran = {r: sort_kv.route_launches[r] - routes[r] for r in routes}
+    if min(ran.values()) <= 0:
+        raise AssertionError(f"a sort_kv kernel was not held: {ran}")
+    out["sort_kv"]["checked_route_launches"] = ran
+
+    # the warp route against the network at the paths' shapes, both called
+    # directly (uncounted), bit for bit against the plain version
+    out["sort_kv"]["at"] = {}
+    for B, Kw, k, with_pay in SORT_PATHS:
+        keys = sort_keys(B, Kw)
+        pay = (torch.as_tensor(rng.integers(-1, 1 << 30, size=(B, Kw))
+                               .astype(np.int32), device=dev)
+               if with_pay else None)
+        want = sort_kv_ref(keys, pay, k, 1, True)
+        if sort_kv_route(Kw) != "warp":
+            raise AssertionError(f"sort_kv at {(B, Kw)} is not routed to "
+                                 f"the warp kernel")
+
+        def on(route, keys=keys, pay=pay, k=k, idx=not with_pay):
+            return lambda: sort_kv_on(route, keys, pay, k, 1, idx,
+                                      counted=False)
+
+        for route in ("warp", "network"):
+            got = sort_kv_on(route, keys, pay, k, 1, True, counted=False)
+            torch.cuda.synchronize()
+            if not all(_same_bits(g, w) for g, w in zip(got, want)):
+                fail(f"sort_kv[{route}]", (B, Kw, k))
+
+        def library(keys=keys, pay=pay, k=k):
+            sk, order = torch.sort(keys, dim=1, stable=True)
+            order = order[:, :k]
+            return (sk[:, :k], None if pay is None
+                    else torch.gather(pay, 1, order), order)
+
+        # bytes: keys (and payload) read once; k keys, payloads or int64
+        # positions written
+        nbytes = B * Kw * (8 if with_pay else 4) + B * k * (8 if with_pay
+                                                            else 12)
+        rep = {"shape": [B, Kw, k], "payload": with_pay,
+               "positions": not with_pay,
+               **bound(nbytes, 2 * B * stages(Kw), "f32"),
+               "plain_ms": cuda_ms(lambda keys=keys, pay=pay, k=k: sort_kv_ref(
+                   keys, pay, k, 1, True)),
+               "library_ms": cuda_ms(library)}
+        for route in ("warp", "network"):
+            rep[f"{route}_ms"] = cuda_ms(on(route))
+            rep[f"{route}_ms_spin"] = cuda_ms(on(route), spin=True)
+        out["sort_kv"]["at"][f"{Kw}->{k}"] = rep
+        log(f"kernel sort_kv {(B, Kw)} -> {k} ({'payload' if with_pay else 'keys only, positions'}): "
+            f"warp {rep['warp_ms']:.4f} ms ({rep['warp_ms_spin']:.4f} device "
+            f"alone), network {rep['network_ms']:.4f} "
+            f"({rep['network_ms_spin']:.4f}), both equal the plain version "
+            f"bit for bit; plain {rep['plain_ms']:.4f} ms, library sort "
+            f"{rep['library_ms']:.4f} ms, bound {rep['bound_ms']:.4f} ms "
+            f"({rep['bound_by']})")
+    main = out["sort_kv"]["at"][f"{SORT_MAIN[1]}->{SORT_MAIN[1]}"]
+    out["sort_kv"].update(network_ms=main["network_ms"],
+                          network_ms_spin=main["network_ms_spin"])
 
     # ---- merge_kv (ascending operands)
     out["merge_kv"] = {}
@@ -1248,13 +1447,14 @@ def estimate_kernels(torch, sp) -> dict:
 
 
 class RouteCount:
-    """pool_merge's launches through one of its two kernels, read and set
-    to 0 like a wrapper's own count, so that every phase counts them where
-    it counts pool_merge."""
+    """A wrapper's launches through one of its kernels, read and set to 0
+    like the wrapper's own count, so that every phase counts them where it
+    counts the wrapper: pool_merge[warp], sort_kv[network], ring_probe[hash]
+    and so on."""
 
-    def __init__(self, pool_merge, route: str):
-        self._fn, self.route = pool_merge, route
-        self.__name__ = f"pool_merge[{route}]"
+    def __init__(self, fn, route: str):
+        self._fn, self.route = fn, route
+        self.__name__ = f"{fn.__name__}[{route}]"
 
     @property
     def launches(self) -> int:
@@ -1265,22 +1465,67 @@ class RouteCount:
         self._fn.route_launches[self.route] = n
 
 
-def merge_route_counters():
-    from alayalite_tpu_torch.ops.pool_sort import pool_merge
-
-    return tuple(RouteCount(pool_merge, r) for r in pool_merge.route_launches)
+def route_counters(fn):
+    return tuple(RouteCount(fn, r) for r in fn.route_launches)
 
 
 def pool_counters():
     """The kernels a graph index can launch: the pool's three, the stale
-    check, and (an sq8 traversal's gathered dot) gather_diagdot; then
-    pool_merge's launches by kernel."""
+    check, and (an sq8 traversal's gathered dot) gather_diagdot; then the
+    launches by kernel of pool_merge, sort_kv and ring_probe."""
     from alayalite_tpu_torch.ops.gather_diagdot import gather_diagdot
     from alayalite_tpu_torch.ops.pool_sort import merge_kv, pool_merge, sort_kv
     from alayalite_tpu_torch.ops.ring_probe import ring_probe
 
     return (pool_merge, sort_kv, merge_kv, ring_probe, gather_diagdot,
-            *merge_route_counters())
+            *route_counters(pool_merge), *route_counters(sort_kv),
+            *route_counters(ring_probe))
+
+
+def hop_cat_kernels(torch, sp) -> dict:
+    """The concatenation kernels one block hop launches (torch.profiler,
+    the port's kernels and PyTorch's alike), on the fitted index at the
+    search's shape (4096 queries, ef 64, 8 pops): the difference between a
+    search of 9 hops and one of 1, over the hops. It must be 1, the pop
+    ring's shift: the stale check takes the pop ring and the pool as two
+    operands and concatenates nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from alayalite_tpu_torch.index.search import block_beam_search
+    from alayalite_tpu_torch.ops.gather_diagdot import gather_estimate
+    from alayalite_tpu_torch.ops.ring_probe import ring_probe
+
+    B = GATHER_MAIN[3]
+    rng = np.random.default_rng(8)
+    q = torch.as_tensor(rng.normal(size=(B, sp.dim)).astype(np.float32),
+                        device=sp.device)
+    seeds = torch.as_tensor(rng.integers(0, sp.num, size=(B, 1))
+                            .astype(np.int32), device=sp.device)
+    saved = snapshot_counts(gather_estimate, ring_probe)
+    seen = {}
+    for iters in (1, 9):
+        block_beam_search(sp, seeds, q, k=K, ef=64, max_iters=iters,
+                          n_expand=8)
+        torch.cuda.synchronize()
+        hops = gather_estimate.calls
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            block_beam_search(sp, seeds, q, k=K, ef=64, max_iters=iters,
+                              n_expand=8)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen[iters] = {"hops": gather_estimate.calls - hops,
+                       "cat_kernels": sum("Cat" in n for n in names),
+                       "kernels": len(names)}
+    restore_counts(saved)
+    per_hop = ((seen[9]["cat_kernels"] - seen[1]["cat_kernels"])
+               / (seen[9]["hops"] - seen[1]["hops"]))
+    log(f"block hop: {per_hop:.2f} concatenation kernel(s) a hop (searches "
+        f"of 1 and 9 hops: {seen})")
+    if per_hop != 1:
+        raise AssertionError(f"a block hop launches {per_hop} concatenation "
+                             f"kernels, not the pop ring's one")
+    return {"cat_kernels_per_hop": per_hop, "searches": seen}
 
 
 def graph_index_phase(torch, dev, name, data, queries, gt, floors: dict,
@@ -1535,6 +1780,7 @@ def main() -> int:
     from alayalite_tpu_torch.ops.diagdot import block_diagdot
     from alayalite_tpu_torch.ops.gather_diagdot import gather_estimate
     from alayalite_tpu_torch.ops.l2_tile import l2_tile
+    from alayalite_tpu_torch.ops.pool_sort import pool_merge, sort_kv
     from alayalite_tpu_torch.ops.ring_probe import ring_probe
     from alayalite_tpu_torch.ops.sq8_tile import sq8_tile
     from alayalite_tpu_torch.utils.datasets import random_dataset
@@ -1566,14 +1812,16 @@ def main() -> int:
     report["sq8_sass"] = check_hgmma()
 
     report["block_diagdot"] = check_diagdot(torch, dev)
-    report.update(check_gather_probe(torch, dev))
+    report.update(check_gather(torch, dev))
+    report["ring_probe"] = check_ring_probe(torch, dev)
     report.update(check_pool_sort(torch, dev))
     report["sq8_gather"] = check_sq8_gather(torch, dev)
     # the kernels of every block hop, and the hops (estimate_many calls)
     hop = (gather_estimate, ring_probe,
            CallCount(gather_estimate, "estimate_many_calls"))
-    # pool_merge, sort_kv, merge_kv, and pool_merge by kernel
-    pool = (*pool_counters()[:3], *merge_route_counters())
+    # pool_merge, sort_kv, merge_kv, and the launches by kernel of
+    # pool_merge, sort_kv and ring_probe
+    pool = (*pool_counters()[:3], *pool_counters()[5:])
 
     t = time.time()
     # bench.py's synthetic SIFT1M stand-in: one cluster per 2000 rows
@@ -1612,6 +1860,7 @@ def main() -> int:
         torch, idx._engine.search_space, "fitted")}
     report["estimate_many"] = estimate_kernels(torch,
                                                idx._engine.search_space)
+    report["hop_cats"] = hop_cat_kernels(torch, idx._engine.search_space)
 
     t = time.time()
     xd = torch.as_tensor(ds.data, device=dev)
@@ -1694,12 +1943,26 @@ def main() -> int:
                 "differing_entries": report[name]["differing_entries"],
                 "launched_by": launched_by, **more}
 
-    by_route = {c.route: bsq8_pool[c.__name__] + raw_launches(c.__name__)
-                for c in merge_route_counters()}
-    if sum(by_route.values()) != bsq8_pool["pool_merge"] + raw_launches(
-            "pool_merge"):
-        raise AssertionError(f"pool_merge's launches by kernel {by_route} "
-                             f"do not add up to its launches")
+    def launches_by_route(fn, total, path_route):
+        """A wrapper's launches on the paths by kernel; they must add up to
+        its launches, and every path shape must take ``path_route``."""
+        by = {c.route: bsq8_pool[c.__name__] + raw_launches(c.__name__)
+              for c in route_counters(fn)}
+        if sum(by.values()) != total:
+            raise AssertionError(f"{fn.__name__}'s launches by kernel {by} "
+                                 f"do not add up to its {total} launches")
+        if path_route is not None and by[path_route] != total:
+            raise AssertionError(f"a path shape took {fn.__name__}'s other "
+                                 f"kernel: {by}")
+        return by
+
+    by_route = launches_by_route(
+        pool_merge, bsq8_pool["pool_merge"] + raw_launches("pool_merge"),
+        None)
+    sort_routes = launches_by_route(
+        sort_kv, bsq8_pool["sort_kv"] + raw_launches("sort_kv"), "warp")
+    probe_launches = hop_launches("ring_probe") + raw_launches("ring_probe")
+    probe_routes = launches_by_route(ring_probe, probe_launches, "hash")
     gather, fused = report["gather_diagdot"], report["gather_estimate"]
 
     def entries(rep):
@@ -1736,10 +1999,24 @@ def main() -> int:
          "variant": fused["variant"], "at": entries(fused),
          "kernels_per_estimate_many": report["estimate_many"][
              "kernels_per_call"]},
-        row("ring_probe", "alayalite_tpu_torch/csrc/ring_probe.cu",
-            "scripts/proto_pallas_sort2.py:105",
-            hop_launches("ring_probe") + raw_launches("ring_probe"),
-            report["ring_probe"]),
+        {**row("ring_probe", "alayalite_tpu_torch/csrc/ring_probe.cu",
+               "scripts/proto_pallas_sort2.py:105", probe_launches,
+               report["ring_probe"]),
+         "launched_by": "block_beam_search (pop ring and pool as two "
+                        "operands) and the raw beam's pop ring, every hop",
+         "kernel_route": report["ring_probe"]["route"],
+         "launches_by_route": probe_routes,
+         "hash_ms": report["ring_probe"]["hash_ms"],
+         "hash_ms_spin": report["ring_probe"]["hash_ms_spin"],
+         "scan_ms": report["ring_probe"]["scan_ms"],
+         "scan_ms_spin": report["ring_probe"]["scan_ms_spin"],
+         "scan_bound_ms": report["ring_probe"]["scan_bound_ms"],
+         "cat_kernels_per_block_hop": report["hop_cats"][
+             "cat_kernels_per_hop"],
+         "at": {shape: {k: rep[k] for k in (
+             "ms", "ms_spin", "hash_ms", "hash_ms_spin", "scan_ms",
+             "scan_ms_spin", "bound_ms", "bound_by", "scan_bound_ms")}
+             for shape, rep in report["ring_probe"]["at"].items()}},
         pool_row("sort_kv", "scripts/proto_pallas_sort.py:111",
                  "ops/topk.topk_smallest: the k best of a pool at the end of "
                  "every beam search and exact re-score, the prune's "
@@ -1747,9 +2024,15 @@ def main() -> int:
                  also_replaces=["scripts/proto_pallas_sort2.py:81",
                                 "scripts/proto_pallas_sort2.py:87",
                                 "scripts/proto_pallas_sort2.py:92"],
+                 kernel_route=report["sort_kv"]["route"],
+                 launches_by_route=sort_routes,
                  **{k: report["sort_kv"][k] for k in (
                      "columns_ms", "columns_ms_spin", "keys_only_ms",
-                     "keys_only_ms_spin")}),
+                     "keys_only_ms_spin", "network_ms", "network_ms_spin")},
+                 at={shape: {k: rep[k] for k in (
+                     "warp_ms", "warp_ms_spin", "network_ms",
+                     "network_ms_spin", "plain_ms", "library_ms", "bound_ms")}
+                     for shape, rep in report["sort_kv"]["at"].items()}),
         pool_row("merge_kv", "scripts/proto_pallas_sort.py:117",
                  "ops/distance.exact_topk: the per-tile [Q, k] + [Q, k] merge "
                  "of find_medoid, the overlay's exact kNN and the flat scan",

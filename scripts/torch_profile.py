@@ -25,8 +25,9 @@ then, on a flat index over the same rows:
     number of tiles, as a measure of the tile write inside the kernel.
 For each window it prints the wall time, the summed device-kernel time and
 its share of the wall (the rest is the device idle, waiting on the host),
-and the kernels with the most device time. Writes the tables to
-build/torch_profile.json. Needs a CUDA device.
+the kernels with the most device time, and every launch of the port's own
+kernels and of the concatenation kernel with its per-launch time. Writes
+the tables to build/torch_profile.json. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -41,6 +42,10 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, DIM, NQ, K = 1_000_000, 128, 8192, 10
 SELECT = ("topk", "TopK", "radix", "Radix", "sort", "Sort")
+# the port's own kernels (and the concatenation), listed in every window
+# with their launches and per-launch device time, in the top rows or not
+PORT = ("gather_rows_kernel", "pool_merge", "ring_probe", "sort_kv",
+        "merge_kv", "l2_tile", "sq8_tile", "diagdot", "CatArray")
 
 
 def trace(torch, name, fn, top=12) -> dict:
@@ -71,10 +76,16 @@ def trace(torch, name, fn, top=12) -> dict:
     for key, ms, count in rows[:top]:
         print(f"  {ms:9.3f} ms {100 * ms / max(dev_ms, 1e-9):5.1f}% "
               f"x{count:<6d} {key[:90]}", flush=True)
+    port = [{"name": k, "ms": m, "count": c, "ms_per_launch": m / c}
+            for k, m, c in rows if any(p in k for p in PORT)]
+    for r in port:
+        print(f"  port: {r['ms']:9.3f} ms x{r['count']:<6d} "
+              f"{r['ms_per_launch']:.4f} ms a launch  {r['name'][:70]}",
+              flush=True)
     return {"wall_ms": wall_ms, "device_ms": dev_ms,
             "kernels": [{"name": k, "ms": m, "count": c}
                         for k, m, c in rows[:top]],
-            "split": split(rows)}
+            "port_kernels": port, "split": split(rows)}
 
 
 def split(rows) -> dict:

@@ -25,7 +25,8 @@ from alayalite_tpu_torch.ops.pool_sort import (MAX_LIST, WARP_LIST,
                                                pool_merge, pool_merge_ref,
                                                pool_merge_route, roll_n,
                                                roll_n_ref, roll_n_route,
-                                               sort_kv, sort_kv_ref)
+                                               sort_kv, sort_kv_on,
+                                               sort_kv_ref, sort_kv_route)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = os.path.join(ROOT, "scripts")
@@ -172,6 +173,118 @@ def test_sort_ref_matches_proto_layouts(proto2, layout):
         sk, none = sort_kv_ref(torch.from_numpy(rows), axis=1)
     assert none is None
     np.testing.assert_array_equal(sk.numpy(), np.asarray(ko))
+
+
+def _monotone_i32(keys):
+    """The total order sort_kv sorts by, as an int32 whose signed order is
+    it: the key's bits made monotone, −0 == +0, every NaN after +inf."""
+    b = keys.view(np.uint32).copy()
+    b[np.isnan(keys)] = 0xFFFFFFFF
+    b[b == 0x80000000] = 0
+    nan = b == 0xFFFFFFFF
+    u = np.where(b & 0x80000000, ~b, b | 0x80000000)
+    u[nan] = 0xFFFFFFFF
+    return (u ^ np.uint32(0x80000000)).view(np.int32)
+
+
+# (K, k): NN-Descent's join ([rows, 32 + 148] -> 32) and the search's final
+# k ([rows, ef 64] -> 10)
+TOPK_PATHS = [(180, 32), (64, 10)]
+
+
+@pytest.mark.parametrize("path", TOPK_PATHS)
+def test_sort_ref_matches_proto_at_k_below_K(proto, path):
+    """The first k of sort_kv_ref (keys bit for bit, payloads, positions)
+    against scripts/proto_pallas_sort.py's sort_kernel in interpret mode on
+    keys with NaN, both zeros, +inf and ties. The prototype's network
+    compares floats, which leaves a NaN where it is, so it is handed the
+    order sort_kv sorts by (the monotone int32 of each key) with the
+    position as payload, the row padded to a power of two with the largest
+    key; its network is not stable, so runs of equal keys are put in
+    position order before the first k are taken."""
+    import jax
+    import jax.numpy as jnp
+
+    K, k = path
+    B, P = 64, 1 << (K - 1).bit_length()
+    rng = np.random.default_rng(K + k)
+    keys = _keys(rng, (B, K), True)
+    keys[rng.random((B, K)) < 0.15] = np.inf
+    keys[rng.random((B, K)) < 0.05] = np.nan
+    keys[:, :4] = (0.0, -0.0, np.nan, np.inf)
+    keys[:4, 4:12] = -0.0                       # ties across the k-th place
+    pay = rng.integers(-1, 1 << 30, size=(B, K)).astype(np.int32)
+    enc = np.full((B, P), np.iinfo(np.int32).max, np.int32)
+    enc[:, :K] = _monotone_i32(keys)
+    pos = np.broadcast_to(np.arange(P, dtype=np.int32), (B, P)).copy()
+    ko, po = proto.run("sort", proto.sort_kernel,
+                       (jax.ShapeDtypeStruct((B, P), jnp.int32),
+                        jax.ShapeDtypeStruct((B, P), jnp.int32)),
+                       jnp.asarray(enc), jnp.asarray(pos), grid_bt=32)
+    ko, po = np.asarray(ko), np.asarray(po)
+    assert (np.diff(ko, axis=1) >= 0).all()
+    order = np.lexsort((po, ko), axis=-1)        # ties by position
+    first = np.take_along_axis(po, order, -1)[:, :k].astype(np.int64)
+    sk, sp, idx = sort_kv_ref(torch.from_numpy(keys), torch.from_numpy(pay),
+                              k, 1, True)
+    np.testing.assert_array_equal(idx.numpy(), first)
+    rows = np.arange(B)[:, None]
+    np.testing.assert_array_equal(sk.numpy().view(np.int32),
+                                  keys[rows, first].view(np.int32))
+    np.testing.assert_array_equal(sp.numpy(), pay[rows, first])
+    assert np.isnan(keys).any() and np.signbit(sk.numpy()[:4, :k]).any()
+    got = sort_kv(torch.from_numpy(keys), torch.from_numpy(pay), k=k,
+                  return_index=True)
+    assert all(torch.equal(g.view(torch.int32) if g.dtype == torch.float32
+                           else g, w.view(torch.int32)
+                           if w.dtype == torch.float32 else w)
+               for g, w in zip(got, (sk, sp, idx)))
+
+
+def test_sort_kv_route_by_shape():
+    """Lists along rows up to WARP_LIST keys take the warp kernel: every
+    path shape (NN-Descent's 180, the search's pool of ef, the hop's 256
+    and the fusion index's 512); wider lists and lists along columns take
+    the shared-memory network."""
+    for K, _ in TOPK_PATHS:
+        assert sort_kv_route(K) == "warp"
+    for K in (1, 2, 32, 33, 100, 128, 200, 256, 320, WARP_LIST):
+        assert sort_kv_route(K) == sort_kv_route(K, 1) == "warp"
+    for K in (WARP_LIST + 1, 1000, MAX_LIST):
+        assert sort_kv_route(K) == "network"
+    for K in (1, 64, 256, WARP_LIST, 1000):
+        assert sort_kv_route(K, 0) == "network"
+    assert sort_kv_route(0) == "network"        # no list: nothing launches
+    assert sort_kv.route_launches.keys() == {"warp", "network"}
+
+
+def test_sort_kv_counts_no_launch_on_the_cpu():
+    rng = np.random.default_rng(2)
+    keys = torch.from_numpy(_keys(rng, (6, 180), True))
+    routes = dict(sort_kv.route_launches)
+    calls, launches = sort_kv.calls, sort_kv.launches
+    sort_kv(keys, k=32, return_index=True)
+    sort_kv(keys.T.contiguous(), k=32, axis=0)
+    assert (sort_kv.calls, sort_kv.launches) == (calls + 2, launches)
+    assert sort_kv.route_launches == routes
+    with pytest.raises(ValueError):
+        sort_kv_on("sideways", keys, None, 4)
+
+
+@pytest.mark.parametrize("route", ["warp", "network"])
+def test_sort_kv_launcher_counts_only_a_launch(route):
+    """``sort_kv_on`` counts where it launches: no lists, or k = 0, launch
+    nothing and count nothing."""
+    keys = torch.from_numpy(_keys(np.random.default_rng(3), (6, 180), True))
+    pay = torch.zeros((6, 180), dtype=torch.int32)
+    routes = dict(sort_kv.route_launches)
+    launches = sort_kv.launches
+    for x, p, k in ((keys[:0], pay[:0], 4), (keys, pay, 0), (keys, None, 0)):
+        ok, op, oi = sort_kv_on(route, x, p, k, 1, True)
+        assert ok.shape == oi.shape == (x.shape[0], k)
+        assert (op is None) == (p is None)
+    assert sort_kv.launches == launches
+    assert sort_kv.route_launches == routes
 
 
 def _roll_kernel_n():
@@ -536,3 +649,46 @@ def test_cuda_hop_merge_runs_the_kernel_and_no_torch_sort(monkeypatch):
                                                        launches[1] + 1)
     _equal(got, want, "merge_topk_dedup")
     _equal((vals, idx), (want_top[0], want_top[2]), "topk_smallest")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4096, 256, 256), (4096, 180, 32),
+                                   (4096, 64, 10), (333, 512, 512),
+                                   (333, 512, 7), (1000, 77, 77),
+                                   (1000, 33, 5), (7, 1, 1), (9, 2, 1),
+                                   (4097, 320, 100)])
+def test_cuda_sort_kv_warp_route_matches_network_and_plain(shape):
+    """The warp kernel against the shared-memory network and the plain
+    version, bit for bit (keys, payloads, positions), on keys with NaN, both
+    zeros, +inf and ties, with and without payload, on aligned rows and on
+    rows one word past a 16-byte boundary (no vector loads); the wrapper
+    counts the launch under "warp"."""
+    _need_cuda()
+    B, K, k = shape
+    rng = np.random.default_rng(B + K + k)
+    keys = _keys(rng, (B, K), True)
+    keys[rng.random((B, K)) < 0.2] = np.inf
+    keys[rng.random((B, K)) < 0.02] = np.nan
+    keys = torch.from_numpy(keys).cuda()
+    flat = torch.empty(keys.numel() + 1, dtype=torch.float32, device="cuda")
+    shifted = flat[1:].view(keys.shape).copy_(keys)
+    pay = torch.from_numpy(rng.integers(-1, 1 << 30, (B, K))
+                           .astype(np.int32)).cuda()
+    for p in (pay, None):
+        want = sort_kv_ref(keys, p, k, 1, True)
+        for x in (keys, shifted):
+            for route in ("warp", "network"):
+                before = dict(sort_kv.route_launches)
+                got = sort_kv_on(route, x, p, k, 1, True, counted=False)
+                torch.cuda.synchronize()
+                _equal(got, want, (shape, route, p is None))
+                assert sort_kv.route_launches == before
+    before = sort_kv.route_launches["network"]
+    _equal(sort_kv_on("network", keys, pay, k, 1, True),
+           sort_kv_ref(keys, pay, k, 1, True), shape)
+    assert sort_kv.route_launches["network"] == before + 1
+    assert sort_kv_route(K) == "warp"
+    before = sort_kv.route_launches["warp"]
+    _equal(sort_kv(keys, pay, k=k, return_index=True),
+           sort_kv_ref(keys, pay, k, 1, True), shape)
+    assert sort_kv.route_launches["warp"] == before + 1
