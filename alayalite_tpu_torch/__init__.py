@@ -2,7 +2,7 @@
 
 It covers the main path, ``hnsw`` + ``bsq8`` fit (QG build) and batch
 search, with the block estimate stage in a hand-written CUDA kernel
-(``csrc/diagdot.cu``); and the flat index (exact and fast scans, sq8 codes,
+(``csrc/gather_diagdot.cu``); and the flat index (exact and fast scans, sq8 codes,
 insert and remove), whose exact l2 scan runs the hand-written distance tile
 ``csrc/l2_tile.cu`` (``csrc/sq8_tile.cu`` is the tile against sq8 codes).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``. The package imports ``torch`` and numpy,

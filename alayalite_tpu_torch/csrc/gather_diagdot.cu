@@ -4,6 +4,12 @@
 //   out[b, m*R + r] = sum_d (codes[u[b, m], r, d] - 128) * qs[b, d]
 //   codes u8 [C, R, Dp], u i32 [B, M], qs bf16 [B, Dp] -> out f32 [B, M*R]
 //
+// and, as the rows entry with the identity gather (u[b, 0] = b, M = 1, C =
+// B, R = K), block_diagdot over code blocks already gathered:
+//
+//   out[b, k] = sum_d (codes[b, k, d] - 128) * qs[b, d]
+//   codes u8 [B, K, Dp], qs bf16 [B, Dp] -> out f32 [B, K]
+//
 // u is clamped into [0, C) here. With the estimate fused in (the second
 // output set), each entry also writes BQGSpace.estimate_many's two outputs:
 //
@@ -15,12 +21,15 @@
 // for the same dot the estimate equals the PyTorch epilogue bit for bit; a
 // -1 slot's xsq is inf, so its estimate is inf.
 //
-// Two entry points, one per TPU kernel replaced:
+// Three entry points, one per TPU kernel replaced:
 //   rows  scripts/proto_dma_gather.py:93 (dma_diagdot): every popped node's
 //         block is copied by DMA into scratch, then one product is taken;
 //   bulk  scripts/proto_dma_gather2.py:124 (dma2_diagdot): the same with the
-//         next tile's copies in flight while this tile computes.
-// Neither is carried over tile by tile. The TPU kernels batch 32 queries so
+//         next tile's copies in flight while this tile computes;
+//   block_diagdot  alayalite_tpu/ops/pallas_block.py:46 (_diagdot_kernel,
+//         launched through _diagdot_call): the product over blocks the
+//         caller gathered; here the rows kernel with no index to read.
+// None is carried over tile by tile. The TPU kernels batch 32 queries so
 // that their decoded blocks fill one MXU product whose block diagonal is
 // kept; on Hopper that product is wasted work and each row is a plain dot
 // on the CUDA cores.
@@ -36,12 +45,15 @@
 // The sq8 traversal's R = 1 shape (4096 x 256 pops of 128-byte rows) reads
 // 134.2 MB if every pop came from device memory, but over 100,000 rows its
 // distinct bytes are 12.8 MB (an L2-sized table): bound 0.0066 ms.
+// block_diagdot's bytes are all distinct: at (4096, 256, 128) 134.2 MB of
+// codes + 1.0 MB of qs + 4.2 MB of output, 0.0416 ms.
 //
-// Design. The old kernel ran a 256-thread block per (query, node): stage qs
-// in shared memory, barrier, one 16-byte load per thread, reduce. Each wave
-// of blocks paid two memory latencies back to back with 4 KB in flight per
-// block, and the sq8 traversal's one-row blocks (R = 1) left 248 of 256
-// threads idle. Here the unit of work is a code row:
+// Design. The old kernels (and block_diagdot's first kernel, a source of its
+// own) ran a 256-thread block per (query, node or 64-row tile):
+// stage qs in shared memory, barrier, one 16-byte load per thread per row,
+// reduce. Each wave of blocks paid two memory latencies back to back with
+// 4-16 KB in flight per block, and the sq8 traversal's one-row blocks (R =
+// 1) left 248 of 256 threads idle. Here the unit of work is a code row:
 //   rows  a CTA owns one query's M*R rows (or a slice). G = min(Dp/16, 16)
 //         lanes (a power of two) share a row, each lane always the same
 //         16-byte column slices, so its slice of qs[b] lives in registers,
@@ -244,7 +256,8 @@ __device__ __forceinline__ void byte_dots(const uint8_t* const (&row)[kU],
 }
 
 // ---- rows: grid (B, slices of M*R), groups of G lanes own kU consecutive
-// rows each
+// rows each; u == nullptr is the identity gather (node b, M = 1):
+// block_diagdot
 template <int kCPL, bool kFused>
 __global__ void __launch_bounds__(kThreads, kCPL == 8 ? 2 : 3)
 gather_rows_kernel(const uint8_t* __restrict__ codes,
@@ -274,7 +287,9 @@ gather_rows_kernel(const uint8_t* __restrict__ codes,
     xs[k] = 0.f;
     id[k] = -1;
     if (row0 + k < MR) {
-      const long long nr = clamp_node(__ldg(u + b * M + m), C) * R + r;
+      const long long node =
+          u != nullptr ? clamp_node(__ldg(u + b * M + m), C) : b;
+      const long long nr = node * R + r;
       row[k] = codes + nr * Dp;
       valid |= 1u << k;
       if (kFused && (k & (G - 1)) == gl) {
@@ -688,6 +703,15 @@ extern "C" int alaya_gather_diagdot_rows(
     float coef, int clamp, void* stream) {
   return entry<false>(codes, u, qs, out, C, B, M, R, Dp, vec, qconst, xsq,
                       nbr_ids, ids, coef, clamp, stream);
+}
+
+// block_diagdot: the rows entry with the identity gather, codes [B, K, Dp]
+// read as B nodes of K rows; vec: 16-byte loads of codes and qs
+extern "C" int alaya_block_diagdot(const void* codes, const void* qs,
+                                   void* out, long long B, long long K,
+                                   long long Dp, int vec, void* stream) {
+  return entry<false>(codes, nullptr, qs, out, B, B, 1, K, Dp, vec, nullptr,
+                      nullptr, nullptr, nullptr, 0.f, 0, stream);
 }
 
 // the same through TMA bulk copies; needs R*Dp % 16 == 0 and 16-byte aligned

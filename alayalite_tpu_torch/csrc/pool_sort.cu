@@ -1,13 +1,14 @@
 // pool_sort: the sort and merge of a beam search's candidate pool, written
-// for Hopper (sm_90a). Three functions over one compare-exchange, two of
-// them with a warp route beside the shared-memory network (roll_n, the
-// exchange's calibration, is in roll_n.cu):
+// for Hopper (sm_90a). Two functions over one compare-exchange, each with a
+// warp route beside the shared-memory network, and one merge without a
+// network (roll_n, the exchange's calibration, is in roll_n.cu):
 //
 //   sort_kv     each list of f32 keys ascending, with an optional i32 payload
 //               and the source positions; lists along rows [B, K] or along
 //               columns [K, B] (strides); the first kout entries are written
 //   merge_kv    two ascending lists [B, L1], [B, L2] with i32 payloads ->
-//               the first kout entries of the ascending merge
+//               the first kout entries of the ascending merge (a merge path:
+//               a co-rank search per output, see its note below)
 //   pool_merge  the hop's whole merge in one launch: the concatenation
 //               [B, L1] ‖ [B, L2] of (distance, id, flag) sorted ascending,
 //               the first kout kept, the later of two adjacent equal
@@ -23,7 +24,8 @@
 // pool_merge, the one that runs in every hop, and sort_kv along rows keep
 // each list in one warp's registers instead (the warp routes below) and use
 // the shared-memory network only for lists longer than a warp holds (and
-// sort_kv for lists along columns).
+// sort_kv for lists along columns). A merge of two sorted lists needs no
+// network at all: merge_kv finds each output's place by binary search.
 //
 // The order is total. Every entry is one 64-bit word: the key's bits made
 // monotone (-0 and +0 equal, NaN after +inf) in the high half, the entry's
@@ -122,17 +124,6 @@ __device__ void bitonic_sort(u64* s, int P, int lane, int T) {
   __syncthreads();
 }
 
-// Bitonic merge of s[0, P) ascending: s rises and then falls on entry.
-__device__ void bitonic_merge(u64* s, int P, int lane, int T) {
-  int j_before = 64;
-  for (int j = P >> 1; j > 0; j >>= 1) {
-    stage_fence(j_before, j);
-    stage(s, P, lane, T, j, P);
-    j_before = j;
-  }
-  __syncthreads();
-}
-
 struct Slot {
   u64* s;        // this list's words
   long long b;   // list index
@@ -183,36 +174,82 @@ sort_kv_kernel(const float* __restrict__ keys, const int* __restrict__ pay,
   }
 }
 
-__global__ void __launch_bounds__(kBlock)
+// ------------------------------------------------------------------------
+// merge_kv: a merge path, one co-rank search per output; no network.
+//
+// Output o of a row is the o-th word of the merge of a's words compose(a[i],
+// i) and b's words compose(b[j], L1 + j): the words the network sorts. If
+// i of the first o outputs come from a, the other o - i from b, then i is the
+// least index in [max(0, o - L2), min(o, L1)] whose word in a is not below
+// b's word o - i - 1 (the co-rank of o), and output o is the smaller of a's
+// word i and b's word o - i. A binary search finds i in ceil(log2(range +
+// 1)) probes, each reading one key of each list straight from device memory
+// through the L1 cache (a row's keys are a few lines that every lane of the
+// row probes). A word of a and a word of b never tie, and a's position half
+// is the lower, so comparing the two is comparing their keys in the words'
+// order with a first among equal keys: x <= y or y is NaN (IEEE's <= already
+// makes -0 equal to +0; a NaN key sorts after +inf), two float compares
+// where the monotone bits cost a dozen instructions a probe. The key and
+// payload are copied from the input at the chosen position, so their bits
+// pass through untouched: bit for bit what the stable sort of the
+// concatenation returns (merge_kv_ref), given that both operands ascend in
+// word order (not checked).
+//
+// Mapping: G = min(128, pow2(kout)) lanes a row: one output a lane where
+// kout <= 128 (the four warps of a 64 + 64 -> 128 row search at once), 32 /
+// G rows a warp where kout <= 16 (the exact scan's 10 + 10 -> 10: two rows;
+// find_medoid's 1 + 1 -> 1: thirty-two); lane l of a row finds and writes
+// outputs l, l + G, ..., so stores are coalesced. No shared memory, no
+// barrier, no padding to a power of two; any width the wrapper takes.
+//
+// Bound: the bytes (each key and payload read once, each output written
+// once: 8.4 MB at [4096, 64 + 64] -> 128, 2.5 us at 3.35 TB/s). The network
+// this replaces padded the two lists to a power of two and ran log2(P)
+// shared-memory stages behind barriers; here a row's work is its lanes'
+// searches, log2(L) dependent L1 reads each. Measured forms of the same
+// search (scripts/torch_sort_ab.py): one warp a row, and one search a lane
+// followed by a merge of its chunk of outputs one by one.
+
+constexpr int kMergeBlock = 256;
+constexpr int kMergeLanes = 128;   // most lanes a row
+
+// a's key x comes before b's key y in the merge
+__device__ __forceinline__ bool a_first(float x, float y) {
+  return x <= y || isnan(y);
+}
+
+__global__ void __launch_bounds__(kMergeBlock)
 merge_kv_kernel(const float* __restrict__ ka, const int* __restrict__ pa,
                 const float* __restrict__ kb, const int* __restrict__ pb,
                 float* __restrict__ okeys, int* __restrict__ opay,
-                long long B, int L1, int L2, int kout, int P, int T) {
-  extern __shared__ u64 smem[];
-  const Slot sl = slot_of(smem, B, P, T);
-  const float* a = ka + sl.b * L1;
-  const float* b = kb + sl.b * L2;
-  // a rising, padding rising, b reversed: the words rise and then fall
-  for (int idx = sl.lane; idx < P; idx += T) {
-    u64 w = kPadHi | static_cast<uint32_t>(L2 + idx);
-    if (sl.active && idx < L1) {
-      w = compose(__ldg(a + idx), idx);
-    } else if (sl.active && idx >= P - L2) {
-      const int j = P - 1 - idx;
-      w = compose(__ldg(b + j), L1 + j);
+                long long B, int L1, int L2, int kout, int lg_g) {
+  const long long t =
+      static_cast<long long>(blockIdx.x) * kMergeBlock + threadIdx.x;
+  const long long row = t >> lg_g;
+  if (row >= B) {
+    return;  // no lane waits on another: nothing is exchanged
+  }
+  const int G = 1 << lg_g;
+  const float* a = ka + row * L1;
+  const float* b = kb + row * L2;
+  for (int o = static_cast<int>(t & (G - 1)); o < kout; o += G) {
+    int lo = o > L2 ? o - L2 : 0;
+    int hi = o < L1 ? o : L1;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (a_first(__ldg(a + mid), __ldg(b + o - mid - 1))) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
     }
-    sl.s[idx] = w;
-  }
-  bitonic_merge(sl.s, P, sl.lane, T);
-  if (!sl.active) {
-    return;
-  }
-  for (int o = sl.lane; o < kout; o += T) {
-    const int pos = position(sl.s[o]);
-    const bool first = pos < L1;
-    okeys[sl.b * kout + o] = first ? __ldg(a + pos) : __ldg(b + pos - L1);
-    opay[sl.b * kout + o] = first ? __ldg(pa + sl.b * L1 + pos)
-                                  : __ldg(pb + sl.b * L2 + pos - L1);
+    const int j = o - lo;
+    const float x = lo < L1 ? __ldg(a + lo) : 0.f;
+    const float y = j < L2 ? __ldg(b + j) : 0.f;
+    const bool from_a = lo < L1 && (j >= L2 || a_first(x, y));
+    okeys[row * kout + o] = from_a ? x : y;
+    opay[row * kout + o] = from_a ? __ldg(pa + row * L1 + lo)
+                                  : __ldg(pb + row * L2 + j);
   }
 }
 
@@ -323,72 +360,39 @@ constexpr u64 kPadWord = ~0ull;
 constexpr int kWarpRoute = 512;   // longest list (and pow2(kout)) in a warp
 constexpr int kWarpBlock = 128;   // four lists per block
 
-// One stage (partner distance j, bitonic block size) of the warp's sort.
-// kLean (sort_kv's warp route) writes the same exchange in fewer
-// instructions: the direction of a shuffle stage is the lane's alone (size >
-// j >= R, so r never carries into the size bit), and one 64-bit compare
-// decides the exchange (the words differ, and two equal pads are the same
-// either way). pool_merge keeps the first form for now, so that its code
-// and times stay as they were measured; the lean form gives it the same
-// bits (scripts/torch_sort_ab.py --lean-pool-merge), and once it is
-// switched over the first form and kLean go.
-template <int R, bool kLean = false>
+// One stage (partner distance j, bitonic block size) of the warp's sort. A
+// shuffle stage (j >= R) takes its direction from the lane alone: size > j
+// >= R, so r never carries into the size bit. One 64-bit compare decides an
+// exchange: the words differ, and two equal pads are the same either way.
+template <int R>
 __device__ __forceinline__ void warp_stage(u64 (&w)[R], int lane, int size,
                                            int j) {
-  if constexpr (kLean) {
-    if (j >= R) {
-      const int lj = j / R;
-      const bool keep_min = ((lane & lj) == 0) == (((lane * R) & size) == 0);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const u64 other = __shfl_xor_sync(0xffffffffu, w[r], lj);
-        w[r] = ((other < w[r]) == keep_min) ? other : w[r];
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if ((r & j) == 0) {
-          const bool up = size >= R ? ((lane * R) & size) == 0
-                                    : (r & size) == 0;
-          const u64 a = w[r];
-          const u64 b = w[r | j];
-          const bool swap = (a > b) == up;
-          w[r] = swap ? b : a;
-          w[r | j] = swap ? a : b;
-        }
-      }
-    }
-    return;
-  }
   if (j >= R) {
     const int lj = j / R;
-    const bool lower = (lane & lj) == 0;
+    const bool keep_min = ((lane & lj) == 0) == (((lane * R) & size) == 0);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const bool up = ((lane * R + r) & size) == 0;
       const u64 other = __shfl_xor_sync(0xffffffffu, w[r], lj);
-      const bool keep_min = lower == up;
-      const bool take = keep_min ? other < w[r] : other > w[r];
-      w[r] = take ? other : w[r];
+      w[r] = ((other < w[r]) == keep_min) ? other : w[r];
     }
   } else {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if ((r & j) == 0) {
-        const bool up = ((lane * R + r) & size) == 0;
+        const bool up = size >= R ? ((lane * R) & size) == 0
+                                  : (r & size) == 0;
         const u64 a = w[r];
         const u64 b = w[r | j];
-        if ((a > b) == up) {
-          w[r] = b;
-          w[r | j] = a;
-        }
+        const bool swap = (a > b) == up;
+        w[r] = swap ? b : a;
+        w[r | j] = swap ? a : b;
       }
     }
   }
 }
 
 // bitonic sort of the warp's 32 R words, ascending
-template <int R, bool kLean = false>
+template <int R>
 __device__ __forceinline__ void warp_sort(u64 (&w)[R], int lane) {
   constexpr int kLog = (R >= 32 ? 5 : R >= 16 ? 4 : R >= 8 ? 3
                         : R >= 4 ? 2 : R >= 2 ? 1 : 0) + 5;
@@ -396,7 +400,7 @@ __device__ __forceinline__ void warp_sort(u64 (&w)[R], int lane) {
   for (int ls = 1; ls <= kLog; ++ls) {
 #pragma unroll
     for (int lj = ls - 1; lj >= 0; --lj) {
-      warp_stage<R, kLean>(w, lane, 1 << ls, 1 << lj);
+      warp_stage<R>(w, lane, 1 << ls, 1 << lj);
     }
   }
 }
@@ -568,8 +572,8 @@ pool_merge_warp_kernel(const float* __restrict__ d1, const int* __restrict__ i1,
 //
 // One warp per list, its P = 32 R words in registers (lane l holds words
 // l R .. l R + R - 1), sorted by warp_sort<R>, the network pool_merge's
-// warp route runs, in its lean form: stages of distance < R inside a lane's
-// registers, wider ones by __shfl_xor_sync; no barrier. The words are the
+// warp route runs: stages of distance < R inside a lane's registers, wider
+// ones by __shfl_xor_sync; no barrier. The words are the
 // same as the network's (compose: monotone key bits, position), so the
 // first kout come out as the stable sort's, bit for bit what
 // sort_kv_kernel above returns. A lane loads its R consecutive keys as
@@ -626,7 +630,7 @@ sort_kv_warp_kernel(const float* __restrict__ keys, const int* __restrict__ pay,
       w[r] = idx < K ? compose(__ldg(row + idx), idx) : kPadWord;
     }
   }
-  warp_sort<R, true>(w, lane);
+  warp_sort<R>(w, lane);
   // the sorted positions through shared memory, so that lane l writes
   // outputs l, l + 32, ...: coalesced stores (a row of R + 1 words a lane
   // keeps the writes free of bank conflicts)
@@ -752,17 +756,21 @@ extern "C" int alaya_merge_kv(const void* ka, const void* pa, const void* kb,
   if (B == 0 || kout == 0) {
     return 0;
   }
-  const Plan p = plan_for(B, static_cast<long long>(L1) + L2);
-  cudaError_t err = allow_smem(merge_kv_kernel, p.smem);
-  if (err != cudaSuccess) {
-    return static_cast<int>(err);
+  if (kout > L1 + L2) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  merge_kv_kernel<<<p.grid, kBlock, p.smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  int lg_g = 0;  // G = min(kMergeLanes, pow2(kout)) lanes a row
+  while ((1 << lg_g) < kMergeLanes && (1 << lg_g) < kout) {
+    ++lg_g;
+  }
+  const long long threads = B << lg_g;
+  merge_kv_kernel<<<static_cast<unsigned>((threads + kMergeBlock - 1) /
+                                          kMergeBlock),
+                    kMergeBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ka), static_cast<const int*>(pa),
       static_cast<const float*>(kb), static_cast<const int*>(pb),
       static_cast<float*>(okeys), static_cast<int*>(opay), B, L1, L2, kout,
-      p.P, p.T);
+      lg_g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,17 +5,20 @@
     dot[b, k] = sum_d (codes[b, k, d] - 128) * qs[b, d]
     codes u8 [B, K, Dp], qs bf16 [B, Dp] -> f32 [B, K]
 
-On a CUDA tensor ``block_diagdot`` launches the hand-written kernel
-``csrc/diagdot.cu`` (sm_90a, built with nvcc on first use, see ``_build``),
+On a CUDA tensor ``block_diagdot`` launches the hand-written kernel, the
+entry ``alaya_block_diagdot`` of ``csrc/gather_diagdot.cu``: the rows kernel
+of ``gather_diagdot`` with the identity gather (node b, one block a query),
+so no index is read (sm_90a, built with nvcc on first use, see ``_build``),
 or raises. On a CPU tensor it runs the plain PyTorch version
 ``block_diagdot_ref``. There is no other route and no fallback.
 
 Replaces the TPU kernel ``alayalite_tpu/ops/pallas_block.py:46``
 (``_diagdot_kernel`` via ``_diagdot_call``/``block_diagdot``). Unlike that
 wrapper, which takes the kernel only for D % 128 == 0, B % 32 == 0 and
-K % 8 == 0, this one takes any B, K and Dp. The kernel is bound by memory:
-at the main-path shape (4096, 256, 128) it must move ~139.5 MB, ~42 us at
-3.35 TB/s on an H100 (see the note in the source).
+K % 8 == 0, this one takes any B, K and Dp (byte loads where Dp % 16 != 0
+or ``codes`` or ``qs`` is not 16-byte aligned). The kernel is bound by
+memory: at the main-path shape (4096, 256, 128) it must move ~139.5 MB,
+~42 us at 3.35 TB/s on an H100 (see the note in the source).
 
 ``block_diagdot.calls`` counts calls on any device;
 ``block_diagdot.launches`` counts CUDA kernel launches and nothing else.
@@ -27,7 +30,6 @@ import ctypes
 
 import torch
 
-_MAX_SMEM = 227 * 1024  # dynamic shared memory one block may use on sm_90
 _REF_CHUNK = 256        # rows of B per step of the plain version
 
 
@@ -58,15 +60,14 @@ def _check(codes: torch.Tensor, qs: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {codes.device}")
     if not (codes.is_contiguous() and qs.is_contiguous()):
         raise ValueError("codes and qs must be contiguous")
-    if Dp * 4 > _MAX_SMEM:
-        raise ValueError(f"Dp={Dp} exceeds the kernel's shared-memory stage")
 
 
 def _kernel():
-    """The C entry point of csrc/diagdot.cu (built and loaded on first use)."""
+    """The C entry point ``alaya_block_diagdot`` of csrc/gather_diagdot.cu
+    (built and loaded on first use)."""
     from ._build import entry
 
-    return entry("diagdot", "alaya_block_diagdot",
+    return entry("gather_diagdot", "alaya_block_diagdot",
                  [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
                   ctypes.c_int])
@@ -75,6 +76,7 @@ def _kernel():
 def block_diagdot(codes: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     """dot[b, k] = sum_d (codes[b,k,d] - 128) * qs[b,d], f32 [B, K]."""
     from ._build import launch
+    from .gather_diagdot import _vec
 
     _check(codes, qs)
     block_diagdot.calls += 1
@@ -82,9 +84,8 @@ def block_diagdot(codes: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
         return block_diagdot_ref(codes, qs)
     B, K, Dp = codes.shape
     out = torch.empty((B, K), dtype=torch.float32, device=codes.device)
-    vec = int(Dp % 16 == 0 and codes.data_ptr() % 16 == 0)
     launch(_kernel(), codes.device, codes.data_ptr(), qs.data_ptr(),
-           out.data_ptr(), B, K, Dp, vec)
+           out.data_ptr(), B, K, Dp, int(_vec(codes, qs)))
     block_diagdot.launches += 1
     return out
 

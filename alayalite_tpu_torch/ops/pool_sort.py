@@ -31,7 +31,8 @@ Replaces the TPU kernels ``scripts/proto_pallas_sort.py:111`` and ``:117``
 ``:87``, ``:92`` (the sort along columns, and without payload along columns
 and rows) and ``scripts/opt_hop2.py:120`` (``roll_kernel_n``). The kernels
 are bound by memory on paper (a [4096, 64 + 256] merge moves 6.6 MB).
-``merge_kv`` runs its stages in shared memory; ``pool_merge`` and
+``merge_kv`` is a merge path: each output finds its place in the two lists
+by a binary search (its co-rank), with no network; ``pool_merge`` and
 ``sort_kv`` (lists along rows) keep each list in one warp's registers and
 exchange words by shuffles, up to ``WARP_LIST`` words a list, and sort
 longer ones (and ``sort_kv`` lists along columns) in shared memory;

@@ -7,7 +7,9 @@ the script exits non-zero:
   2. build     every CUDA source of the port, one nvcc each, in parallel,
                each one's seconds and compiler warnings logged; sq8_tile's
                SASS must hold HGMMA (cuobjdump -sass);
-  3. kernels   block_diagdot, gather_diagdot (its rows and bulk entries,
+  3. kernels   block_diagdot (gather_diagdot.cu's rows kernel with no index
+               to read; also one query, K of 13, Dp 40 and 96, qs or codes
+               off a 16-byte boundary), gather_diagdot (its rows and bulk entries,
                at the hop's shape, the sq8 traversal's R = 1, Dp % 16 != 0;
                bulk must raise where it does not take the codes),
                gather_estimate (the same entries with estimate_many's
@@ -32,7 +34,10 @@ the script exits non-zero:
                its warp route and its network, both bit for bit and timed
                at [4096, 256] with a payload, NN-Descent's 180 -> 32 and
                the search's 64 -> 10, keys with NaN, both zeros, +inf),
-               merge_kv, pool_merge (the hop's merge_topk_dedup, on ties,
+               merge_kv (a merge path, on NaN, both zeros, +-inf and ties
+               across the operands; timed at 64 + 64 and at the paths'
+               10 + 10 -> 10, 40 + 40 -> 40 and 1 + 1 -> 1 beside an empty
+               kernel's event span), pool_merge (the hop's merge_topk_dedup, on ties,
                duplicates, +inf / -1 slots, both zeros, negative keys, and
                on pools with dedup's holes, which are not ascending; both
                of its kernels, the warp route and the shared-memory network
@@ -114,9 +119,9 @@ Then the flat path runs on the same data:
                exact search of the 8192 queries, k = 10: recall@10 against
                the ground truth of phase 5 (fails below 0.999), returned
                distances against direct f32 distances, wall QPS, l2_tile
-               launches (fails at 0);
+               and merge_kv launches (fails at 0);
   9. fast      a flat index with flat_mode="fast": recall@10 (fails below
-               0.99), wall QPS;
+               0.99), wall QPS, merge_kv launches (fails at 0);
  10. upkeep    remove 10,000 ids and search again (none may come back);
                insert 1,000 new rows (each must be its own top-1);
  11. sq8       sq8_tile on the flat index's fitted codes (the first 65,536
@@ -152,6 +157,10 @@ RAW_FLOORS = {"hnsw_1m": {32: 0.75, 64: 0.91, 128: 0.965},   # prune_alpha 1.0
 FLAT_EXACT_FLOOR, FLAT_FAST_FLOOR = 0.999, 0.99
 MAIN_SHAPE = (4096, 256, 128)        # search qchunk / build pool chunk x M*R x Dp
 CHECK_SHAPES = (MAIN_SHAPE, (1000, 200, 96), (333, 77, 40))
+# block_diagdot's odd shapes: one query, K not a multiple of a group's 8
+# rows, Dp 40 and 96 (byte loads), each also with qs and with codes one
+# element past a 16-byte boundary (byte loads at any Dp)
+DIAGDOT_ODD = ((1, 256, 128), (7, 13, 128), (333, 77, 96), (1, 5, 40))
 L2_MAIN = (4096, 16384, 128)         # flat exact scan: qchunk x tile_n x D
 SQ8_MAIN = (4096, 65536, 128)        # distance-tile bench shape
 TILE_SHAPES = {"l2_tile": (L2_MAIN, SQ8_MAIN, (1000, 3000, 96),
@@ -189,7 +198,14 @@ SORT_RAGGED = ((1, 1), (333, 77), (1000, 200), (333, 320), (1, 200),
 # 32) and the search's final k (ef 64 -> 10), keys only with positions
 SORT_PATHS = ((4096, 256, 256, True), (4096, 180, 32, False),
               (4096, 64, 10, False))
-MERGE_SHAPES = ((4096, 64, 64), (4096, 32, 32))     # B, L1, L2 (ascending)
+# merge_kv (B, L1, L2, k; ascending operands) timed: 64 + 64 and the paths'
+# shapes, the exact flat scan's 10 + 10 -> 10 and the fast scan's coarse
+# 40 + 40 -> 40 (4096-query slices), find_medoid's 1 + 1 -> 1; then shapes
+# only checked
+MERGE_TIMED = ((4096, 64, 64, 128), (4096, 10, 10, 10), (4096, 40, 40, 40),
+               (1, 1, 1, 1))
+MERGE_RAGGED = ((4096, 32, 32, 64), (333, 10, 100, 10), (1000, 100, 77, 177),
+                (1, 1, 200, 1), (333, 7, 0, 7))
 POOL_MAIN = (4096, 64, 256)                         # B, pool ef, M*R
 # every (B, ef, M*R) the hops launch, k = ef: the searches at ef 32, 64,
 # 128 and the build pools (ef 128) of both graph paths, and the fusion
@@ -211,30 +227,47 @@ def tolerance(want) -> float:
     return 1e-4 * float(want.abs().max()) + 1e-3
 
 
+def _shifted(torch, t):
+    """A contiguous copy of ``t`` one element past its allocation's start,
+    so that its base is not 16-byte aligned."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return flat[1:].view(t.shape).copy_(t)
+
+
 def check_diagdot(torch, dev) -> dict:
+    """block_diagdot (gather_diagdot.cu's rows kernel with the identity
+    gather) against its plain version at every CHECK_SHAPES entry and at
+    the odd shapes, aligned and not; times at the main shape."""
     from alayalite_tpu_torch.ops.diagdot import block_diagdot, block_diagdot_ref
     from alayalite_tpu_torch.utils.timing import bound, cuda_ms
 
     result = {}
     rng = np.random.default_rng(0)
-    for shape in CHECK_SHAPES:
+    for shape in (*CHECK_SHAPES, *DIAGDOT_ODD):
         B, Kr, Dp = shape
         codes = torch.as_tensor(rng.integers(0, 256, size=shape,
                                              dtype=np.uint8), device=dev)
         qs = torch.as_tensor(rng.normal(size=(B, Dp)).astype(np.float32),
                              device=dev).to(torch.bfloat16)
-        got = block_diagdot(codes, qs)
-        torch.cuda.synchronize()
+        cases = {"aligned": (codes, qs)}
+        if shape in DIAGDOT_ODD:
+            cases.update({"qs unaligned": (codes, _shifted(torch, qs)),
+                          "codes unaligned": (_shifted(torch, codes), qs)})
         want = block_diagdot_ref(codes, qs)
-        err = float((got - want).abs().max())
         tol = 1e-3 * float(want.abs().max()) + 1e-3
-        log(f"kernel block_diagdot {shape}: max_abs_err={err:.3e} "
-            f"(tol {tol:.3e})")
-        if not err <= tol:
-            raise AssertionError(f"block_diagdot disagrees at {shape}: "
-                                 f"{err} > {tol}")
+        errs = {}
+        for what, (c, q) in cases.items():
+            got = block_diagdot(c, q)
+            torch.cuda.synchronize()
+            err = errs[what] = float((got - want).abs().max())
+            log(f"kernel block_diagdot {shape} {what}: max_abs_err={err:.3e} "
+                f"(tol {tol:.3e})")
+            if not err <= tol:
+                raise AssertionError(f"block_diagdot disagrees at {shape} "
+                                     f"({what}): {err} > {tol}")
         if shape != MAIN_SHAPE:
             continue
+        err = errs["aligned"]
         ms = cuda_ms(lambda: block_diagdot(codes, qs))
         ms_spin = cuda_ms(lambda: block_diagdot(codes, qs), spin=True)
         plain_ms = cuda_ms(lambda: block_diagdot_ref(codes, qs))
@@ -966,42 +999,63 @@ def check_pool_sort(torch, dev) -> dict:
     out["sort_kv"].update(network_ms=main["network_ms"],
                           network_ms_spin=main["network_ms_spin"])
 
-    # ---- merge_kv (ascending operands)
-    out["merge_kv"] = {}
-    for B, L1, L2 in (*MERGE_SHAPES, (333, 10, 100), (1000, 100, 77),
-                      (1, 1, 200)):
-        args = _pool_rows(torch, rng, B, L1, L2, dev)
-        a = sort_kv_ref(args[0], args[1])
-        b = sort_kv_ref(args[3], args[4])
-        for k in (L1 + L2, max(1, L1)):
-            got = merge_kv(*a, *b, k)
+    # ---- merge_kv (ascending operands; keys with NaN, both zeros, +-inf
+    # and ties within and across the operands), bit for bit at every shape
+    # and k; timed at MERGE_TIMED beside an empty kernel's event span (one
+    # fill of 16 floats), the floor of every spin time
+    tiny = torch.zeros(16, device=dev)
+    empty = cuda_ms(lambda: tiny.zero_(), spin=True)
+    out["merge_kv"] = {"at": {}, "empty_kernel_ms_spin": empty}
+    for B, L1, L2, k in (*MERGE_TIMED, *MERGE_RAGGED):
+        lists = []
+        for L in (L1, L2):
+            keys = sort_keys(B, L)
+            keys[torch.rand(keys.shape, device=dev) < 0.05] = -np.inf
+            pay = torch.as_tensor(rng.integers(-1, 1 << 30, size=(B, L))
+                                  .astype(np.int32), device=dev)
+            lists.append(sort_kv_ref(keys, pay))
+        a, b = lists
+        for kk in sorted({k, L1 + L2, max(1, L1)}):
+            got = merge_kv(*a, *b, kk)
             torch.cuda.synchronize()
             if not all(_same_bits(g, w)
-                       for g, w in zip(got, merge_kv_ref(*a, *b, k))):
-                fail("merge_kv", (B, L1, L2, k))
+                       for g, w in zip(got, merge_kv_ref(*a, *b, kk))):
+                fail("merge_kv", (B, L1, L2, kk))
         log(f"kernel merge_kv {(B, L1, L2)}: equals the plain version bit "
-            f"for bit")
-        if (B, L1, L2) not in MERGE_SHAPES:
+            f"for bit at k = {sorted({k, L1 + L2, max(1, L1)})}")
+        if (B, L1, L2, k) not in MERGE_TIMED:
             continue
         cat_d, cat_p = torch.cat([a[0], b[0]], 1), torch.cat([a[1], b[1]], 1)
 
-        def library(cat_d=cat_d, cat_p=cat_p):
+        def library(cat_d=cat_d, cat_p=cat_p, k=k):
             sd, order = torch.sort(cat_d, dim=1, stable=True)
-            return sd, torch.gather(cat_p, 1, order)
+            return sd[:, :k], torch.gather(cat_p, 1, order[:, :k])
 
-        k = L1 + L2
-        p = 1 << (k - 1).bit_length()
-        ops = B * (p // 2) * (p.bit_length() - 1)
-        rep = timed(lambda: merge_kv(*a, *b, k),
-                    lambda: merge_kv_ref(*a, *b, k), library,
-                    2 * B * k * 8, ops, (B, L1, L2), compare_exchanges=ops)
-        out["merge_kv"][f"{L1}+{L2}"] = rep
-        log(f"kernel merge_kv {(B, L1, L2)}: {rep['ms']:.4f} ms "
-            f"({rep['ms_spin']:.4f} device alone), plain "
-            f"{rep['plain_ms']:.4f} ms, library sort + gather "
-            f"{rep['library_ms']:.4f} ms, bound {rep['bound_ms']:.4f} ms "
-            f"({rep['bound_by']})")
-    out["merge_kv"].update(out["merge_kv"]["64+64"])
+        # bytes: both lists' keys (the co-rank searches read them), the k
+        # payloads taken, k keys and payloads written; operations: a compare
+        # per probe, ceil(log2(min(L1, L2) + 1)) + 1 probes an output
+        probes = min(L1, L2).bit_length() + 1
+        rep = timed(lambda a=a, b=b, k=k: merge_kv(*a, *b, k),
+                    lambda a=a, b=b, k=k: merge_kv_ref(*a, *b, k), library,
+                    B * (L1 + L2) * 4 + B * k * 12, B * k * probes,
+                    (B, L1, L2), k=k, empty_kernel_ms_spin=empty,
+                    compares=B * k * probes)
+        rep["spin_over_empty_kernel"] = rep["ms_spin"] / empty
+        # one copy_ of the outputs' bytes (k keys and payloads a row, read
+        # once and written once): what moving them alone reads in this span
+        src = torch.empty(2 * B * k, dtype=torch.float32, device=dev)
+        dst = torch.empty_like(src)
+        rep["copy_ms_spin"] = cuda_ms(lambda: dst.copy_(src), spin=True)
+        del src, dst
+        out["merge_kv"]["at"][f"{L1}+{L2}->{k}"] = rep
+        log(f"kernel merge_kv {(B, L1, L2)} -> {k}: {rep['ms']:.4f} ms "
+            f"({rep['ms_spin']:.4f} device alone, "
+            f"{rep['spin_over_empty_kernel']:.2f}x an empty kernel's "
+            f"{empty:.4f}; a copy of the outputs' bytes "
+            f"{rep['copy_ms_spin']:.4f}), plain {rep['plain_ms']:.4f} ms, library sort + "
+            f"gather {rep['library_ms']:.4f} ms, bound {rep['bound_ms']:.4f} "
+            f"ms ({rep['bound_by']})")
+    out["merge_kv"].update(out["merge_kv"]["at"]["64+64->128"])
 
     # ---- pool_merge: merge_topk_dedup, merge_topk_with_flags, merge_topk;
     # pools ascending with an empty tail, and pools with dedup's holes
@@ -1655,6 +1709,7 @@ def flat_phases(torch, dev, ds, gt) -> dict:
     inserts, sq8_tile on the fitted codes."""
     from alayalite_tpu_torch import Client
     from alayalite_tpu_torch.ops.l2_tile import l2_tile
+    from alayalite_tpu_torch.ops.pool_sort import merge_kv
     from alayalite_tpu_torch.ops.sq8_tile import sq8_tile, sq8_tile_ref
     from alayalite_tpu_torch.utils.evaluate import calc_recall
 
@@ -1669,7 +1724,7 @@ def flat_phases(torch, dev, ds, gt) -> dict:
     torch.cuda.synchronize()
     rep["fit_s"] = time.time() - t
     ids, dist, wall, launches = timed_search(torch, idx, ds.queries, K,
-                                             (l2_tile,))
+                                             (l2_tile, merge_kv))
     check_result(ids, dist, N, "flat exact")
     rec = calc_recall(ids, gt)
     # direct f32 distances of the returned ids. The index's expansion
@@ -1688,29 +1743,35 @@ def flat_phases(torch, dev, ds, gt) -> dict:
     del rows, ref, ulps, err
     rep["exact"] = {"recall": rec, "qps": NQ / wall, "wall_s": wall,
                     "l2_tile_launches": launches["l2_tile"],
+                    "merge_kv_launches": launches["merge_kv"],
                     "distance_mismatches": bad,
                     "worst_error_in_eps_of_norms": worst}
     log(f"flat exact: fit {rep['fit_s']:.2f}s, recall@10 {rec:.5f}, "
         f"{NQ / wall:.1f} QPS (wall {wall:.3f}s), l2_tile launches "
-        f"{launches['l2_tile']}, distance mismatches {bad} (worst error "
+        f"{launches['l2_tile']}, merge_kv launches {launches['merge_kv']}, "
+        f"distance mismatches {bad} (worst error "
         f"{worst:.2f} eps·(|q|² + |x|²))")
-    if launches["l2_tile"] <= 0:
-        raise AssertionError("the flat exact search launched l2_tile no time")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the flat exact search launched a kernel no "
+                             f"time: {launches}")
     if rec < FLAT_EXACT_FLOOR or bad:
         raise AssertionError("flat exact search is not exact")
 
     fast = client.create_index("flat_fast", index_type="flat",
                                flat_mode="fast", capacity=N)
     fast.fit(ds.data)
-    ids_f, dist_f, wall_f, _ = timed_search(torch, fast, ds.queries, K, ())
+    ids_f, dist_f, wall_f, fast_launches = timed_search(
+        torch, fast, ds.queries, K, (merge_kv,))
     check_result(ids_f, dist_f, N, "flat fast")
     rec_f = calc_recall(ids_f, gt)
-    rep["fast"] = {"recall": rec_f, "qps": NQ / wall_f, "wall_s": wall_f}
+    rep["fast"] = {"recall": rec_f, "qps": NQ / wall_f, "wall_s": wall_f,
+                   "merge_kv_launches": fast_launches["merge_kv"]}
     log(f"flat fast: recall@10 {rec_f:.5f}, {NQ / wall_f:.1f} QPS "
-        f"(wall {wall_f:.3f}s)")
+        f"(wall {wall_f:.3f}s), merge_kv launches {fast_launches['merge_kv']}")
     del fast
-    if rec_f < FLAT_FAST_FLOOR:
-        raise AssertionError(f"flat fast recall below {FLAT_FAST_FLOOR}")
+    if rec_f < FLAT_FAST_FLOOR or fast_launches["merge_kv"] <= 0:
+        raise AssertionError(f"flat fast recall below {FLAT_FAST_FLOOR}, or "
+                             f"no merge_kv launch")
 
     rng = np.random.default_rng(7)
     dead = rng.choice(N, size=N_REMOVE, replace=False).astype(np.int32)
@@ -1932,8 +1993,9 @@ def main() -> int:
         return (fit_launches[kernel] + search_launches[kernel]
                 + churn_launches[kernel])
 
-    def pool_row(name, replaces, launched_by, **more):
-        on_path = bsq8_pool[name] + raw_launches(name)
+    def pool_row(name, replaces, launched_by, flat=0, **more):
+        """``flat``: the kernel's launches on the flat path."""
+        on_path = bsq8_pool[name] + raw_launches(name) + flat
         if on_path <= 0:
             raise AssertionError(f"{name} was launched no time on the paths")
         return {**row(name, "alayalite_tpu_torch/csrc/pool_sort.cu", replaces,
@@ -1964,6 +2026,17 @@ def main() -> int:
     probe_launches = hop_launches("ring_probe") + raw_launches("ring_probe")
     probe_routes = launches_by_route(ring_probe, probe_launches, "hash")
     gather, fused = report["gather_diagdot"], report["gather_estimate"]
+    # merge_kv by path: find_medoid in the bsq8 fit (the rest of the bsq8
+    # path launches it no time), the raw fits (find_medoid, the overlay's
+    # exact kNN), the flat scans
+    merge_paths = {
+        "bsq8_fit_find_medoid": report["fit"]["launches"]["merge_kv"],
+        "bsq8_search_and_churn": (bsq8_pool["merge_kv"]
+                                  - report["fit"]["launches"]["merge_kv"]),
+        "raw": raw_launches("merge_kv"),
+        "flat_exact": report["flat"]["exact"]["merge_kv_launches"],
+        "flat_fast": report["flat"]["fast"]["merge_kv_launches"]}
+    log(f"merge_kv launches by path: {merge_paths}")
 
     def entries(rep):
         """Both entries' times at the hop's shape and at R = 1."""
@@ -1976,9 +2049,10 @@ def main() -> int:
         # off the hop since gather_diagdot took its place there: no entry
         # point of Index reaches it; its launches are the churn phase's
         # block audit calling the space's estimate_for on the inserted nodes
-        {**row("block_diagdot", "alayalite_tpu_torch/csrc/diagdot.cu",
+        {**row("block_diagdot", "alayalite_tpu_torch/csrc/gather_diagdot.cu",
                "alayalite_tpu/ops/pallas_block.py:46",
                churn_launches["block_diagdot"], report["block_diagdot"]),
+         "entry": "alaya_block_diagdot (the rows kernel, identity gather)",
          "launched_by": "BQGSpace.estimate_for in the churn phase's block "
                         "audit; 0 launches from Index entry points"},
         # one source, two entry points (rows, bulk), each with the estimate
@@ -2035,9 +2109,17 @@ def main() -> int:
                      for shape, rep in report["sort_kv"]["at"].items()}),
         pool_row("merge_kv", "scripts/proto_pallas_sort.py:117",
                  "ops/distance.exact_topk: the per-tile [Q, k] + [Q, k] merge "
-                 "of find_medoid, the overlay's exact kNN and the flat scan",
-                 at_32_plus_32={k: report["merge_kv"]["32+32"][k] for k in (
-                     "ms", "ms_spin", "plain_ms", "library_ms", "bound_ms")}),
+                 "of find_medoid, the overlay's exact kNN and the flat scans",
+                 flat=sum(merge_paths[p] for p in ("flat_exact",
+                                                   "flat_fast")),
+                 launches_by_path=merge_paths,
+                 empty_kernel_ms_spin=report["merge_kv"][
+                     "empty_kernel_ms_spin"],
+                 at={shape: {k: rep[k] for k in (
+                     "k", "ms", "ms_spin", "spin_over_empty_kernel",
+                     "copy_ms_spin", "plain_ms", "library_ms", "bound_ms",
+                     "bound_by")}
+                     for shape, rep in report["merge_kv"]["at"].items()}),
         pool_row("pool_merge", "scripts/proto_pallas_sort.py:111",
                  "ops/topk.merge_topk_dedup / merge_topk_with_flags / "
                  "merge_topk: the pool merge of every hop (raw and block)",

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""gather_diagdot's entries against an earlier source of the same kernel, on
-one card in one process: ``python3 scripts/torch_gather_ab.py --old
-DIR/alayalite_tpu_torch/csrc/gather_diagdot.cu [--variant NAME=FILE.cu ...]``.
+"""gather_diagdot's entries, and block_diagdot, against earlier sources of
+the same kernels, on one card in one process: ``python3
+scripts/torch_gather_ab.py [--old DIR/alayalite_tpu_torch/csrc/gather_diagdot.cu
+[--variant NAME=FILE.cu ...]] [--old-diagdot DIR/alayalite_tpu_torch/csrc/diagdot.cu]``.
 
 The old source is one with the entry points ``alaya_gather_diagdot_direct``
 and ``alaya_gather_diagdot_staged`` (the kernels before the rows / bulk
@@ -14,8 +15,15 @@ R 32, Dp 128 over 100,000 nodes) and the sq8 traversal's one-row blocks
 and last in turn with the package's (old, new, new, old); the bound counts
 each distinct block once. A variant is another source with the package's
 entry points (``alaya_gather_diagdot_rows`` / ``_bulk``), built and timed
-beside it (its rows entry, the dot alone and fused). Needs one CUDA device;
-prints one JSON line.
+beside it (its rows entry, the dot alone and fused).
+
+``--old-diagdot`` takes a source with ``alaya_block_diagdot`` (the kernel
+before it moved onto gather_diagdot.cu's rows kernel: a block per (query,
+64-row tile), qs staged in shared memory) and holds it and the package's
+block_diagdot against the plain version at (4096, 256, 128) and at
+(1000, 200, 96), (333, 77, 40) and (1, 256, 128), timed in the same four
+alternating rounds beside an empty kernel's span (one fill of 16 floats),
+with the byte bound. Needs one CUDA device; prints one JSON line.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = {"hop": (100_000, 32, 128, 4096, 8),
           "r1": (100_000, 1, 128, 4096, 256)}
+DIAGDOT_SHAPES = ((4096, 256, 128), (1000, 200, 96), (333, 77, 40),
+                  (1, 256, 128))
 ROUNDS = 4
 
 
@@ -107,27 +117,78 @@ def variant_entries(name: str, path: str, qconst, xsq, ids):
     return built, {name: call(False), f"{name}_fused": call(True)}
 
 
-def main() -> int:
+def diagdot_ab(path: str) -> dict:
+    """The old block_diagdot source against the package's, bit errors and
+    spin times at DIAGDOT_SHAPES."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from torch_nvcc_probe import compile_source
+
     import torch
 
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--old", required=True, metavar="FILE.cu")
-    ap.add_argument("--variant", action="append", default=[],
-                    metavar="NAME=FILE.cu")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("torch_gather_ab: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
+    from alayalite_tpu_torch.ops._build import launch
+    from alayalite_tpu_torch.ops.diagdot import block_diagdot, block_diagdot_ref
+    from alayalite_tpu_torch.utils.timing import bound, cuda_ms
+
+    built = compile_source(path, "diagdot_old")
+    fn = ctypes.CDLL(built.pop("library")).alaya_block_diagdot
+    P, LL = ctypes.c_void_p, ctypes.c_longlong
+    fn.argtypes = [P] * 3 + [LL] * 3 + [ctypes.c_int, P]
+    fn.restype = ctypes.c_int
+
+    def old(codes, qs):
+        B, K, Dp = codes.shape
+        out = torch.empty((B, K), dtype=torch.float32, device=codes.device)
+        launch(fn, codes.device, codes.data_ptr(), qs.data_ptr(),
+               out.data_ptr(), B, K, Dp,
+               int(Dp % 16 == 0 and codes.data_ptr() % 16 == 0))
+        return out
+
+    fns = {"old": old, "package": block_diagdot}
+    tiny = torch.zeros(16, device="cuda")
+    report = {"old_build": built,
+              "floor_ms": cuda_ms(lambda: tiny.zero_(), spin=True),
+              "shapes": {}}
+    rng = np.random.default_rng(5)
+    for B, K, Dp in DIAGDOT_SHAPES:
+        codes = torch.as_tensor(rng.integers(0, 256, size=(B, K, Dp),
+                                             dtype=np.uint8), device="cuda")
+        qs = torch.as_tensor(rng.normal(size=(B, Dp)).astype(np.float32),
+                             device="cuda").to(torch.bfloat16)
+        want = block_diagdot_ref(codes, qs)
+        errs = {name: float((f(codes, qs) - want).abs().max())
+                for name, f in fns.items()}
+        spins = {name: [] for name in fns}
+        for rnd in range(ROUNDS):
+            for name in (list(fns) if rnd % 3 == 0 else list(fns)[::-1]):
+                f = fns[name]
+                spins[name].append(cuda_ms(lambda f=f: f(codes, qs),
+                                           spin=True))
+        b = bound(B * K * Dp + B * Dp * 2 + B * K * 4, 2 * B * K * Dp, "f32")
+        report["shapes"][f"{B}x{K}x{Dp}"] = {
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "max_abs_err": errs, "tol": 1e-3 * float(want.abs().max()) + 1e-3,
+            "spin_ms": spins,
+            "spin_median_ms": {k: float(np.median(v))
+                               for k, v in spins.items()}}
+        del codes
+        torch.cuda.empty_cache()
+    return report
+
+
+def gather_ab(args) -> dict:
+    """The old gather_diagdot entries (and variants) against the package's
+    at SHAPES."""
+    import torch
+
     from alayalite_tpu_torch.ops.gather_diagdot import (VARIANTS,
                                                         gather_diagdot,
                                                         gather_diagdot_ref,
                                                         gather_estimate)
-    from alayalite_tpu_torch.utils.timing import bound, card_line, cuda_ms
+    from alayalite_tpu_torch.utils.timing import bound, cuda_ms
 
     built, old = old_entries(args.old)
     dev = torch.device("cuda")
-    report = {"card": card_line(), "old_build": built, "shapes": {}}
+    report = {"old_build": built, "shapes": {}}
     rng = np.random.default_rng(2)
     for at, (C, R, Dp, B, M) in SHAPES.items():
         codes = torch.as_tensor(rng.integers(0, 256, size=(C, R, Dp),
@@ -178,6 +239,31 @@ def main() -> int:
                                for k, v in spins.items()}}
         del codes
         torch.cuda.empty_cache()
+    return report
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--old", metavar="FILE.cu")
+    ap.add_argument("--variant", action="append", default=[],
+                    metavar="NAME=FILE.cu")
+    ap.add_argument("--old-diagdot", metavar="FILE.cu")
+    args = ap.parse_args()
+    if not (args.old or args.old_diagdot):
+        ap.error("give --old, --old-diagdot or both")
+    if not torch.cuda.is_available():
+        print("torch_gather_ab: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from alayalite_tpu_torch.utils.timing import card_line
+
+    report = {"card": card_line()}
+    if args.old_diagdot:
+        report["block_diagdot"] = diagdot_ab(args.old_diagdot)
+    if args.old:
+        report.update(gather_ab(args))
     print(json.dumps(report))
     return 0
 

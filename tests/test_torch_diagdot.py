@@ -1,6 +1,8 @@
 """block_diagdot: the port's plain version against the JAX function it
-replaces (einsum fallback and Pallas interpret mode), the CPU wrapper's
-routing and checks, and (with a CUDA device) the hand-written kernel.
+replaces (einsum fallback and Pallas interpret mode) and against
+gather_diagdot's with the identity gather (the kernel is gather_diagdot's
+rows kernel reading no index), the CPU wrapper's routing and checks, and
+(with a CUDA device) the hand-written kernel.
 
 Tolerance rtol 1e-5 / atol 1e-3: (c − 128) is exact in bf16 and every
 bf16 × bf16 product is exact in f32, so the two sides differ only in the
@@ -15,8 +17,13 @@ import pytest
 import torch
 
 from alayalite_tpu_torch.ops.diagdot import block_diagdot, block_diagdot_ref
+from alayalite_tpu_torch.ops.gather_diagdot import gather_diagdot_ref
 
 SHAPES = [(32, 16, 128), (5, 24, 128), (7, 10, 96)]
+# one query, K not a multiple of a group's 8 rows, Dp 40 and 96 (the
+# kernel's byte loads), K of 1
+ODD_SHAPES = [(1, 256, 128), (7, 13, 128), (33, 77, 40), (3, 5, 96),
+              (4, 1, 16)]
 
 
 def _inputs(shape, seed=0):
@@ -40,6 +47,19 @@ def test_ref_matches_jax(shape, mode, monkeypatch):
     got = block_diagdot_ref(torch.from_numpy(codes),
                             torch.from_numpy(qs).to(torch.bfloat16))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("shape", SHAPES + ODD_SHAPES)
+def test_ref_is_gather_ref_with_identity_gather(shape):
+    """block_diagdot is gather_diagdot with u = arange(B)[:, None]: node b
+    for query b, one block of K rows each (C = B, M = 1, R = K). The
+    kernel rests on this identity: its entry is the gather's rows kernel
+    told to read no index."""
+    codes, qs = _inputs(shape, seed=len(shape) + sum(shape))
+    c = torch.from_numpy(codes)
+    q = torch.from_numpy(qs).to(torch.bfloat16)
+    u = torch.arange(shape[0], dtype=torch.int32)[:, None]
+    assert torch.equal(block_diagdot_ref(c, q), gather_diagdot_ref(c, u, q))
 
 
 def test_cpu_wrapper_runs_plain_version_and_counts_calls():
@@ -80,4 +100,33 @@ def test_cuda_kernel_matches_plain_version():
         assert block_diagdot.launches == launches + 1
         want = block_diagdot_ref(c, q)
         tol = 1e-3 * float(want.abs().max()) + 1e-3
+        assert float((got - want).abs().max()) <= tol, shape
+
+
+def _shifted(t):
+    """A contiguous copy of ``t`` one element past its allocation's start:
+    not 16-byte aligned."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return flat[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ODD_SHAPES + [(4096, 256, 128)])
+def test_cuda_kernel_odd_shapes_and_alignment(shape):
+    """The kernel at one query, K not a multiple of a group's rows, Dp 40
+    and 96, and with qs or codes off a 16-byte boundary (byte loads), against
+    the plain version; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    codes, qs = _inputs(shape, seed=11)
+    c = torch.from_numpy(codes).cuda()
+    q = torch.from_numpy(qs).to(torch.bfloat16).cuda()
+    want = block_diagdot_ref(c, q)
+    tol = 1e-3 * float(want.abs().max()) + 1e-3
+    for cc, qq in ((c, q), (c, _shifted(q)), (_shifted(c), q),
+                   (_shifted(c), _shifted(q))):
+        launches = block_diagdot.launches
+        got = block_diagdot(cc, qq)
+        torch.cuda.synchronize()
+        assert block_diagdot.launches == launches + 1
         assert float((got - want).abs().max()) <= tol, shape

@@ -124,6 +124,84 @@ def test_merge_ref_matches_proto_merge_kernel(proto, ties):
     assert torch.equal(sk, cat[0]) and torch.equal(sp, cat[1])
 
 
+def _special_lists(rng, B, L1, L2):
+    """Two ascending operands of merge_kv, (keys, payload) each, as
+    sort_kv_ref orders them: keys on a coarse grid, so they tie within and
+    across the operands, both zeros among them, with NaN, +inf and -inf."""
+    out = []
+    for L in (L1, L2):
+        keys = _keys(rng, (B, L), True)
+        keys[rng.random((B, L)) < 0.15] = np.inf
+        keys[rng.random((B, L)) < 0.05] = -np.inf
+        keys[rng.random((B, L)) < 0.05] = np.nan
+        pay = rng.integers(-1, 1 << 30, size=(B, L)).astype(np.int32)
+        out += sort_kv_ref(torch.from_numpy(keys), torch.from_numpy(pay))
+    return out
+
+
+# merge_kv's path widths: find_medoid's 1 + 1 -> 1, the exact flat scan's
+# 10 + 10 -> 10 (k 10) and the fast scan's coarse 40 + 40 -> 40
+MERGE_KV_PATHS = [(1, 1, 1), (10, 10, 10), (40, 40, 40)]
+
+
+@pytest.mark.parametrize("specials", [False, True])
+@pytest.mark.parametrize("path", MERGE_KV_PATHS)
+def test_merge_ref_matches_proto_merge_sorted_at_path_widths(proto, path,
+                                                             specials):
+    """merge_kv_ref against scripts/proto_pallas_sort.py's merge_sorted (its
+    merge_kernel, interpret mode) at the widths the paths merge. The
+    network takes two lists of one power-of-two width and compares the
+    values it is given, so each operand is handed over as the monotone
+    int32 of its keys (the order merge_kv merges by; NaN after +inf, -0 ==
+    +0) padded with the largest int32, the word's position as payload (a's
+    i, b's L + j; pads after both). The network is not stable: runs of equal
+    keys are put in position order before the first k are taken."""
+    import jax
+    import jax.numpy as jnp
+
+    L1, L2, k = path
+    B, P = 64, 1 << max(0, (L1 - 1).bit_length())
+    rng = np.random.default_rng(L1 + 10 * specials)
+    if specials:
+        ka, pa, kb, pb = (t.numpy() for t in _special_lists(rng, B, L1, L2))
+    else:
+        ka, pa, kb, pb = (t.numpy() for t in (
+            *sort_kv_ref(torch.from_numpy(_keys(rng, (B, L1), True)),
+                         torch.from_numpy(rng.integers(0, 99, (B, L1))
+                                          .astype(np.int32))),
+            *sort_kv_ref(torch.from_numpy(_keys(rng, (B, L2), True)),
+                         torch.from_numpy(rng.integers(0, 99, (B, L2))
+                                          .astype(np.int32)))))
+    big = np.iinfo(np.int32).max
+    enc = [np.full((B, P), big, np.int32) for _ in range(2)]
+    pos = [np.broadcast_to(np.arange(P, dtype=np.int32) + off, (B, P)).copy()
+           for off in (0, L1)]
+    for e, p_, keys, L in ((enc[0], pos[0], ka, L1), (enc[1], pos[1], kb, L2)):
+        e[:, :L] = _monotone_i32(keys)
+        p_[:, L:] = 2 * P + np.arange(P - L)          # pads after every word
+    km, pm = proto.run("merge", proto.merge_kernel,
+                       (jax.ShapeDtypeStruct((B, 2 * P), jnp.int32),
+                        jax.ShapeDtypeStruct((B, 2 * P), jnp.int32)),
+                       *map(jnp.asarray, (enc[0], pos[0], enc[1], pos[1])),
+                       grid_bt=32)
+    km, pm = np.asarray(km), np.asarray(pm)
+    assert (km[:, 1:] >= km[:, :-1]).all()
+    order = np.lexsort((pm, km), axis=-1)            # ties by position
+    first = np.take_along_axis(pm, order, -1)[:, :L1 + L2]
+    assert (first < L1 + L2).all()
+    cat_k = np.concatenate([ka, kb], 1)
+    cat_p = np.concatenate([pa, pb], 1)
+    rows = np.arange(B)[:, None]
+    for kk in sorted({k, L1 + L2}):
+        sk, sp = merge_kv_ref(*map(torch.from_numpy, (ka, pa, kb, pb)), kk)
+        np.testing.assert_array_equal(
+            sk.numpy().view(np.int32), cat_k[rows, first[:, :kk]].view(np.int32))
+        np.testing.assert_array_equal(sp.numpy(), cat_p[rows, first[:, :kk]])
+    if specials:
+        assert np.isnan(cat_k).any() and np.isneginf(cat_k).any()
+        assert np.signbit(cat_k[cat_k == 0]).any()
+
+
 @pytest.mark.parametrize("layout", ["sub", "sub_pack", "lane_pack"])
 def test_sort_ref_matches_proto_layouts(proto2, layout):
     """The three layouts of proto_pallas_sort2: lists along columns with a
@@ -330,11 +408,12 @@ def test_roll_ref_matches_proto_roll_kernel(n, BT, K):
 # --------------------------------------------------- ops/topk against JAX's
 # (L1, L2, k): the search's ef 64 + M·R 256, a young pool at the seed merge,
 # ef 100 and 200 (no power of two), eps, exact_topk's [Q, k] + [Q, k],
-# k below the pool's width (L1 a power of two and not), and the fusion
-# index's hop (rows of 2R = 64 ids, 8 expanded: 512 candidates)
+# k below the pool's width (L1 a power of two and not), the fusion
+# index's hop (rows of 2R = 64 ids, 8 expanded: 512 candidates), and the
+# fast flat scan's coarse [Q, 40] + [Q, 40]
 MERGE_SHAPES = [(64, 256, 64), (32, 8, 32), (100, 256, 100), (200, 256, 200),
                 (10, 10, 10), (128, 33, 128), (1, 1, 1), (100, 256, 64),
-                (48, 256, 32), (64, 512, 64)]
+                (48, 256, 32), (64, 512, 64), (40, 40, 40)]
 
 
 def _pool_rows(seed, B, L1, L2, holes=False):
@@ -569,6 +648,7 @@ def test_cuda_sort_kv_matches_plain_version(B, K):
 @pytest.mark.gpu
 @pytest.mark.parametrize("holes", [False, True])
 @pytest.mark.parametrize("shape", MERGE_SHAPES + [(0, 5, 3), (100, 256, 356),
+                                                  (1, 200, 1), (1, 200, 201),
                                                   (300, 400, 300),
                                                   (512, 512, 512),
                                                   (513, 64, 64),
@@ -579,7 +659,9 @@ def test_cuda_sort_kv_matches_plain_version(B, K):
 def test_cuda_merges_match_plain_versions(B, shape, holes):
     """Both kernels of pool_merge: the warp route up to WARP_LIST words a
     list and k (its two instances: up to 8 and up to 16 words a lane), the
-    shared-memory network past it (the last four shapes)."""
+    shared-memory network past it (the last four shapes); merge_kv's merge
+    path at every shape, the paths' (4096, 10 + 10 -> 10), (4096, 40 + 40
+    -> 40), (1, 1 + 1 -> 1) and (1, 1 + 200) among them."""
     _need_cuda()
     L1, L2, k = shape
     d1, i1, f1, d2, i2, f2 = (torch.from_numpy(a).cuda()
@@ -604,6 +686,27 @@ def test_cuda_merges_match_plain_versions(B, shape, holes):
     torch.cuda.synchronize()
     assert merge_kv.launches == launches + 1
     _equal(got, merge_kv_ref(*a, *b, k), (B, shape, "merge_kv"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4096, 10, 10, 10), (4096, 40, 40, 40),
+                                   (1, 1, 1, 1), (1, 1, 200, 1),
+                                   (1, 1, 200, 201), (4096, 64, 64, 128),
+                                   (333, 100, 7, 50), (333, 7, 100, 107),
+                                   (9, 5000, 3000, 8000), (9, 0, 33, 20)])
+def test_cuda_merge_kv_on_special_keys(shape):
+    """merge_kv bit for bit against merge_kv_ref on keys with NaN, both
+    zeros, +-inf and ties within and across the operands, at the paths'
+    shapes and at ragged, wide and one-sided ones; one launch a call."""
+    _need_cuda()
+    B, L1, L2, k = shape
+    a_k, a_p, b_k, b_p = (t.cuda() for t in _special_lists(
+        np.random.default_rng(B + L1 + L2), B, L1, L2))
+    launches = merge_kv.launches
+    got = merge_kv(a_k, a_p, b_k, b_p, k)
+    torch.cuda.synchronize()
+    assert merge_kv.launches == launches + 1
+    _equal(got, merge_kv_ref(a_k, a_p, b_k, b_p, k), shape)
 
 
 @pytest.mark.gpu
