@@ -1,6 +1,6 @@
 """Client: a registry of named indices (port of the thin part of
 ``client.py``). Collections and the disk discovery of ``url`` wait in
-ROADMAP queue 1, item 6.
+ROADMAP queue 1, item 3.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ class Client:
         if url is not None:
             raise NotImplementedError(
                 "Client(url=...) disk discovery is not ported yet "
-                "(ROADMAP queue 1, item 6)")
+                "(ROADMAP queue 1, item 3)")
         self.device = resolve_device(device)
         self._indices: Dict[str, Index] = {}
 
@@ -33,4 +33,4 @@ class Client:
 
     def create_collection(self, name: str = "default", **kwargs):
         raise NotImplementedError(
-            "collections are not ported yet (ROADMAP queue 1, item 6)")
+            "collections are not ported yet (ROADMAP queue 1, item 3)")

@@ -4,17 +4,20 @@ Ported: block quantization (bsq8: ``fit`` built by ``QGBuilder``, the
 block branch of batch search, the per-query seed-scan sample, online
 insert through ``fused_block_insert``, tombstone remove with the
 compaction threshold, ``compact`` and ``update_nodes``), the raw graph
-indices (``hnsw``, ``nsg``, ``fusion`` with quantization none, sq8 or sq4:
-``fit`` through their builders, overlay descent + beam + exact re-score,
-and for sq the quantized traversal re-ranked in the build space), the flat
-index (``index_type="flat"`` with quantization none or sq8: exact and fast
-scans, insert, tombstone remove), and save/load in the JAX package's
-on-disk layout (``schema.json`` + npz files), so either package loads the
-other's index directories, mutated or not.
+indices (``hnsw``, ``nsg``, ``fusion`` with quantization none, sq8 or sq4
+and any storage dtype: ``fit`` through their builders, overlay descent +
+beam + exact re-score, and for sq the quantized traversal re-ranked in the
+build space; insert through the search, the append, ``fused_raw_connect``
+and ``extend_overlay``, with the neighbor search through a bsq8 shadow of
+the graph on large f32 indices; remove, ``compact`` with
+``strip_overlay``, ``update_nodes``), the flat index (``index_type="flat"``
+with quantization none or sq8: exact and fast scans, insert, tombstone
+remove), and save/load in the JAX package's on-disk layout (``schema.json``
++ npz files), so either package loads the other's index directories,
+mutated or not.
 
-Not ported yet, each raising ``NotImplementedError``: insert, remove,
-compact and update_nodes on a raw graph index (ROADMAP queue 1, item 8),
-rabitq (item 9, with its host-side insert), sharding (item 12).
+Not ported yet, each raising ``NotImplementedError``: rabitq (ROADMAP
+queue 1, item 4, with its host-side insert), sharding (item 6).
 
 Inserts and rewires run on batches of any size, in slices that bound the
 temporaries: the JAX package pads them to buckets only so XLA does not
@@ -39,7 +42,7 @@ from ..device import DeviceLike, resolve_device, synchronize
 from ..ops.distance import exact_topk, flat_search_device
 from ..params import IndexParams, IndexType, QuantizationType
 from ..spaces.bqg import BQGSpace
-from ..spaces.raw import STORAGE_DTYPES, RawSpace
+from ..spaces.raw import RawSpace
 from ..spaces.sq import SQSpace
 from .graph import Graph
 
@@ -48,12 +51,13 @@ log = logging.getLogger("alayalite_tpu_torch")
 _FLAT_QUANT = (QuantizationType.NONE, QuantizationType.SQ8)
 _GRAPH_QUANT = (QuantizationType.NONE, QuantizationType.SQ8,
                 QuantizationType.SQ4)
-_RAW_MUTATION = ("{} on a raw graph index (hnsw, nsg, fusion with "
-                 "quantization none, sq8 or sq4) is not ported yet (ROADMAP "
-                 "queue 1, item 8: fused_raw_connect, the bsq8 insert shadow, "
-                 "overlay_update)")
 INSERT_CHUNK = 4096   # rows per fused insert step (the search's qchunk)
 REWIRE_CHUNK = 2048   # rows per rewire step: bounds the [A, W + W², D] gather
+# A raw f32 graph index with at least this many stored rows searches an
+# insert's neighbors through a bsq8 shadow of its graph (the JAX package's
+# size gate; below it the pack costs more than the block search saves)
+SHADOW_MIN_ROWS = 10_000
+RESERVOIR = 16        # reverse-table slots per touched row of an insert
 
 
 def check_supported(params: IndexParams) -> None:
@@ -66,14 +70,10 @@ def check_supported(params: IndexParams) -> None:
             f"index_type={params.index_type.value!r} with quantization_type="
             f"{qt.value!r} is not ported yet: the port covers bsq8, graph "
             "indices with none, sq8 or sq4, and flat indices with none or "
-            "sq8 (ROADMAP queue 1, item 9 holds rabitq)")
+            "sq8 (ROADMAP queue 1, item 4 holds rabitq)")
     if max(params.db_shards, params.build_shards, params.serve_shards) > 1:
         raise NotImplementedError(
-            "sharded indices are not ported yet (ROADMAP queue 1, item 12)")
-    if params.storage_dtype not in STORAGE_DTYPES:
-        raise NotImplementedError(
-            f"storage_dtype={params.storage_dtype!r} is not ported yet "
-            "(ROADMAP queue 1, item 8: integer and float16 storage)")
+            "sharded indices are not ported yet (ROADMAP queue 1, item 6)")
 
 
 def _make_builder(params: IndexParams, seed: int = 0):
@@ -111,6 +111,7 @@ class IndexEngine:
         self._removed: list = []     # tombstones since the last compaction
         self._rng = np.random.default_rng(0xA1A7A)  # entry-point redraws
         self._insert_gen: Optional[torch.Generator] = None
+        self._ins_shadow: Optional[BQGSpace] = None  # raw insert's search
 
     # ------------------------------------------------------------------ fit
     def fit(self, vectors, ef_construction: Optional[int] = None,
@@ -129,6 +130,7 @@ class IndexEngine:
         t0 = time.time()
         p = self.params
         metric = p.metric.value
+        self._ins_shadow = None
         self.space = RawSpace.create(capacity, dim, metric=metric,
                                      storage_dtype=p.storage_dtype,
                                      device=self.device).fit(v)
@@ -312,15 +314,16 @@ class IndexEngine:
     # --------------------------------------------------------------- update
     def insert(self, vectors, ef: int = 100) -> np.ndarray:
         """Append rows. A flat index stores them in both spaces; a block
-        index also links them into the graph (``fused_block_insert``).
-        Returns the new ids, −1 where capacity was exhausted
-        (``Index.insert`` raises)."""
+        index also links them into the graph (``fused_block_insert``), a
+        raw graph index through ``_insert_raw_graph``. Returns the new ids,
+        −1 where capacity was exhausted (``Index.insert`` raises)."""
         self._require_fitted()
-        self._refuse_raw_mutation("insert")
         v = torch.atleast_2d(torch.as_tensor(
             np.asarray(vectors, dtype=np.float32), device=self.device))
-        if self.graph is not None:
+        if self._is_block:
             ids = self._insert_block_fused(v, ef)
+        elif self.graph is not None:
+            ids = self._insert_raw_graph(v, ef)
         else:
             ids = self.space.insert(v)
             if self.search_space is not self.space:
@@ -347,9 +350,101 @@ class IndexEngine:
             self.space.insert(sub)
         return torch.cat(out)
 
-    def _refuse_raw_mutation(self, what: str) -> None:
-        if self.graph is not None and not self._is_block:
-            raise NotImplementedError(_RAW_MUTATION.format(what))
+    def _insert_raw_graph(self, v: torch.Tensor, ef: int) -> torch.Tensor:
+        """Raw graph insert in slices of ``INSERT_CHUNK`` rows, each seeing
+        the slices before it: the neighbor search (through the bsq8 shadow
+        where ``_shadow_auto_on``, else the index's own search, at
+        ``max(ef, max_nbrs)``), the append into both spaces,
+        ``fused_raw_connect`` at the row width (2·max_nbrs for fusion), the
+        shadow's re-encode of the rows the connect wrote, and the overlay
+        link of the new nodes that draw a level."""
+        from .build_phases import make_generator
+        from .fused_insert import fused_raw_connect
+        from .overlay_update import extend_overlay
+
+        if self._insert_gen is None:
+            self._insert_gen = make_generator(self.device, 0x1A5E)
+        r = self.params.max_nbrs
+        row_w = self.graph.nbrs.shape[1]
+        out = []
+        for lo in range(0, v.shape[0], INSERT_CHUNK):
+            sub = v[lo:lo + INSERT_CHUNK]
+            shadow = self._ins_shadow
+            if shadow is None and self._shadow_auto_on():
+                shadow = self._ensure_ins_shadow()
+            if shadow is not None:
+                ids_nb = self._shadow_insert_search(shadow, sub, r,
+                                                    ef=max(int(ef), r))
+            else:
+                ids_nb, _ = self._batch_search_impl(sub, r,
+                                                    ef=max(int(ef), r))
+            new_ids = self.space.insert(sub)
+            if self.search_space is not self.space:
+                self.search_space.insert(sub)
+            ok = new_ids >= 0
+            nrow = torch.where(ok[:, None], ids_nb.to(torch.int32),
+                               torch.full_like(ids_nb, -1, dtype=torch.int32))
+            slots = torch.randint(0, RESERVOIR, (sub.shape[0], row_w),
+                                  generator=self._insert_gen,
+                                  device=self.device)
+            touched = fused_raw_connect(
+                self.space, self.graph.nbrs, new_ids, nrow, slots,
+                row_w=row_w, w=RESERVOIR)
+            if shadow is not None:
+                self._shadow_sync(shadow, torch.cat([new_ids, touched]))
+            extend_overlay(self.graph, self.space, new_ids.cpu().numpy(),
+                           self._rng, r)
+            out.append(new_ids)
+        return torch.cat(out)
+
+    # ------------------------------------------- the raw insert's shadow
+    def _shadow_auto_on(self) -> bool:
+        """Search a raw graph insert's neighbors through a bsq8 shadow?
+        Quantization none, f32 rows, a graph and at least
+        ``SHADOW_MIN_ROWS`` stored rows (the JAX package's gate; its
+        ALAYA_INSERT_SHADOW switch is fixed at its default)."""
+        return (self.params.quantization_type is QuantizationType.NONE
+                and self.graph is not None
+                and self.space.data.dtype == torch.float32
+                and self.space.num >= SHADOW_MIN_ROWS)
+
+    def _ensure_ins_shadow(self) -> BQGSpace:
+        """The insert shadow: a bsq8 block space over the current graph at
+        its row width that shares the raw slab's tensors (no f32 copy);
+        packed once, then kept in step by ``_shadow_sync``, and dropped by
+        every other mutation."""
+        from ..spaces.bqg import shadow_space
+
+        if self._ins_shadow is None:
+            sp = self.space
+            self._ins_shadow = shadow_space(sp.data, sp.sq_norms, sp.valid,
+                                            sp.num, sp.user_metric,
+                                            self.graph.nbrs)
+        return self._ins_shadow
+
+    def _shadow_insert_search(self, shadow: BQGSpace, v: torch.Tensor,
+                              r: int, ef: int) -> torch.Tensor:
+        """The insert's neighbor search through the shadow: the block
+        search with the seed-scan sample, whose exact re-rank of the pool
+        gives the f32 path's candidate order. Returns ids [B, r]."""
+        from .search import block_search_device
+
+        _, i = block_search_device(
+            shadow, self.graph.eps, shadow.prep_query(v), k=r, ef=ef,
+            valid=self.space.valid, max_iters=self.params.search_iters,
+            n_expand=self.params.beam_expand, qchunk=INSERT_CHUNK,
+            seed_sample=self._seed_scan_arrays())
+        return i
+
+    def _shadow_sync(self, shadow: BQGSpace, ids: torch.Tensor) -> None:
+        """After an append and a connect step: the shadow's bump counter
+        (its rows, norms and valid mask are the raw space's own tensors)
+        and the blocks of ``ids`` (−1 dropped), re-encoded from the
+        adjacency."""
+        from ..spaces.bqg import shadow_blocks_update
+
+        shadow.num = self.space.num
+        shadow_blocks_update(shadow, self.graph.nbrs, ids)
 
     def remove(self, ids) -> None:
         """Tombstone ``ids`` in both spaces; searches skip them. On a graph
@@ -359,13 +454,13 @@ class IndexEngine:
         clip ids, so an out-of-range id would remove whatever lives at the
         clip target."""
         self._require_fitted()
-        self._refuse_raw_mutation("remove")
         raw = np.atleast_1d(np.asarray(ids))
         if raw.size and (raw.min() < 0 or raw.max() >= self.space.capacity):
             raise ValueError(
                 f"remove: id out of range [0, {self.space.capacity}) "
                 f"(got min={raw.min()}, max={raw.max()})")
         self._mutations += 1
+        self._ins_shadow = None   # its valid mask would be stale
         arr = torch.as_tensor(raw.astype(np.int32), device=self.device)
         self.space.remove(arr)
         if self.search_space is not self.space:
@@ -382,10 +477,12 @@ class IndexEngine:
 
     def compact(self) -> None:
         """Rewire edges around the tombstones gathered since the last
-        compaction and replace dead entry points with live rows. Ids are
-        stable: removed slots stay tombstoned and are never reused."""
+        compaction, drop them from the overlay levels, and replace dead
+        entry points with live rows. Ids are stable: removed slots stay
+        tombstoned and are never reused."""
+        from .overlay_update import strip_overlay
+
         self._require_fitted()
-        self._refuse_raw_mutation("compact")
         if self.graph is None or not self._removed:
             self._removed = []
             return
@@ -397,6 +494,7 @@ class IndexEngine:
         t0 = time.time()
         if affected.numel():
             self.update_nodes(affected, _removed=removed)
+        strip_overlay(self.graph, removed)
         eps = self.graph.eps.cpu().numpy()
         dead_ep = np.isin(eps, removed)
         if dead_ep.any():
@@ -421,25 +519,30 @@ class IndexEngine:
     def update_nodes(self, ids, _removed=None) -> None:
         """Rebuild the edges of ``ids``: candidates = live current edges ∪
         the live edges of removed neighbors (the 2-hop detour), top-R by
-        exact distance; the rebuilt rows are re-encoded in the same pass.
-        Every row is computed from the adjacency as it stands on entry."""
+        exact distance, R the block degree (bsq8, whose rebuilt rows are
+        re-encoded in the same pass) or the row width (raw graphs: fusion
+        rows are 2·max_nbrs). Every row is computed from the adjacency as
+        it stands on entry."""
         self._require_fitted()
-        self._refuse_raw_mutation("update_nodes")
         if self.graph is None:
             raise RuntimeError("flat index has no graph to update")
+        self._ins_shadow = None   # rows rewritten below
         ids = torch.as_tensor(ids, device=self.device).reshape(-1).long()
         if ids.numel() == 0:
             return
         removed = (np.empty(0, np.int32) if _removed is None
                    else np.asarray(_removed, dtype=np.int32))
         mask = self._removed_mask(removed)
-        r = self.search_space.degree
+        r = (self.search_space.degree if self._is_block
+             else self.graph.nbrs.shape[1])
         rows = torch.cat([
             _rewire_rows_dev(self.space, self.graph.nbrs, mask,
                              ids[lo:lo + REWIRE_CHUNK], r=r)
             for lo in range(0, ids.numel(), REWIRE_CHUNK)])
-        self.search_space.set_neighbor_rows(ids, rows)
-        self.graph.nbrs[ids] = self.search_space.nbr_ids[ids]
+        if self._is_block:
+            self.search_space.set_neighbor_rows(ids, rows)
+            rows = self.search_space.nbr_ids[ids]
+        self.graph.nbrs[ids] = rows
 
     def get_data_by_id(self, id_: int) -> np.ndarray:
         self._require_fitted()
@@ -522,7 +625,7 @@ def _rewire_rows_dev(space, nbrs: torch.Tensor, removed_mask: torch.Tensor,
     width = max(int((cand >= 0).sum(1).max()), r)
     order = torch.sort((cand < 0).to(torch.int8), dim=1, stable=True).indices
     cand = torch.gather(cand, 1, order[:, :width])
-    d = space.gather_dists(space.data[ids], cand.clamp(min=0))
+    d = space.gather_dists(space.data[ids].float(), cand.clamp(min=0))
     d = torch.where(cand >= 0, d, torch.full_like(d, float("inf")))
     return _topr_dedup(d, cand, r)
 

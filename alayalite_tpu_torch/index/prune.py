@@ -33,11 +33,12 @@ def _sort_dedup(cand_d: Tensor, cand_i: Tensor):
 
 
 def occlusion_prune_chunk(space, cand_d: Tensor, cand_i: Tensor, r: int,
-                          alpha: float = 1.0) -> Tensor:
+                          alpha: float = 1.0, bf16: bool = True) -> Tensor:
     """Select ≤ r edges per node under the occlusion rule. Returns [C, r]
-    i32, −1 padded. Candidate pairs are scored from bf16 vectors (products
-    and sums in f32), the JAX package's default: pair distances only gate
-    selection.
+    i32, −1 padded. With ``bf16`` candidate pairs are scored from bf16
+    vectors (products and sums in f32), what the JAX package's builders
+    ask for: pair distances only gate selection; the insert's choice of
+    batch mates scores them in f32, as there.
 
     Two rules carried over from the JAX package:
       - the threshold for alpha ≠ 1 is d_j / alpha where d_j ≥ 0 and
@@ -51,7 +52,7 @@ def occlusion_prune_chunk(space, cand_d: Tensor, cand_i: Tensor, r: int,
     valid = cand_i >= 0
     safe = torch.where(valid, cand_i, torch.zeros_like(cand_i)).reshape(-1)
     vecs = space.data.index_select(0, safe).view(C, M, -1)
-    vecs = vecs.to(torch.bfloat16).float()
+    vecs = vecs.to(torch.bfloat16).float() if bf16 else vecs.float()
     dots = torch.bmm(vecs, vecs.transpose(1, 2))                    # [C, M, M]
     if space.metric == "ip":
         pair_d = -dots

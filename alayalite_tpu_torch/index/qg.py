@@ -59,7 +59,7 @@ class QGBuilder:
         if self.pool_mode not in ("", "beam", "block"):
             raise NotImplementedError(
                 f"pool_mode={self.pool_mode!r} is not ported "
-                "(ROADMAP queue 1, item 5 ports 'beam' and 'block')")
+                "(ROADMAP queue 1, item 3; 'beam' and 'block' are)")
         dev = raw_space.device
         self.timings = {}
         phase = PhaseTimer(dev, "qg", self.timings)

@@ -328,3 +328,34 @@ def _encode_block(data: Tensor, dmin: Tensor, scale: Tensor, nbrs: Tensor,
     if pad:
         c = torch.nn.functional.pad(c, (0, pad), value=128.0)
     return c.to(torch.uint8), xsq
+
+
+def shadow_blocks_update(space: BQGSpace, graph_nbrs: Tensor, ids) -> None:
+    """Re-encode the neighbor blocks of the nodes ``ids`` (repeats allowed,
+    −1 dropped) from the adjacency ``graph_nbrs``, in place: the upkeep of
+    a raw graph's insert shadow after a connect step rewrote those rows.
+    Rows wider than the space's degree are cut to it."""
+    ids = torch.as_tensor(ids, device=space.device).reshape(-1).long()
+    ids = torch.unique(ids[ids >= 0])
+    space.set_neighbor_rows(ids, graph_nbrs[ids][:, :space.degree])
+
+
+def shadow_space(data: Tensor, sq_norms: Tensor, valid: Tensor, num: int,
+                 user_metric: str, graph_nbrs: Tensor) -> BQGSpace:
+    """A block space over a raw f32 slab, sharing its ``data``,
+    ``sq_norms`` and ``valid`` tensors (no copy; rows appended to the slab
+    in place show through), with the grid from the stored rows [0, num)
+    and a block for every node from the adjacency at its full row width:
+    the insert shadow of a raw graph index."""
+    dev = data.device
+    w = graph_nbrs.shape[1]
+    sp = BQGSpace.create(0, data.shape[1], metric=user_metric, degree=w,
+                         device=dev)
+    stored = data[:num]
+    dmin = stored.min(0).values
+    sp.data, sp.sq_norms, sp.valid, sp.num = data, sq_norms, valid, num
+    sp.dmin = dmin
+    sp.scale = torch.clamp((stored.max(0).values - dmin) / 255.0, min=1e-30)
+    sp.nbr_ids = torch.full((data.shape[0], w), -1, dtype=torch.int32,
+                            device=dev)
+    return sp.update_neighbors(graph_nbrs)

@@ -4,6 +4,13 @@ A plain dataclass of tensors on one device: ``data[capacity, dim]`` with a
 ``valid`` mask and a ``num`` bump counter. COS is stored normalized and
 computed as IP, like the JAX package. ``fit``, ``insert`` and ``remove``
 update the tensors in place (the JAX package returns a new pytree).
+
+Rows are stored as float32, bfloat16, float16, uint8 or int8; the squared
+norms come from the float32 input, and every distance upcasts the rows to
+float32 (bf16 rows take bf16 queries, as in the JAX package). Storing a
+float in an integer dtype rounds toward zero and saturates at the dtype's
+range, NaN to 0: what the JAX package's cast gives on the CPU (a plain
+torch cast wraps instead).
 """
 
 from __future__ import annotations
@@ -16,7 +23,18 @@ import torch
 from ..ops.distance import normalize_rows, sqnorms
 
 
-STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "float16": torch.float16, "uint8": torch.uint8,
+                  "int8": torch.int8}
+
+
+def store_cast(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``v`` (float) as ``dtype``; integer dtypes saturate (see above)."""
+    if dtype.is_floating_point:
+        return v.to(dtype)
+    info = torch.iinfo(dtype)
+    v = torch.where(torch.isnan(v), torch.zeros_like(v), v)
+    return v.clamp(info.min, info.max).trunc().to(dtype)
 
 
 def bump_slots(num: int, b: int, capacity: int, device: torch.device):
@@ -39,8 +57,8 @@ def tombstone(valid: torch.Tensor, ids) -> None:
 
 @dataclasses.dataclass
 class RawSpace:
-    data: torch.Tensor       # [capacity, dim] f32, or bf16 (bf16 storage and
-                             # the build's pool copy)
+    data: torch.Tensor       # [capacity, dim] in the storage dtype (bf16
+                             # also for the build's pool copy)
     sq_norms: torch.Tensor   # [capacity] f32 (0 for empty slots)
     valid: torch.Tensor      # [capacity] bool
     num: int                 # bump counter (next free slot)
@@ -65,9 +83,7 @@ class RawSpace:
                storage_dtype: str = "float32",
                device: torch.device = torch.device("cpu")) -> "RawSpace":
         if storage_dtype not in STORAGE_DTYPES:
-            raise NotImplementedError(
-                f"storage_dtype={storage_dtype!r} is not ported yet "
-                "(ROADMAP queue 1, item 8: integer and float16 storage)")
+            raise ValueError(f"invalid storage_dtype {storage_dtype!r}")
         metric = metric.lower()
         return RawSpace(
             data=torch.zeros((capacity, dim),
@@ -95,7 +111,7 @@ class RawSpace:
                              f"{self.capacity}")
         if self.user_metric == "cos":
             v = normalize_rows(v)
-        self.data[:n] = v.to(self.data.dtype)
+        self.data[:n] = store_cast(v, self.data.dtype)
         self.sq_norms[:n] = sqnorms(v)
         self.valid[:n] = True
         self.num = n
@@ -112,7 +128,8 @@ class RawSpace:
         start, b = self.num, v.shape[0]
         ids, take = bump_slots(start, b, self.capacity, self.device)
         if take:
-            self.data[start:start + take] = v[:take].to(self.data.dtype)
+            self.data[start:start + take] = store_cast(v[:take],
+                                                       self.data.dtype)
             self.sq_norms[start:start + take] = sqnorms(v[:take])
             self.valid[start:start + take] = True
         self.num = min(start + b, self.capacity)
@@ -156,7 +173,7 @@ class RawSpace:
                              storage_dtype=storage_dtype, device=device)
         # data on disk is already normalized for cos: no re-normalize
         full = torch.tensor(data, device=device)
-        sp.data = full.to(sp.data.dtype)
+        sp.data = store_cast(full, sp.data.dtype)
         sp.sq_norms = sqnorms(full)
         sp.valid = torch.tensor(np.asarray(d["valid"], dtype=bool),
                                 device=device)

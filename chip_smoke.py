@@ -102,12 +102,27 @@ The bsq8 index is freed, then the raw graph path runs:
                hand. The phase fails below 0.75 / 0.91 / 0.965 at ef 32 /
                64 / 128, just under what this index reads. The same index
                with the headline's prune_alpha 1.2 (as phase 4 uses) is
-               fitted too and fails below 0.89 / 0.95 at ef 32 / 64;
+               fitted too and fails below 0.89 / 0.95 at ef 32 / 64.
+               Raw churn on the loaded default index (capacity 1M +
+               16,384): remove 10,000 random ids (none may come back),
+               pack the insert's bsq8 shadow (seconds), insert 8,192 rows
+               from the data's clusters in two batches of 4,096 through the
+               shadow (rows/s and launches a batch; fails unless
+               gather_estimate ran), own top-1 at ef 64 (fails below 0.95),
+               compact (seconds; fails if a removed id is left in a live
+               row or an overlay level, or an entry point is dead), recall@10
+               over the live rows at ef 64 (fails below 0.90, 0.01 under the
+               ef-64 floor above);
   6d. 100k     nsg, fusion and hnsw + sq8 on random_dataset(100,000 x 128,
                seed 42, 50 clusters), the data of the JAX package's 100k
                sweeps (scripts/sweep.py): fit, search, recall@10 (each
                fails below 0.95 at ef 64 and below a floor just under its
-               own readings at ef 32).
+               own readings at ef 32); fusion (rows of 64, its inserts
+               searched through a shadow of degree 64) and hnsw + sq8 (the
+               sq8 traversal, gather_diagdot; no shadow) then churn:
+               1,000 removes, 1,024 inserts, compact (own top-1 fails below
+               0.95, recall@10 at ef 64 below 0.93; fusion must return the
+               same ids after a save and load).
 Then the flat path runs on the same data:
   7. tiles     l2_tile and sq8_tile against their plain versions at the flat
                scan's tile (4096 x 16384 x 128, l2), at 4096 x 65536 x 128
@@ -217,6 +232,14 @@ POOL_RAGGED = ((1000, 100, 256), (333, 10, 8), (1, 200, 77), (333, 128, 32),
                (1000, 10, 10), (333, 64, 2000), (100, 1500, 100))
 ROLLS = (36, 144)
 N_SMALL = 100_000                    # rows of phase 6d
+# raw churn (phases 6c, 6d): (removes, inserts, rows a batch, floor of the
+# new rows' own top-1 share, floor of recall@10 at ef 64 over the live
+# rows). The default raw hnsw at 1M reads 0.917-0.921 before churn, so its
+# floor is 0.90, 0.01 under phase 6c's ef-64 floor; the 100k indices' is
+# 0.93
+RAW_CHURN = {"hnsw_1m": (N_REMOVE, CHURN_INSERT, CHURN_BATCH, CHURN_FLOOR,
+                         0.90),
+             "small": (1_000, 1_024, 1_024, CHURN_FLOOR, 0.93)}
 
 
 def log(msg: str) -> None:
@@ -1583,21 +1606,20 @@ def hop_cat_kernels(torch, sp) -> dict:
 
 
 def graph_index_phase(torch, dev, name, data, queries, gt, floors: dict,
-                      save_load: bool, **params) -> dict:
+                      save_load: bool, churn=None, **params) -> dict:
     """Fit a graph index through the client, search the queries at every ef
     of ``floors`` ({ef: least recall@10}); with ``save_load`` also
-    save, load and search again (the ids must not change). Launch counts
+    save, load and search again (the ids must not change); then, where
+    ``churn`` is given, ``churn(idx)`` on the (loaded) index. Launch counts
     are taken around the fit and around each search."""
-    import shutil
-    import tempfile
-
-    from alayalite_tpu_torch import Client, Index
+    from alayalite_tpu_torch import Client
     from alayalite_tpu_torch.index.search import overlay_descend
     from alayalite_tpu_torch.utils.evaluate import calc_recall
 
     counters = pool_counters()
     n = data.shape[0]
-    idx = Client().create_index(name, capacity=n, **params)
+    params.setdefault("capacity", n)
+    idx = Client().create_index(name, **params)
     for c in counters:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1634,26 +1656,172 @@ def graph_index_phase(torch, dev, name, data, queries, gt, floors: dict,
         if rep["search"][ef]["recall"] < floor:
             raise AssertionError(f"{name}: recall@10 at ef={ef} below {floor}")
     if save_load:
-        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-        tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
-        try:
-            t = time.time()
-            idx.save(os.path.join(tmp, name))
-            rep["save_s"] = time.time() - t
-            del idx
-            torch.cuda.empty_cache()
-            t = time.time()
-            idx = Index.load(tmp, name)
-            torch.cuda.synchronize()
-            rep["load_s"] = time.time() - t
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
+        idx, rep["save_s"], rep["load_s"] = save_and_load(torch, idx, name)
         again = idx.batch_search(queries, K, ef_search=ef)
         rep["same_ids_after_load"] = bool((again == ids).all())
         log(f"{name}: save {rep['save_s']:.2f}s, load {rep['load_s']:.2f}s, "
             f"same ids after load: {rep['same_ids_after_load']}")
         if not rep["same_ids_after_load"]:
             raise AssertionError(f"{name}: a loaded index answers differently")
+    if churn is not None:
+        rep["churn"] = churn(idx)
+    return rep
+
+
+def save_and_load(torch, idx, name):
+    """The index saved under build/ and loaded back: (loaded index,
+    save seconds, load seconds)."""
+    import shutil
+    import tempfile
+
+    from alayalite_tpu_torch import Index
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        t = time.time()
+        idx.save(os.path.join(tmp, name))
+        save_s = time.time() - t
+        t = time.time()
+        back = Index.load(tmp, name, device=idx.device)
+        torch.cuda.synchronize()
+        return back, save_s, time.time() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def raw_churn(torch, dev, idx, name, data, queries, shape, shadow: bool,
+              save_load: bool = False) -> dict:
+    """Raw graph churn through Index: remove random ids (seed 11; none may
+    come back), insert rows from the data's own clusters in batches (rows/s
+    and launches a batch; with ``shadow`` the neighbor search goes through
+    the bsq8 shadow, packed and timed first, and must launch
+    gather_estimate), own top-1 at ef 64, compact (timed; then no removed
+    id in a live row or an overlay level, every entry point live), recall@10
+    at ef 64 over the live rows; with ``save_load`` the same ids after a
+    save and load. ``shape``: a RAW_CHURN entry."""
+    from alayalite_tpu_torch.ops.gather_diagdot import gather_estimate
+    from alayalite_tpu_torch.utils.evaluate import calc_recall
+
+    n_remove, n_insert, batch, own_floor, floor = shape
+    eng = idx._engine
+    n = eng.num
+    counters = (*pool_counters(), gather_estimate)
+    rep = {"launches": {c.__name__: 0 for c in counters}}
+
+    def tally():
+        for c in counters:
+            rep["launches"][c.__name__] += c.launches
+            c.launches = 0
+
+    rng = np.random.default_rng(11)
+    dead = rng.choice(n, size=n_remove, replace=False).astype(np.int32)
+    for c in counters:
+        c.launches = 0
+    idx.remove(dead)
+    ids = idx.batch_search(queries, K, ef_search=64)
+    back = int(np.isin(ids, dead).sum())
+    if back:
+        raise AssertionError(f"{name}: a removed id came back")
+
+    # new rows from the data's own clusters: random_dataset draws its
+    # centers first from the same seed
+    clusters = max(32, n // 2000)
+    centers = (np.random.default_rng(42).normal(size=(clusters, DIM))
+               .astype(np.float32) * 4.0)
+    new = (centers[rng.integers(0, clusters, size=n_insert)]
+           + rng.normal(size=(n_insert, DIM)).astype(np.float32))
+    tally()
+    if shadow:
+        torch.cuda.synchronize()
+        t = time.time()
+        eng._ensure_ins_shadow()
+        torch.cuda.synchronize()
+        rep["shadow_pack_s"] = time.time() - t
+        log(f"{name} churn: shadow packed {n} blocks of "
+            f"{eng.graph.nbrs.shape[1]} in {rep['shadow_pack_s']:.3f}s")
+    new_ids, batches = [], []
+    for lo in range(0, n_insert, batch):
+        tally()
+        torch.cuda.synchronize()
+        t = time.time()
+        new_ids.append(idx.insert(new[lo:lo + batch]))
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        batches.append({"rows": batch, "wall_s": wall,
+                        "rows_per_s": batch / wall,
+                        "launches": {c.__name__: c.launches
+                                     for c in counters}})
+        log(f"{name} churn: inserted {batch} rows in {wall:.3f}s "
+            f"({batch / wall:.1f} rows/s), launches "
+            f"{batches[-1]['launches']}")
+    tally()
+    rep["insert"] = batches
+    rep["shadow_used"] = eng._ins_shadow is not None
+    new_ids = np.concatenate(new_ids)
+    if not (new_ids == np.arange(n, n + n_insert)).all():
+        raise AssertionError(f"{name}: inserted rows did not take the next "
+                             "slots")
+    if shadow and not (rep["shadow_used"] and min(
+            b["launches"]["gather_estimate"] for b in batches) > 0):
+        raise AssertionError(f"{name}: the insert search did not go through "
+                             "the shadow's gather_estimate")
+    own = float((idx.batch_search(new, 1, ef_search=64)[:, 0]
+                 == new_ids).mean())
+    rep["own_top1"] = own
+    log(f"{name} churn: new rows found as their own top-1 at ef 64: "
+        f"{own:.4f}")
+    if own < own_floor:
+        raise AssertionError(f"{name}: own top-1 share below {own_floor}")
+
+    tally()
+    torch.cuda.synchronize()
+    t = time.time()
+    eng.compact()
+    torch.cuda.synchronize()
+    rep["compact_s"] = time.time() - t
+    n = eng.num
+    dead_d = torch.as_tensor(dead.astype(np.int64), device=dev)
+    mask = torch.zeros(eng.capacity, dtype=torch.bool, device=dev)
+    mask[dead_d] = True
+    nbrs = eng.graph.nbrs[:n]
+    held = int((mask[nbrs.clamp(min=0).long()] & (nbrs >= 0)
+                & ~mask[:n, None]).sum())
+    in_overlay = sum(int(torch.isin(lvl.ids, dead_d).sum())
+                     for lvl in eng.graph.overlay)
+    dead_eps = int(mask[eng.graph.eps.long()].sum())
+    log(f"{name} churn: compact {rep['compact_s']:.3f}s, removed ids left: "
+        f"{held} in live rows, {in_overlay} in the overlay, {dead_eps} entry "
+        f"points")
+    if held or in_overlay or dead_eps:
+        raise AssertionError(f"{name}: compact left removed ids behind")
+
+    xd = torch.cat([torch.as_tensor(data, device=dev),
+                    torch.as_tensor(new, device=dev)])
+    gt = ground_truth(torch, xd, torch.as_tensor(queries, device=dev), K,
+                      dead=dead_d)
+    del xd
+    ids, dist, wall, _ = timed_search(torch, idx, queries, K, (),
+                                      ef_search=64)
+    check_result(ids, dist, n, f"{name} after churn")
+    rec = calc_recall(ids, gt)
+    tally()
+    rep.update(recall=rec, qps=queries.shape[0] / wall,
+               removed_returned=back, removed_in_live_rows=held,
+               removed_in_overlay=in_overlay)
+    log(f"{name} churn: recall@10 over the live rows at ef 64 {rec:.4f}, "
+        f"{queries.shape[0] / wall:.1f} QPS, launches {rep['launches']}")
+    if rec < floor or np.isin(ids, dead).any():
+        raise AssertionError(f"{name}: recall after churn below {floor}")
+    if save_load:
+        again, rep["save_s"], rep["load_s"] = save_and_load(torch, idx, name)
+        same = again.batch_search(queries, K, ef_search=64)
+        rep["same_ids_after_load"] = bool((same == ids).all())
+        log(f"{name} churn: same ids after save and load: "
+            f"{rep['same_ids_after_load']}")
+        if not rep["same_ids_after_load"]:
+            raise AssertionError(f"{name}: a loaded index answers "
+                                 "differently after churn")
     return rep
 
 
@@ -1662,7 +1830,10 @@ def raw_graph_phases(torch, dev, ds, gt) -> dict:
     rep = {"hnsw_1m": graph_index_phase(
         torch, dev, "raw_hnsw", ds.data, ds.queries, gt,
         RAW_FLOORS["hnsw_1m"], True,
-        index_type="hnsw")}
+        churn=lambda idx: raw_churn(torch, dev, idx, "raw_hnsw", ds.data,
+                                    ds.queries, RAW_CHURN["hnsw_1m"],
+                                    shadow=True),
+        index_type="hnsw", capacity=N + SPARE)}
     gc.collect()
     torch.cuda.empty_cache()
     rep["hnsw_1m_alpha12"] = graph_index_phase(
@@ -1692,12 +1863,23 @@ def raw_graph_phases(torch, dev, ds, gt) -> dict:
                          ("fusion", dict(index_type="fusion")),
                          ("hnsw_sq8", dict(index_type="hnsw",
                                            quantization_type="sq8"))):
+        churn = None
+        if name != "nsg":
+            # fusion: rows of 64, searched through a shadow of that
+            # degree (f32, ≥ 10,000 rows); hnsw + sq8: the sq8 traversal
+            def churn(idx, name=name):
+                return raw_churn(torch, dev, idx, name, small.data,
+                                 small.queries, RAW_CHURN["small"],
+                                 shadow=name == "fusion",
+                                 save_load=name == "fusion")
+            params["capacity"] = N_SMALL + RAW_CHURN["small"][1]
         rep[f"{name}_100k"] = graph_index_phase(
             torch, dev, name, small.data, small.queries, gt_small,
-            RAW_FLOORS[f"{name}_100k"], False, **params)
+            RAW_FLOORS[f"{name}_100k"], False, churn=churn, **params)
         gc.collect()
         torch.cuda.empty_cache()
-    if rep["hnsw_sq8_100k"]["search"][64]["launches"]["gather_diagdot"] <= 0:
+    if min(rep["hnsw_sq8_100k"]["search"][64]["launches"]["gather_diagdot"],
+           rep["hnsw_sq8_100k"]["churn"]["launches"]["gather_diagdot"]) <= 0:
         raise AssertionError("the sq8 traversal launched gather_diagdot no "
                              "time")
     return rep
@@ -1983,11 +2165,17 @@ def main() -> int:
     churn_launches = report["churn"]["launches"]
 
     def raw_launches(kernel):
-        """Launches on the raw graph path: the four fits and their timed
-        searches."""
-        return sum(ph["fit_launches"][kernel]
-                   + sum(s["launches"][kernel] for s in ph["search"].values())
+        """Launches on the raw graph path: the fits, their timed searches
+        and the churns."""
+        return sum(ph["fit_launches"].get(kernel, 0)
+                   + sum(s["launches"].get(kernel, 0)
+                         for s in ph["search"].values())
+                   + ph.get("churn", {}).get("launches", {}).get(kernel, 0)
                    for ph in report["raw"].values())
+
+    raw_churn_launches = {
+        name: ph["churn"]["launches"] for name, ph in report["raw"].items()
+        if "churn" in ph}
 
     def hop_launches(kernel):
         return (fit_launches[kernel] + search_launches[kernel]
@@ -2002,6 +2190,8 @@ def main() -> int:
                       on_path, report[name]),
                 "launches_bsq8_path": bsq8_pool[name],
                 "launches_raw_path": raw_launches(name),
+                "launches_raw_churn": {k: v[name] for k, v in
+                                       raw_churn_launches.items()},
                 "differing_entries": report[name]["differing_entries"],
                 "launched_by": launched_by, **more}
 
@@ -2066,10 +2256,13 @@ def main() -> int:
          "variant": gather["variant"], "at": entries(gather)},
         {**row("gather_estimate", "alayalite_tpu_torch/csrc/gather_diagdot.cu",
                "scripts/proto_dma_gather.py:93",
-               hop_launches("gather_estimate"), fused),
+               hop_launches("gather_estimate")
+               + raw_launches("gather_estimate"), fused),
          "also_replaces": "scripts/proto_dma_gather2.py:124",
          "launched_by": "BQGSpace.estimate_many: every block hop (fit pools, "
-                        "search, insert), one launch a hop",
+                        "search, insert, and a raw graph's insert through "
+                        "its bsq8 shadow), one launch a hop",
+         "launches_raw_churn": raw_launches("gather_estimate"),
          "variant": fused["variant"], "at": entries(fused),
          "kernels_per_estimate_many": report["estimate_many"][
              "kernels_per_call"]},

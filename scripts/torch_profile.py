@@ -17,6 +17,10 @@ the bsq8 index freed first) fitted on the same rows:
   - one batch_search of the 8192 queries at ef = 64 (overlay descent, beam
     over the f32 rows, exact re-score), and one pool chunk of its build:
     beam_search of 4096 rows at ef = 128 over the bf16 copy of the rows;
+  - one raw insert batch: 4096 rows from the data's clusters through
+    IndexEngine.insert (the neighbor search through the bsq8 shadow, packed
+    by the warm-up batch; the append; fused_raw_connect; the shadow's
+    re-encode; the overlay link);
 then, on a flat index over the same rows:
   - one exact flat search of the 8192 queries, k = 10, and one fast-mode
     search, with the device time split into the l2_tile kernel, the top-k
@@ -128,12 +132,24 @@ def flat_windows(torch, ds, dev) -> dict:
     return out
 
 
+def churn_batches(n: int, count: int):
+    """``count`` batches of 4096 rows from the data's own clusters
+    (random_dataset draws its cluster centers first from the same seed)."""
+    clusters = max(32, n // 2000)
+    centers = (np.random.default_rng(42).normal(size=(clusters, DIM))
+               .astype(np.float32) * 4.0)
+    rng = np.random.default_rng(11)
+    return iter([centers[rng.integers(0, clusters, size=4096)]
+                 + rng.normal(size=(4096, DIM)).astype(np.float32)
+                 for _ in range(count)])
+
+
 def raw_windows(torch, ds, dev) -> dict:
     from alayalite_tpu_torch import Index, IndexParams
     from alayalite_tpu_torch.index.build_phases import bf16_pool_space
     from alayalite_tpu_torch.index.search import beam_search
 
-    idx = Index("raw", IndexParams(index_type="hnsw", capacity=N))
+    idx = Index("raw", IndexParams(index_type="hnsw", capacity=N + 2 * 4096))
     idx.fit(ds.data)
     eng = idx._engine
     out = {"fit_phases": eng.build_timings}
@@ -150,7 +166,11 @@ def raw_windows(torch, ds, dev) -> dict:
         torch, "raw build pool chunk",
         lambda: beam_search(pool_space, eng.graph.nbrs, seeds, rows, k=128,
                             ef=128, n_expand=8))
-    del idx, eng, pool_space
+    del pool_space
+    batches = churn_batches(N, 2)                      # warm-up, traced
+    out["insert_batch"] = trace(torch, "raw insert batch (4096 rows)",
+                                lambda: eng.insert(next(batches)), top=16)
+    del idx, eng
     torch.cuda.empty_cache()
     return out
 
@@ -208,14 +228,7 @@ def main() -> int:
     out["prune_chunk"] = trace(
         torch, "prune chunk",
         lambda: occlusion_prune_chunk(raw, cand_d, cand_i, r=32, alpha=1.2))
-    # random_dataset draws its cluster centers first from the same seed
-    clusters = max(32, N // 2000)
-    centers = (np.random.default_rng(42).normal(size=(clusters, DIM))
-               .astype(np.float32) * 4.0)
-    rng = np.random.default_rng(11)
-    batches = iter([centers[rng.integers(0, clusters, size=4096)]
-                    + rng.normal(size=(4096, DIM)).astype(np.float32)
-                    for _ in range(2)])                # warm-up, traced
+    batches = churn_batches(N, 2)                      # warm-up, traced
     out["insert_batch"] = trace(torch, "insert batch (4096 rows)",
                                 lambda: eng.insert(next(batches)), top=16)
     dev = eng.device

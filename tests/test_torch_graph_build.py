@@ -252,19 +252,41 @@ def test_quick_start_with_the_defaults(kwargs):
                                   "update_nodes"])
 @pytest.mark.parametrize("quant", ["none", "sq8"])
 def test_raw_graph_mutation_raises(what, quant):
+    """Raw graph mutation is ported: each call runs and leaves its mark
+    (``tests/test_torch_raw_update.py`` holds it against the JAX package),
+    and the misuse the JAX package refuses still raises."""
     idx = Index("m", IndexParams(capacity=400, max_nbrs=8,
                                  quantization_type=quant), device="cpu")
     idx.fit(np.random.default_rng(1).normal(size=(300, 8)).astype(np.float32))
     eng: IndexEngine = idx._engine
     nbrs = eng.graph.nbrs.clone()
-    calls = {"insert": lambda: idx.insert(np.zeros(8, np.float32)),
-             "remove": lambda: idx.remove([3]),
-             "compact": eng.compact,
-             "update_nodes": lambda: eng.update_nodes([1, 2])}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        calls[what]()
-    assert eng.num == 300 and eng.space.valid[:300].all()
-    assert torch.equal(eng.graph.nbrs, nbrs)
+    if what == "insert":
+        assert idx.insert(np.zeros(8, np.float32)) == 300
+        assert eng.num == eng.search_space.num == 301
+        assert (eng.graph.nbrs[300] >= 0).any()
+        with pytest.raises(ValueError, match="dimension"):
+            idx.insert(np.zeros(9, np.float32))
+    elif what == "remove":
+        idx.remove([3])
+        assert not eng.space.valid[3] and not eng.search_space.valid[3]
+        assert eng._removed == [3] and torch.equal(eng.graph.nbrs, nbrs)
+        with pytest.raises(ValueError, match="out of range"):
+            idx.remove([400])
+    elif what == "compact":
+        idx.remove([3])
+        eng.compact()
+        assert eng._removed == []
+        assert not (eng.graph.nbrs[:300][torch.arange(300) != 3] == 3).any()
+    else:
+        eng.update_nodes([1, 2])
+        assert torch.equal(eng.graph.nbrs[3:], nbrs[3:])
+        assert not (eng.graph.nbrs[1] == 1).any()
+        flat = Index("f", IndexParams(index_type="flat", capacity=400),
+                     device="cpu")
+        flat.fit(np.zeros((10, 8), np.float32))
+        with pytest.raises(RuntimeError, match="no graph"):
+            flat._engine.update_nodes([1])
+    assert eng.space.valid[:300].sum() >= 299
 
 
 def _broken_graph(seed=0, n=600, r=6, parts=5, dim=8):

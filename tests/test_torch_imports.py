@@ -32,7 +32,8 @@ def _imported_roots(path):
 
 def test_import_leaves_no_jax_in_sys_modules():
     code = ("import sys, alayalite_tpu_torch, alayalite_tpu_torch.convert, "
-            "alayalite_tpu_torch.index.qg, alayalite_tpu_torch.ops._build\n"
+            "alayalite_tpu_torch.index.qg, alayalite_tpu_torch.ops._build, "
+            "alayalite_tpu_torch.index.overlay_update\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r})\n"
             "print(','.join(bad))")
@@ -89,29 +90,26 @@ def test_unported_surfaces_raise():
     from alayalite_tpu_torch import Client
 
     c = Client(device="cpu")
-    # the graph index types and sq8 / sq4 are ported; what still waits:
-    # rabitq (both widths), integer and float16 storage, sharding, the
-    # collection, and mutation of a raw graph index
+    # the graph index types, sq8 / sq4, every storage dtype and the
+    # mutation of raw graphs are ported; what still waits: rabitq (both
+    # widths), flat + sq4, sharding and the collection, each naming its
+    # ROADMAP item
     for quant in ("rabitq", "rabitq2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
             c.create_index("r", quantization_type=quant)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c.create_index("u8", index_type="flat", data_type="uint8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c.create_index("f16", storage_dtype="float16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         c.create_index("flat4", index_type="flat", quantization_type="sq4")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         c.create_index("shards", index_type="flat", db_shards=2)
     for shards in ("build_shards", "serve_shards"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
             c.create_index("shards", index_type="hnsw", **{shards: 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
         c.create_collection("col")
+    c.create_index("u8", index_type="flat", data_type="uint8")
+    c.create_index("f16", storage_dtype="float16")
     for kind in ("hnsw", "nsg", "fusion"):
         idx = c.create_index(kind, index_type=kind, capacity=300, max_nbrs=8)
         idx.fit(torch.randn(200, 8).numpy())
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            idx.insert(torch.zeros(8).numpy())
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            idx.remove([1])
+        assert idx.insert(torch.zeros(8).numpy()) == 200
+        idx.remove([1])
