@@ -1,9 +1,11 @@
 """alayalite_tpu_torch — the PyTorch/CUDA port of alayalite_tpu.
 
-It covers the main path, ``hnsw`` + ``bsq8`` fit (QG build) and batch
-search, with the block estimate stage in a hand-written CUDA kernel
-(``csrc/gather_diagdot.cu``); and the flat index (exact and fast scans, sq8 codes,
-insert and remove), whose exact l2 scan runs the hand-written distance tile
+It covers ``Client`` (with ``url`` discovery), ``Collection`` and
+``Index``: the block-quantized graphs (``bsq8``, ``rabitq``, ``rabitq2``),
+the raw graph indices (``hnsw``, ``nsg``, ``fusion``) and the flat index,
+each with fit, search, insert, remove and save/load; the block hop's
+estimate and the pool's sorts, merges and probes run in hand-written CUDA
+kernels (``csrc/*.cu``), the flat exact l2 scan in the distance tile
 ``csrc/l2_tile.cu`` (``csrc/sq8_tile.cu`` is the tile against sq8 codes).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``. The package imports ``torch`` and numpy,
 never ``jax`` or ``alayalite_tpu``; index directories are shared with the
@@ -11,6 +13,7 @@ JAX package in both directions.
 """
 
 from .client import Client
+from .collection import Collection
 from .index_api import Index
 from .params import IndexParams, IndexType, MetricType, QuantizationType
 
@@ -18,6 +21,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Client",
+    "Collection",
     "Index",
     "IndexParams",
     "IndexType",

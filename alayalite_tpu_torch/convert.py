@@ -11,11 +11,14 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from .device import DeviceLike
 from .index.engine import IndexEngine
 from .index.graph import Graph
 from .params import IndexParams, QuantizationType
 from .spaces.bqg import BQGSpace
+from .spaces.rabitq import RaBitQSpace
 from .spaces.raw import RawSpace
 from .spaces.sq import SQSpace
 
@@ -36,9 +39,25 @@ def from_jax_arrays(params_json: str, raw_arrays: dict,
     if graph_arrays is not None:
         eng.graph = Graph.load_arrays(graph_arrays, device=eng.device)
     qtype = {QuantizationType.BSQ8: BQGSpace, QuantizationType.SQ8: SQSpace,
-             QuantizationType.SQ4: SQSpace}.get(params.quantization_type)
-    eng.search_space = (eng.space if quant_arrays is None or qtype is None
-                        else qtype.load_arrays(quant_arrays,
-                                               device=eng.device))
+             QuantizationType.SQ4: SQSpace,
+             QuantizationType.RABITQ: RaBitQSpace,
+             QuantizationType.RABITQ2: RaBitQSpace,
+             }.get(params.quantization_type)
+    if quant_arrays is None or qtype is None:
+        eng.search_space = eng.space
+    elif qtype is RaBitQSpace:
+        eng.search_space = RaBitQSpace.load_arrays(
+            quant_arrays, device=eng.device, storage=_shared_slab(eng.space))
+    else:
+        eng.search_space = qtype.load_arrays(quant_arrays, device=eng.device)
     eng._fitted = True
     return eng
+
+
+def _shared_slab(space: RawSpace):
+    """A rabitq space shares an f32 raw slab, as at fit (the two hold the
+    same normalize-then-store rows); other storage gets its own copy."""
+    if space.data.dtype != torch.float32:
+        return None
+    return space.data, space.sq_norms, space.valid, space.num
+

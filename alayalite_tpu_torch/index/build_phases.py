@@ -6,6 +6,7 @@ each chunk's rows into a preallocated output in place.
 
   search_pool_dev          beam-search pools over a raw (bf16) space
   block_pool_dev           the same beams over an interim block space
+  twohop_pool_dev          kNN ∪ kNN² pools scored exactly (no beam)
   prune_all_dev            occlusion prune of [pool ∪ kNN] candidates
   reverse_edges_dev        bounded reverse-edge table by random-slot scatter
   reprune_with_reverse_dev re-prune every node over [edges ∪ reverse]
@@ -125,6 +126,35 @@ def block_pool_dev(bspace, eps: np.ndarray, ef: int, n: int,
                                  n_expand=n_expand, max_iters=max_iters)
         pool_d[lo:lo + chunk] = d
         pool_i[lo:lo + chunk] = i
+    return pool_d, pool_i
+
+
+def twohop_pool_dev(space, knn_i: Tensor, ef: int, n: int,
+                    chunk: int = 4096) -> Tuple[Tensor, Tensor]:
+    """Pools from the kNN graph alone: each node's kNN row ∪ its
+    neighbors' kNN rows (a [C, K + K²] gather a chunk), itself dropped,
+    scored exactly, duplicates dropped, the ``ef`` best kept. Returns
+    (pool_d [n, ef], pool_i [n, ef]), inf / −1 past the candidates."""
+    from .prune import _sort_dedup
+
+    starts, chunk = _chunks(n, chunk)
+    pool_d = torch.zeros((n, ef), dtype=torch.float32, device=knn_i.device)
+    pool_i = torch.zeros((n, ef), dtype=torch.int32, device=knn_i.device)
+    for lo in starts:
+        ki = knn_i[lo:lo + chunk]                                  # [C, K]
+        ok = ki >= 0
+        hop2 = knn_i[torch.where(ok, ki, torch.zeros_like(ki)).long()]
+        hop2 = torch.where(ok[:, :, None], hop2, torch.full_like(hop2, -1))
+        cand = torch.cat([ki, hop2.reshape(ki.shape[0], -1)], dim=1)
+        me = lo + torch.arange(ki.shape[0], dtype=torch.int32,
+                               device=ki.device)[:, None]
+        cand = torch.where(cand == me, torch.full_like(cand, -1), cand)
+        d = space.gather_dists(space.data[lo:lo + chunk].float(),
+                               cand.clamp(min=0))
+        d = torch.where(cand >= 0, d, torch.full_like(d, FINF))
+        sd, si = _sort_dedup(d, cand)
+        pool_d[lo:lo + chunk] = sd[:, :ef]
+        pool_i[lo:lo + chunk] = si[:, :ef]
     return pool_d, pool_i
 
 

@@ -3,21 +3,23 @@
 Ported: block quantization (bsq8: ``fit`` built by ``QGBuilder``, the
 block branch of batch search, the per-query seed-scan sample, online
 insert through ``fused_block_insert``, tombstone remove with the
-compaction threshold, ``compact`` and ``update_nodes``), the raw graph
-indices (``hnsw``, ``nsg``, ``fusion`` with quantization none, sq8 or sq4
-and any storage dtype: ``fit`` through their builders, overlay descent +
-beam + exact re-score, and for sq the quantized traversal re-ranked in the
-build space; insert through the search, the append, ``fused_raw_connect``
-and ``extend_overlay``, with the neighbor search through a bsq8 shadow of
-the graph on large f32 indices; remove, ``compact`` with
-``strip_overlay``, ``update_nodes``), the flat index (``index_type="flat"``
-with quantization none or sq8: exact and fast scans, insert, tombstone
-remove), and save/load in the JAX package's on-disk layout (``schema.json``
-+ npz files), so either package loads the other's index directories,
-mutated or not.
+compaction threshold, ``compact`` and ``update_nodes``; rabitq and
+rabitq2, whose space shares the raw f32 slab, with the 1-bit search's
+``rabitq_ef_boost`` and the host-orchestrated insert ``_insert_rabitq``),
+the raw graph indices (``hnsw``, ``nsg``, ``fusion`` with quantization
+none, sq8 or sq4 and any storage dtype: ``fit`` through their builders,
+overlay descent + beam + exact re-score, and for sq the quantized
+traversal re-ranked in the build space; insert through the search, the
+append, ``fused_raw_connect`` and ``extend_overlay``, with the neighbor
+search through a bsq8 shadow of the graph on large f32 indices; remove,
+``compact`` with ``strip_overlay``, ``update_nodes``), the flat index
+(``index_type="flat"`` with quantization none or sq8: exact and fast
+scans, insert, tombstone remove), and save/load in the JAX package's
+on-disk layout (``schema.json`` + npz files), so either package loads
+the other's index directories, mutated or not.
 
-Not ported yet, each raising ``NotImplementedError``: rabitq (ROADMAP
-queue 1, item 4, with its host-side insert), sharding (item 6).
+Not ported yet, raising ``NotImplementedError``: sharding (ROADMAP queue
+1, item 6) and flat + sq4.
 
 Inserts and rewires run on batches of any size, in slices that bound the
 temporaries: the JAX package pads them to buckets only so XLA does not
@@ -42,6 +44,7 @@ from ..device import DeviceLike, resolve_device, synchronize
 from ..ops.distance import exact_topk, flat_search_device
 from ..params import IndexParams, IndexType, QuantizationType
 from ..spaces.bqg import BQGSpace
+from ..spaces.rabitq import RaBitQSpace
 from ..spaces.raw import RawSpace
 from ..spaces.sq import SQSpace
 from .graph import Graph
@@ -64,13 +67,12 @@ def check_supported(params: IndexParams) -> None:
     """Raise for the parts of IndexParams the port does not cover yet."""
     qt = params.quantization_type
     flat = params.index_type is IndexType.FLAT
-    if qt is not QuantizationType.BSQ8 and qt not in (
-            _FLAT_QUANT if flat else _GRAPH_QUANT):
+    if not qt.is_block and qt not in (_FLAT_QUANT if flat else _GRAPH_QUANT):
         raise NotImplementedError(
             f"index_type={params.index_type.value!r} with quantization_type="
-            f"{qt.value!r} is not ported yet: the port covers bsq8, graph "
-            "indices with none, sq8 or sq4, and flat indices with none or "
-            "sq8 (ROADMAP queue 1, item 4 holds rabitq)")
+            f"{qt.value!r} is not ported: the port covers the block "
+            "quantizations (bsq8, rabitq, rabitq2), graph indices with none, "
+            "sq8 or sq4, and flat indices with none or sq8 (ROADMAP)")
     if max(params.db_shards, params.build_shards, params.serve_shards) > 1:
         raise NotImplementedError(
             "sharded indices are not ported yet (ROADMAP queue 1, item 6)")
@@ -135,16 +137,16 @@ class IndexEngine:
                                      storage_dtype=p.storage_dtype,
                                      device=self.device).fit(v)
         self._sscan = None
-        if p.quantization_type is QuantizationType.BSQ8:
-            bqg = BQGSpace.create(capacity, dim, metric=metric,
-                                  degree=p.max_nbrs, device=self.device).fit(v)
+        if self._is_block:
+            block = self._make_block_space(capacity, dim, v)
             del v
             from .qg import QGBuilder
 
-            builder = QGBuilder(r=p.max_nbrs, ef=max(p.ef_construction, 128),
+            builder = QGBuilder(r=block.degree,
+                                ef=max(p.ef_construction, 128),
                                 alpha=float(p.prune_alpha))
             self.graph, self.search_space = builder.build_graph(self.space,
-                                                                bqg, n)
+                                                                block, n)
             self.build_timings = dict(builder.timings)
         else:
             bits = {QuantizationType.SQ8: 8,
@@ -165,6 +167,25 @@ class IndexEngine:
         self._fitted = True
         synchronize(self.device)
         log.info("fit: n=%d dim=%d in %.2fs", n, dim, time.time() - t0)
+
+    def _make_block_space(self, capacity: int, dim: int, v: torch.Tensor):
+        """The block space of a fit: BQGSpace (bsq8, degree max_nbrs), or a
+        RaBitQSpace (degree 32) over the raw space's slab where that is
+        f32 (both hold the same normalize-then-store rows), else with its
+        own f32 copy."""
+        p = self.params
+        metric = p.metric.value
+        if p.quantization_type is QuantizationType.BSQ8:
+            return BQGSpace.create(capacity, dim, metric=metric,
+                                   degree=p.max_nbrs, device=self.device).fit(v)
+        bits = 2 if p.quantization_type is QuantizationType.RABITQ2 else 1
+        sp = self.space
+        shared = sp.data.dtype == torch.float32
+        rq = RaBitQSpace.create(
+            capacity, dim, metric=metric, rotator=p.rotator, bits=bits,
+            storage=((sp.data, sp.sq_norms, sp.valid, sp.num) if shared
+                     else None), device=self.device)
+        return rq if shared else rq.fit(v)
 
     # --------------------------------------------------------------- search
     def _require_fitted(self):
@@ -202,6 +223,9 @@ class IndexEngine:
         ef = max(int(ef), int(topk))
         if not self._is_block:
             return self._graph_search(q, topk, ef)
+        if self.params.quantization_type is QuantizationType.RABITQ:
+            # 1-bit estimates need ~4x the pool width for equal recall
+            ef = max(ef, int(round(ef * self.params.rabitq_ef_boost)))
         qchunk = 1024 if self.space.dim >= 512 else 4096
         seed_arrays = self._seed_scan_arrays()
         if (seed_arrays is None and self.params.seed_sample <= 0
@@ -240,7 +264,7 @@ class IndexEngine:
 
     @property
     def _is_block(self) -> bool:
-        return self.params.quantization_type is QuantizationType.BSQ8
+        return self.params.quantization_type.is_block
 
     def _graph_search(self, q: torch.Tensor, topk: int, ef: int):
         """Raw graph search. Raw space: descent, beam and exact re-score of
@@ -320,8 +344,10 @@ class IndexEngine:
         self._require_fitted()
         v = torch.atleast_2d(torch.as_tensor(
             np.asarray(vectors, dtype=np.float32), device=self.device))
-        if self._is_block:
+        if self.params.quantization_type is QuantizationType.BSQ8:
             ids = self._insert_block_fused(v, ef)
+        elif self._is_block:
+            ids = self._insert_rabitq(v, ef)
         elif self.graph is not None:
             ids = self._insert_raw_graph(v, ef)
         else:
@@ -349,6 +375,44 @@ class IndexEngine:
                 ef=max(int(ef), r), iters=0, m=self.params.beam_expand))
             self.space.insert(sub)
         return torch.cat(out)
+
+    def _insert_rabitq(self, v: torch.Tensor, ef: int) -> torch.Tensor:
+        """rabitq insert, orchestrated from the host as in the JAX package
+        (its re-quantization is relative to each block's centre node): the
+        new rows' neighbors by the index's own search at max(ef, 32), the
+        append, then the rows of every node the new rows point at
+        re-selected from [its edges ∪ the new rows pointing at it] by exact
+        distance (top 32, duplicates dropped), and one batched
+        re-quantization of the new and the touched blocks."""
+        ss = self.search_space
+        r = ss.degree
+        ids_nb, _ = self._batch_search_impl(v, r, ef=max(int(ef), r))
+        new_ids = self.space.insert(v)
+        if ss.data is self.space.data:
+            ss.num = self.space.num      # the shared slab holds the rows
+        else:
+            ss.insert_raw(v)
+        ok = new_ids >= 0
+        if not bool(ok.any()):
+            return new_ids
+        src, rows = new_ids[ok], ids_nb[ok].to(torch.int32)
+        touched, rev = _reverse_candidates(src, rows)
+        all_ids, all_rows = [src], [rows]
+        for lo in range(0, touched.shape[0], REWIRE_CHUNK):
+            t = touched[lo:lo + REWIRE_CHUNK]
+            cand = torch.cat([ss.nbr_ids[t.long()], rev[lo:lo + REWIRE_CHUNK]],
+                             dim=1)
+            cand = torch.where(cand == t[:, None], torch.full_like(cand, -1),
+                               cand)
+            d = self.space.gather_dists(self.space.data[t.long()].float(),
+                                        cand.clamp(min=0))
+            d = torch.where(cand >= 0, d, torch.full_like(d, float("inf")))
+            all_ids.append(t)
+            all_rows.append(_topr_dedup(d, cand, r))
+        all_ids = torch.cat(all_ids).long()
+        ss.set_neighbor_rows(all_ids, torch.cat(all_rows))
+        self.graph.nbrs[all_ids] = ss.nbr_ids[all_ids]
+        return new_ids
 
     def _insert_raw_graph(self, v: torch.Tensor, ef: int) -> torch.Tensor:
         """Raw graph insert in slices of ``INSERT_CHUNK`` rows, each seeing
@@ -519,10 +583,10 @@ class IndexEngine:
     def update_nodes(self, ids, _removed=None) -> None:
         """Rebuild the edges of ``ids``: candidates = live current edges ∪
         the live edges of removed neighbors (the 2-hop detour), top-R by
-        exact distance, R the block degree (bsq8, whose rebuilt rows are
-        re-encoded in the same pass) or the row width (raw graphs: fusion
-        rows are 2·max_nbrs). Every row is computed from the adjacency as
-        it stands on entry."""
+        exact distance, R the block degree (bsq8 and rabitq, whose rebuilt
+        rows are re-encoded in the same pass) or the row width (raw graphs:
+        fusion rows are 2·max_nbrs). Every row is computed from the
+        adjacency as it stands on entry."""
         self._require_fitted()
         if self.graph is None:
             raise RuntimeError("flat index has no graph to update")
@@ -628,6 +692,31 @@ def _rewire_rows_dev(space, nbrs: torch.Tensor, removed_mask: torch.Tensor,
     d = space.gather_dists(space.data[ids].float(), cand.clamp(min=0))
     d = torch.where(cand >= 0, d, torch.full_like(d, float("inf")))
     return _topr_dedup(d, cand, r)
+
+
+def _reverse_candidates(src: torch.Tensor, rows: torch.Tensor):
+    """Invert (source node → its edge row) into per-destination candidate
+    lists: (touched [T] i32, ascending; rev [T, maxc] i32, −1 padded, the
+    sources pointing at each, in source order)."""
+    r = rows.shape[1]
+    s = src.to(torch.int32).repeat_interleave(r)
+    dst = rows.reshape(-1)
+    keep = dst >= 0
+    s, dst = s[keep], dst[keep]
+    if not dst.numel():
+        return (torch.empty(0, dtype=torch.int32, device=rows.device),
+                torch.empty((0, 0), dtype=torch.int32, device=rows.device))
+    dst_s, order = torch.sort(dst, stable=True)
+    src_s = s[order]
+    touched, counts = torch.unique_consecutive(dst_s, return_counts=True)
+    start = torch.cumsum(counts, 0) - counts
+    row = torch.repeat_interleave(torch.arange(touched.shape[0],
+                                               device=rows.device), counts)
+    pos = torch.arange(dst_s.shape[0], device=rows.device) - start[row]
+    rev = torch.full((touched.shape[0], int(counts.max())), -1,
+                     dtype=torch.int32, device=rows.device)
+    rev[row, pos] = src_s
+    return touched.to(torch.int32), rev
 
 
 def _topr_dedup(cand_d: torch.Tensor, cand_i: torch.Tensor,

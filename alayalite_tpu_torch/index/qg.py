@@ -1,13 +1,16 @@
-"""QG builder: fixed-degree graph + block-SQ8 neighbor blocks (port of
-``index/qg.py``).
+"""QG builder: fixed-degree graph + neighbor blocks, block-SQ8 or RaBitQ
+(port of ``index/qg.py``).
 
 kNN graph (NN-Descent) → medoid entry point → candidate pools → occlusion
 prune → reverse edges + re-prune → degree fill → connectivity repair →
 neighbor-block encode. The pools come from beam searches over a bf16 copy
-of the raw space below 250k rows ("beam") and from block searches over an
-interim block space packed from the kNN rows from 250k up ("block"), which
-runs ``gather_estimate`` and ``ring_probe`` on every hop. ``pool_mode``
-forces one of the two.
+of the raw space ("beam"): at every size for a RaBitQ space, whose 1- and
+2-bit estimates are too noisy to steer the build, and below 250k rows for
+a block-SQ8 one, which from 250k up takes block searches over an interim
+block space packed from the kNN rows ("block": ``gather_estimate`` and
+``ring_probe`` on every hop). ``pool_mode`` forces one of them, or
+"twohop": each node's kNN row ∪ its neighbors' rows, scored exactly, no
+beam (``build_phases.twohop_pool_dev``).
 
 The JAX package's environment switches (ALAYA_POOL_MODE, ALAYA_POOL_ITERS,
 ALAYA_POOL_CHUNK, ALAYA_POOL_BF16, ALAYA_PRUNE_BF16, ALAYA_PRUNE_MCAP,
@@ -24,10 +27,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..spaces.bqg import BQGSpace
 from .build_phases import (PhaseTimer, bf16_pool_space, block_pool_dev,
                            fill_degree_dev, make_generator, prune_all_dev,
                            reprune_with_reverse_dev, reverse_edges_dev,
-                           search_pool_dev)
+                           search_pool_dev, twohop_pool_dev)
 from .graph import Graph
 from .nndescent import build_knn_graph
 from .nsg import find_medoid
@@ -47,19 +51,18 @@ class QGBuilder:
     r: int = 32
     ef: int = 128
     alpha: float = 1.0      # occlusion slack (params.prune_alpha)
-    pool_mode: str = ""     # "" = by size; "beam" | "block"
+    pool_mode: str = ""     # "" = by size; "beam" | "block" | "twohop"
     timings: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     def build_graph(self, raw_space, bqg_space, n: Optional[int] = None):
-        """Returns (Graph with eps, BQGSpace with encoded blocks)."""
+        """Returns (Graph with eps, the block space with encoded blocks):
+        ``bqg_space`` is a BQGSpace or a RaBitQSpace."""
         if n is None:
             n = raw_space.num
         if self.r != bqg_space.degree:
             raise ValueError("block degree must match the space's width")
-        if self.pool_mode not in ("", "beam", "block"):
-            raise NotImplementedError(
-                f"pool_mode={self.pool_mode!r} is not ported "
-                "(ROADMAP queue 1, item 3; 'beam' and 'block' are)")
+        if self.pool_mode not in ("", "beam", "block", "twohop"):
+            raise ValueError(f"unknown pool_mode {self.pool_mode!r}")
         dev = raw_space.device
         self.timings = {}
         phase = PhaseTimer(dev, "qg", self.timings)
@@ -72,7 +75,8 @@ class QGBuilder:
         phase("knn")
         ep = find_medoid(raw_space, n)
         pool_mode = self.pool_mode or (
-            "block" if n >= BLOCK_POOL_MIN_ROWS else "beam")
+            "block" if n >= BLOCK_POOL_MIN_ROWS
+            and isinstance(bqg_space, BQGSpace) else "beam")
 
         sample, pool_iters = None, 0
         if n >= 4 * 128:
@@ -86,7 +90,10 @@ class QGBuilder:
                                         raw_space.user_metric)
         # pool width caps at 128: wider pools only pad the per-hop sort
         pool_ef = min(self.ef, 128)
-        if pool_mode == "block":
+        if pool_mode == "twohop":
+            pool_d, pool_i = twohop_pool_dev(raw_space, knn_i, ef=self.ef,
+                                             n=n, chunk=CHUNK)
+        elif pool_mode == "block":
             # interim blocks from the kNN rows; the final encode below
             # rewrites them from the real adjacency in the same buffer
             bqg_space.update_neighbors(knn_i, chunk=CHUNK)

@@ -13,8 +13,9 @@ Ported: ``_pop_best_m``, ``beam_search`` in both visited modes ("ring":
 the pop ring and the merge's dedup; "bitmask": an exact per-query bitset),
 ``overlay_descend``, ``graph_seeds`` and ``graph_search_device`` (the raw
 graph query: overlay descent, beam, exact re-score), ``block_beam_search``
-(without the 1-bit result pool, which only rabitq uses),
-``seed_sample_arrays``, ``scan_seeds`` and ``block_search_device``.
+(with the 1-bit result pool of rabitq; the JAX package's
+``rabitq_beam_search`` is this function), ``seed_sample_arrays``,
+``scan_seeds`` and ``block_search_device``.
 ``scan_seeds`` takes the exact top-k where the JAX package takes
 ``lax.approx_max_k``: a superset of what the approximation can return, and
 one reason result ids differ between the packages. Every pool merge is
@@ -265,16 +266,26 @@ def graph_search_device(space, nbrs: Tensor, eps: Tensor, overlay,
 def block_beam_search(space, seeds: Tensor, queries: Tensor, k: int, ef: int,
                       max_iters: int = 0, valid: Optional[Tensor] = None,
                       n_expand: int = 1) -> Tuple[Tensor, Tensor]:
-    """Beam search over a block space (BQGSpace): each popped node costs one
-    fat row read inside ``gather_estimate``, which scores the neighbors with
-    the block estimator, ``ring_probe`` drops the ones already expanded or
-    pooled, and the final pool is re-ranked with exact raw distances."""
+    """Beam search over a block space (BQGSpace, RaBitQSpace): each popped
+    node's block is read by the space's ``estimate_many`` (bsq8: one
+    ``gather_estimate`` launch a hop; rabitq: one ``block_diagdot``), which
+    scores its neighbors with the block estimator, ``ring_probe`` drops the
+    ones already expanded or pooled, and the final pool is re-ranked with
+    exact raw distances.
+
+    A 1-bit space (``space.bits == 1``) also keeps the result pool: the
+    exact distances of the popped nodes, which the estimator needs as its
+    ``d_center`` anyway (gathered once a hop and handed to it), merge into
+    a k-wide pool (one ``merge_topk_dedup`` of [B, k + M] a hop) that the
+    final rerank unions in, so a true neighbor once popped cannot be lost
+    to the estimates' noise."""
     B = queries.shape[0]
     C = space.capacity
     L = max(int(ef), int(k))
     M = max(1, int(n_expand))
     max_iters = _default_iters(L, M, max_iters)
     dev = queries.device
+    res_pool = getattr(space, "bits", 0) == 1
     ctx = space.query_ctx(queries)
     popring = torch.full((B, _popring_width(M, max_iters)), -1,
                          dtype=torch.int32, device=dev)
@@ -286,6 +297,8 @@ def block_beam_search(space, seeds: Tensor, queries: Tensor, k: int, ef: int,
     pool_d, pool_i, pool_c = merge_topk_dedup(
         *_init_pool(B, L, dev), d_seed, _neg1_where_not(seed_ok, seeds),
         torch.zeros_like(seed_ok), L)
+    res_d = torch.full((B, int(k)), FINF, device=dev)
+    res_i = torch.full((B, int(k)), -1, dtype=torch.int32, device=dev)
 
     for _ in range(max_iters):
         if not bool(_has_next(pool_d, pool_i, pool_c).any()):
@@ -293,7 +306,15 @@ def block_beam_search(space, seeds: Tensor, queries: Tensor, k: int, ef: int,
         u, active, pool_c = _pop_best_m(pool_d, pool_i, pool_c, M)
         u_safe = torch.where(active, u, torch.zeros_like(u))
         popring = torch.cat([popring[:, M:], _neg1_where_not(active, u)], 1)
-        est, nids = space.estimate_many(ctx, u_safe)           # [B, M*R]
+        if res_pool:
+            du = space.gather_dists(queries, u_safe)           # [B, M]
+            res_d, res_i, _ = merge_topk_dedup(
+                res_d, res_i, torch.zeros_like(res_i, dtype=torch.bool),
+                _inf_where_not(active, du), _neg1_where_not(active, u),
+                torch.zeros_like(active), int(k))
+            est, nids = space.estimate_many(ctx, u_safe, d_center=du)
+        else:
+            est, nids = space.estimate_many(ctx, u_safe)       # [B, M*R]
         R = nids.shape[1] // M
         nids = _neg1_where_not(active.repeat_interleave(R, dim=1), nids)
         # stale = already expanded (the pop ring) or already pooled
@@ -303,14 +324,19 @@ def block_beam_search(space, seeds: Tensor, queries: Tensor, k: int, ef: int,
             pool_d, pool_i, pool_c, _inf_where_not(fresh, est),
             _neg1_where_not(fresh, nids), torch.zeros_like(fresh), L)
 
-    # exact rerank of the whole pool
-    ok = pool_i >= 0
+    # exact rerank of the whole pool (and the result pool's exact entries)
     d_exact = space.gather_dists(
-        queries, torch.where(ok, pool_i, torch.zeros_like(pool_i)))
+        queries, torch.where(pool_i >= 0, pool_i, torch.zeros_like(pool_i)))
+    if res_pool:
+        pool_i = torch.cat([pool_i, res_i], 1)
+        d_exact = torch.cat([d_exact, res_d], 1)
+    ok = pool_i >= 0
     if valid is not None:
         ok &= valid[pool_i.clamp(0, C - 1).long()]
-    # safety net against two live copies of one id in the pool
-    tril = torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev), -1)
+    # safety net against two live copies of one id in the pool (and a
+    # popped node in both pools)
+    W = pool_i.shape[1]
+    tril = torch.tril(torch.ones((W, W), dtype=torch.bool, device=dev), -1)
     dup = ((pool_i[:, :, None] == pool_i[:, None, :]) & tril[None]).any(2)
     out_d, sel = topk_smallest(_inf_where_not(ok & ~dup, d_exact), k)
     ids = torch.gather(pool_i, 1, sel)

@@ -53,12 +53,17 @@ class Index:
     # ---- lifecycle ----
     def fit(self, vectors, ef_construction: int = 100,
             num_threads: int = 1) -> None:
-        v = np.asarray(vectors)
+        """Build over ``vectors`` [n, dim]: an array, or a float tensor
+        (a device tensor is used where it lies, without a host copy)."""
+        if isinstance(vectors, torch.Tensor):
+            v, self._dtype = vectors.float(), np.float32
+        else:
+            v = np.asarray(vectors)
+            self._dtype = v.dtype if v.dtype != np.float64 else np.float32
+            v = v.astype(np.float32, copy=False)
         _assert(v.ndim == 2, "vectors must be 2-D [n, dim]")
         _assert(v.shape[0] > 0, "vectors must not be empty")
-        self._dtype = v.dtype if v.dtype != np.float64 else np.float32
-        self._engine.fit(v.astype(np.float32, copy=False),
-                         ef_construction=ef_construction,
+        self._engine.fit(v, ef_construction=ef_construction,
                          num_threads=num_threads)
         self._dim = int(v.shape[1])
 

@@ -142,6 +142,37 @@ Then the flat path runs on the same data:
  11. sq8       sq8_tile on the flat index's fitted codes (the first 65,536
                rows, 4096 queries) against its plain version and against
                the exact distance to the decoded rows.
+Then the SDK front door and RaBitQ:
+ 12. collection Client(url=<a directory under build/>), create_collection
+               (the default raw hnsw, capacity 1M + 16,384): one insert of
+               the 1M rows as items ("d{i}", a document, {"shard": i %
+               500}), 8,192 new items from the data's clusters, an upsert
+               of 1,024 ids with moved vectors, delete_by_filter of shard 7
+               (2,000 rows); batch_query of the 8192 queries at ef 64:
+               recall@10 against this script's ground_truth over the
+               live rows on the card (fails below 0.90), no deleted id, every document its id's,
+               the new items' own top-1 (fails below 0.95); each step's
+               seconds, items/s and QPS; save_collection, then a fresh
+               Client(url) must find it and return the same ids;
+ 13. reindex   a 100k-row collection on phase 6d's data, 1% deleted,
+               reindex(): recall@10 at ef 64 (fails below 0.95);
+ 14. calc_gt   on the card at 1M x 8192, k 10, exact (l2_tile) and fast
+               (bf16 scan, f32 rerank), seconds each; exact must hold
+               ≥ 0.9999 of this script's ground_truth ids (ties aside),
+               fast ≥ 0.999 of the exact ids;
+ 15. rabitq    the 1-bit index of results/sift1m_frontier.json
+               (hnsw_rabitq_R32_efc200: max_nbrs 32, ef_construction 200,
+               prune_alpha 1.0, seed_sample 4096, rabitq_ef_boost 4,
+               beam_expand 8, hop budget max(3, ef // 8)) on the 1M rows:
+               fit seconds by phase; recall@10 at ef 48 / 64 / 96 (floors
+               0.01 under the JAX package's 0.9261 / 0.9493 / 0.9710);
+               every search must launch block_diagdot once a hop; the hop's
+               dot on the index's own blocks against block_diagdot_ref and
+               the planes-apart form, timed; insert 4,096 rows (own top-1,
+               fails below 0.95), remove 10,000 (none may come back),
+               save/load (the same ids);
+ 16. rabitq2   the 2-bit index on phase 6d's data with the defaults:
+               recall@10 at ef 96 (fails below 0.95), save/load.
 A summary line (the end-to-end numbers of every phase), the kernels line
 and the card line come before the last line, which is
 {"ok": true, "device": {...}}. A copy of the numbers goes to
@@ -240,6 +271,29 @@ N_SMALL = 100_000                    # rows of phase 6d
 RAW_CHURN = {"hnsw_1m": (N_REMOVE, CHURN_INSERT, CHURN_BATCH, CHURN_FLOOR,
                          0.90),
              "small": (1_000, 1_024, 1_024, CHURN_FLOOR, 0.93)}
+# the collection phase (12): 1M items in 500 shards (metadata {"shard": i %
+# 500}), then 8,192 new items, an upsert of 1,024 ids with moved vectors,
+# a delete_by_filter of shard 7 (2,000 rows); recall@10 floor at ef 64 over
+# the live rows: the default raw hnsw reads 0.917-0.921 at 1M
+COLLECTION_SHARDS, COLLECTION_DEAD_SHARD = 500, 7
+COLLECTION_NEW, COLLECTION_UPSERT = 8_192, 1_024
+COLLECTION_FLOOR = 0.90
+REINDEX_DEAD, REINDEX_FLOOR = 0.01, 0.95     # phase 13, 100k rows
+GT_EXACT_AGREEMENT = 0.9999                  # phase 14, ties aside
+GT_FAST_AGREEMENT = 0.999                    # phase 14
+# phase 15: the 1-bit rabitq of results/sift1m_frontier.json,
+# hnsw_rabitq_R32_efc200 (hop budget max(3, ef // 8)); the JAX package read
+# recall@10 0.9261 / 0.9493 / 0.9710 at ef 48 / 64 / 96 on this data, and
+# each floor is 0.01 under its reading
+RABITQ_PARAMS = dict(index_type="hnsw", quantization_type="rabitq",
+                     max_nbrs=32, ef_construction=200, prune_alpha=1.0,
+                     seed_sample=4096, rabitq_ef_boost=4.0, beam_expand=8)
+RABITQ_FLOORS = {48: 0.9161, 64: 0.9393, 96: 0.9610}
+RABITQ_INSERT, RABITQ_REMOVE = 4_096, 10_000
+# phase 16: rabitq2 at 100k with the defaults; the JAX package's sweep
+# read 0.9836 at ef 96 (results/sweep_rabitq2_100k.json)
+RABITQ2_FLOORS = {96: 0.95}
+NEW_PHASES = ("collection", "reindex", "calc_gt", "rabitq", "rabitq2")
 
 
 def log(msg: str) -> None:
@@ -1294,7 +1348,7 @@ def small_agreement(torch) -> dict:
     from alayalite_tpu_torch.utils.evaluate import calc_gt, calc_recall
 
     ds = random_dataset(n=2000, dim=32, n_queries=256, seed=3)
-    gt = calc_gt(ds.data, ds.queries, K)
+    gt = calc_gt(ds.data, ds.queries, K, device="cpu")
     gpu = Index("small", IndexParams(quantization_type="bsq8", capacity=2000,
                                      max_nbrs=16, ef_construction=64))
     gpu.fit(ds.data)
@@ -2009,6 +2063,411 @@ def flat_phases(torch, dev, ds, gt) -> dict:
     return rep
 
 
+# ---- the SDK front door and RaBitQ (phases 12-16) ----
+def new_counters():
+    """The kernels the SDK and rabitq phases can launch: the pool's three,
+    the stale check, gather_diagdot, their launches by kernel, and the hop
+    estimates (gather_estimate through a raw insert's shadow,
+    block_diagdot on the rabitq hop), the distance tile."""
+    from alayalite_tpu_torch.ops.diagdot import block_diagdot
+    from alayalite_tpu_torch.ops.gather_diagdot import gather_estimate
+    from alayalite_tpu_torch.ops.l2_tile import l2_tile
+
+    return (*pool_counters(), gather_estimate, block_diagdot, l2_tile)
+
+
+class Launches:
+    """Launch counts over a phase's steps: ``zero()`` sets every count to
+    0 just before a step, ``read(step)`` keeps its counts just after."""
+
+    def __init__(self, counters):
+        self.counters, self.steps = counters, {}
+
+    def zero(self) -> None:
+        for c in self.counters:
+            c.launches = 0
+
+    def read(self, step: str) -> dict:
+        got = {c.__name__: c.launches for c in self.counters}
+        self.steps[step] = got
+        return got
+
+    def total(self) -> dict:
+        return {c.__name__: sum(s[c.__name__] for s in self.steps.values())
+                for c in self.counters}
+
+
+def synced(torch, fn):
+    """(fn's result, wall seconds of fn up to a device sync)."""
+    torch.cuda.synchronize()
+    t = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t
+
+
+def cluster_rows(rng, n: int, n_base: int) -> np.ndarray:
+    """``n`` new rows drawn from the clusters of random_dataset(n_base, DIM,
+    seed=42), which draws its centers first from that seed."""
+    clusters = max(32, n_base // 2000)
+    centers = (np.random.default_rng(42).normal(size=(clusters, DIM))
+               .astype(np.float32) * 4.0)
+    return (centers[rng.integers(0, clusters, size=n)]
+            + rng.normal(size=(n, DIM)).astype(np.float32))
+
+
+def live_ground_truth(torch, col, queries) -> list:
+    """Exact top-K outer ids over a collection's live rows: this script's
+    ``ground_truth`` over its index's stored rows, the rows of no live id
+    left out."""
+    space = col._index._engine.space
+    n = space.num
+    live = np.zeros(n, dtype=bool)
+    live[np.fromiter(col._inner_outer, dtype=np.int64)] = True
+    inner = ground_truth(
+        torch, space.data[:n].float(),
+        torch.as_tensor(queries, dtype=torch.float32, device=space.device),
+        K, dead=torch.as_tensor(np.flatnonzero(~live), device=space.device))
+    return [[col._inner_outer[i] for i in row] for row in inner.tolist()]
+
+
+def outer_recall(ids, gt) -> float:
+    return float(np.mean([len(set(r[:K]) & set(g)) / K
+                          for r, g in zip(ids, gt)]))
+
+
+def collection_phase(torch, ds) -> dict:
+    """Phase 12: a 1M-row collection through Client(url): one insert of
+    the 1M items, 8,192 new items, an upsert of 1,024 moved ids and a
+    delete_by_filter of one shard (2,000 rows); 8,192 queries at ef 64
+    against ground_truth over the live rows; save_collection, and a fresh
+    Client(url) that finds it and answers with the same ids."""
+    import shutil
+    import tempfile
+
+    from alayalite_tpu_torch import Client
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    launches = Launches(new_counters())
+    rep = {"steps_s": {}}
+    steps = rep["steps_s"]
+    rng = np.random.default_rng(12)
+    try:
+        client = Client(url=root)
+        col = client.create_collection("docs", capacity=N + SPARE)
+        t = time.time()
+        items = [(f"d{i}", f"document {i}", ds.data[i],
+                  {"shard": i % COLLECTION_SHARDS}) for i in range(N)]
+        steps["items"] = time.time() - t
+        launches.zero()
+        _, steps["insert_1m"] = synced(torch, lambda: col.insert(items))
+        launches.read("insert_1m")
+        del items
+        new = cluster_rows(rng, COLLECTION_NEW, N)
+        launches.zero()
+        _, steps["insert_new"] = synced(torch, lambda: col.insert(
+            [(f"n{i}", f"new {i}", new[i], {"shard": -1})
+             for i in range(COLLECTION_NEW)]))
+        launches.read("insert_new")
+        moved = rng.choice(N, size=COLLECTION_UPSERT, replace=False)
+        moved_to = cluster_rows(rng, COLLECTION_UPSERT, N)
+        launches.zero()
+        _, steps["upsert"] = synced(torch, lambda: col.upsert(
+            [(f"d{i}", f"moved {i}", moved_to[k],
+              {"shard": int(i) % COLLECTION_SHARDS})
+             for k, i in enumerate(moved)]))
+        launches.read("upsert")
+        dead = {f"d{i}" for i in range(COLLECTION_DEAD_SHARD, N,
+                                       COLLECTION_SHARDS)}
+        launches.zero()
+        _, steps["delete_by_filter"] = synced(torch, lambda: col.delete_by_filter(
+            {"shard": COLLECTION_DEAD_SHARD}))
+        launches.read("delete_by_filter")
+        if any(d in col._outer_inner for d in dead) or len(col._cols["id"]) != (
+                N + COLLECTION_NEW - len(dead)):
+            raise AssertionError("delete_by_filter left rows of its shard")
+        gt, steps["ground_truth_live"] = synced(
+            torch, lambda: live_ground_truth(torch, col, ds.queries))
+        col.batch_query(ds.queries, K, ef_search=64)      # warm-up
+        launches.zero()
+        res, steps["batch_query"] = synced(torch, lambda: col.batch_query(
+            ds.queries, K, ef_search=64))
+        launches.read("batch_query")
+        moved_set = {f"d{i}" for i in moved}
+
+        def doc_of(i):
+            k = i[1:]
+            if i[0] == "n":
+                return f"new {k}"
+            return f"moved {k}" if i in moved_set else f"document {k}"
+
+        rep["recall"] = outer_recall(res["id"], gt)
+        rep["deleted_returned"] = sum(i in dead for r in res["id"] for i in r)
+        rep["wrong_documents"] = sum(
+            doc != doc_of(i) for ri, rd in zip(res["id"], res["document"])
+            for i, doc in zip(ri, rd))
+        rep["short_rows"] = sum(len(r) != K for r in res["id"])
+        own, _ = synced(torch, lambda: col.batch_query(new, 1, ef_search=64))
+        rep["new_own_top1"] = float(np.mean(
+            [r[:1] == [f"n{i}"] for i, r in enumerate(own["id"])]))
+        rep["qps"] = NQ / steps["batch_query"]
+        rep["insert_1m_items_per_s"] = N / steps["insert_1m"]
+        rep["insert_new_items_per_s"] = COLLECTION_NEW / steps["insert_new"]
+        _, steps["save_collection"] = synced(
+            torch, lambda: client.save_collection("docs"))
+        del col, client
+        gc.collect()
+        torch.cuda.empty_cache()
+        again, steps["client_url_load"] = synced(torch, lambda: Client(url=root))
+        if again.list_collections() != ["docs"]:
+            raise AssertionError(f"Client(url) found {again.list_collections()}")
+        res2 = again.get_collection("docs").batch_query(ds.queries, K,
+                                                        ef_search=64)
+        rep["same_ids_after_load"] = res2["id"] == res["id"]
+        rep["launches"] = launches.steps
+        log(f"collection 1M: recall@10 {rep['recall']:.4f} at ef 64, "
+            f"{rep['qps']:.1f} QPS, insert {rep['insert_1m_items_per_s']:.1f} "
+            f"items/s (1M), {rep['insert_new_items_per_s']:.1f} items/s "
+            f"({COLLECTION_NEW} new), new items' own top-1 "
+            f"{rep['new_own_top1']:.4f}, deleted returned "
+            f"{rep['deleted_returned']}, wrong documents "
+            f"{rep['wrong_documents']}, same ids after Client(url) "
+            f"{rep['same_ids_after_load']}; seconds "
+            + ", ".join(f"{k} {v:.2f}" for k, v in steps.items())
+            + f"; launches {launches.steps}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if rep["recall"] < COLLECTION_FLOOR or rep["deleted_returned"] or (
+            rep["wrong_documents"] or rep["short_rows"]
+            or rep["new_own_top1"] < CHURN_FLOOR
+            or not rep["same_ids_after_load"]):
+        raise AssertionError(f"collection phase failed: {rep}")
+    if launches.steps["batch_query"]["pool_merge"] <= 0 or launches.steps[
+            "insert_new"]["gather_estimate"] <= 0:
+        raise AssertionError("the collection's search or insert launched a "
+                             f"kernel of its path no time: {launches.steps}")
+    return rep
+
+
+def reindex_phase(torch, small) -> dict:
+    """Phase 13: a 100k-row collection (phase 6d's data), 1% of its rows
+    deleted, reindex(): recall@10 at ef 64 over the live rows."""
+    from alayalite_tpu_torch import Client
+
+    launches = Launches(new_counters())
+    n = small.data.shape[0]
+    col = Client().create_collection("re", capacity=n)
+    col.insert([(f"r{i}", f"doc {i}", small.data[i], {}) for i in range(n)])
+    rng = np.random.default_rng(13)
+    dead = [f"r{i}" for i in rng.choice(n, size=int(REINDEX_DEAD * n),
+                                        replace=False)]
+    col.delete_by_id(dead)
+    launches.zero()
+    _, reindex_s = synced(torch, col.reindex)
+    launches.read("reindex")
+    gt = live_ground_truth(torch, col, small.queries)
+    launches.zero()
+    res, wall = synced(torch, lambda: col.batch_query(small.queries, K,
+                                                      ef_search=64))
+    launches.read("batch_query")
+    dead_set = set(dead)
+    rep = {"rows": n - len(dead), "reindex_s": reindex_s,
+           "recall": outer_recall(res["id"], gt), "qps": NQ / wall,
+           "deleted_returned": sum(i in dead_set for r in res["id"]
+                                   for i in r),
+           "launches": launches.steps}
+    log(f"reindex 100k: {len(dead)} deleted, reindex {reindex_s:.2f}s, "
+        f"recall@10 {rep['recall']:.4f} at ef 64, {rep['qps']:.1f} QPS, "
+        f"launches {launches.steps}")
+    if rep["recall"] < REINDEX_FLOOR or rep["deleted_returned"]:
+        raise AssertionError(f"reindex phase failed: {rep}")
+    return rep
+
+
+def calc_gt_phase(torch, dev, ds, gt) -> dict:
+    """Phase 14: calc_gt on the card at 1M x 8192, k 10: exact (l2_tile)
+    and fast (bf16 coarse scan, f32 rerank), seconds each; exact must hold
+    ≥ GT_EXACT_AGREEMENT of this script's ``ground_truth`` ids ``gt`` (ties
+    aside), fast ≥ GT_FAST_AGREEMENT of the exact ids."""
+    from alayalite_tpu_torch.utils.evaluate import calc_gt, calc_recall
+
+    launches = Launches(new_counters())
+    x = torch.as_tensor(ds.data, device=dev)
+    q = torch.as_tensor(ds.queries, device=dev)
+    rep = {}
+    for mode in ("exact", "fast"):
+        calc_gt(x[:65536], q[:256], K, fast=mode == "fast", device=dev)
+        launches.zero()
+        rep[f"{mode}_ids"], rep[f"{mode}_s"] = synced(
+            torch, lambda: calc_gt(x, q, K, fast=mode == "fast", device=dev))
+        launches.read(mode)
+    exact, fast = rep.pop("exact_ids"), rep.pop("fast_ids")
+    rep["exact_vs_ground_truth"] = calc_recall(exact, gt)
+    rep["agreement"] = calc_recall(fast, exact)
+    rep["launches"] = launches.steps
+    log(f"calc_gt 1M x {NQ}, k {K}: exact {rep['exact_s']:.3f}s (holds "
+        f"{rep['exact_vs_ground_truth']:.5f} of ground_truth's ids), fast "
+        f"{rep['fast_s']:.3f}s, fast agrees on {rep['agreement']:.5f} of the "
+        f"exact ids; launches {launches.steps}")
+    if rep["exact_vs_ground_truth"] < GT_EXACT_AGREEMENT:
+        raise AssertionError("calc_gt exact holds "
+                             f"{rep['exact_vs_ground_truth']} of the truth")
+    if rep["agreement"] < GT_FAST_AGREEMENT:
+        raise AssertionError(f"calc_gt fast agrees on {rep['agreement']}")
+    if launches.steps["exact"]["l2_tile"] <= 0 or min(
+            launches.steps[m]["merge_kv"] for m in ("exact", "fast")) <= 0:
+        raise AssertionError("calc_gt launched l2_tile or merge_kv no time")
+    return rep
+
+
+def hop_dot_check(torch, sp, queries) -> dict:
+    """The rabitq hop's binary dot on the fitted index's own blocks, at the
+    hop's shape (4096 queries x 8 popped nodes x 32 neighbors, E 128):
+    block_diagdot on the unpacked codes against block_diagdot_ref on the
+    same codes and against binary_dot_ref (the JAX package's form: the bit
+    planes apart); the kernel's times beside the whole estimate_many."""
+    from alayalite_tpu_torch.ops.diagdot import block_diagdot, block_diagdot_ref
+    from alayalite_tpu_torch.spaces.rabitq import binary_dot_ref, unpack_codes
+    from alayalite_tpu_torch.utils.timing import bound, cuda_ms
+
+    saved = block_diagdot.calls, block_diagdot.launches
+    B, M = min(GATHER_MAIN[3], queries.shape[0]), GATHER_MAIN[4]
+    rng = np.random.default_rng(14)
+    q = sp.prep_query(torch.as_tensor(queries[:B], device=sp.device))
+    u = torch.as_tensor(rng.integers(0, sp.num, size=(B, M))
+                        .astype(np.int64), device=sp.device)
+    ctx = sp.query_ctx(q)
+    packed = sp.nbr_bits.index_select(0, u.reshape(-1)).view(B, M * 32, -1)
+    codes = unpack_codes(packed, sp.bits)
+    got = block_diagdot(codes, ctx[1])
+    want = block_diagdot_ref(codes, ctx[1])
+    jax_form = binary_dot_ref(packed, q @ sp.rot.T, sp.bits)
+    torch.cuda.synchronize()
+    tol = 1e-3 * float(want.abs().max()) + 1e-3
+    rep = {"shape": list(codes.shape), "bits": sp.bits,
+           "max_abs_err": float((got - want).abs().max()),
+           "max_abs_err_jax_form": float((got - jax_form).abs().max()),
+           "tol": tol,
+           "ms_spin": cuda_ms(lambda: block_diagdot(codes, ctx[1]), spin=True),
+           "plain_ms": cuda_ms(lambda: block_diagdot_ref(codes, ctx[1])),
+           "estimate_many_ms_spin": cuda_ms(lambda: sp.estimate_many(ctx, u),
+                                            spin=True),
+           **bound(codes.numel() + ctx[1].numel() * 2 + got.numel() * 4,
+                   2 * codes.numel(), "f32")}
+    block_diagdot.calls, block_diagdot.launches = saved
+    log(f"rabitq hop dot {rep['shape']} ({sp.bits} bit): block_diagdot "
+        f"max_abs_err {rep['max_abs_err']:.3e} vs its plain version, "
+        f"{rep['max_abs_err_jax_form']:.3e} vs the planes-apart form (tol "
+        f"{tol:.3e}); {rep['ms_spin']:.4f} ms device alone (bound "
+        f"{rep['bound_ms']:.4f}), the whole estimate_many "
+        f"{rep['estimate_many_ms_spin']:.4f} ms")
+    if not max(rep["max_abs_err"], rep["max_abs_err_jax_form"]) <= tol:
+        raise AssertionError(f"the rabitq hop's dot disagrees: {rep}")
+    return rep
+
+
+def frontier_iters(ef: int) -> int:
+    """The hop budget of results/sift1m_frontier.json (bench.py's)."""
+    return max(3, ef // 8)
+
+
+def rabitq_search(torch, idx, queries, gt, ef: int, launches, step: str,
+                  budget=None):
+    """One warm-up and one timed search at ``ef``, with the hop budget
+    ``budget(ef)`` or the index's own: (recall, QPS, ids)."""
+    from alayalite_tpu_torch.utils.evaluate import calc_recall
+
+    if budget is not None:
+        idx._engine.params.search_iters = budget(ef)
+    idx.batch_search(queries, K, ef_search=ef)
+    launches.zero()
+    (ids, dist), wall = synced(torch, lambda: idx.batch_search_with_distance(
+        queries, K, ef_search=ef))
+    got = launches.read(step)
+    check_result(ids, dist, idx._engine.space.num, step)
+    if got["block_diagdot"] <= 0 or got["block_diagdot"] != got["ring_probe"]:
+        raise AssertionError(f"{step}: the rabitq hop did not launch "
+                             f"block_diagdot once a hop: {got}")
+    return calc_recall(ids, gt), queries.shape[0] / wall, ids
+
+
+def rabitq_phase(torch, name, data, queries, gt, floors: dict,
+                 churn: bool, budget=None, **params) -> dict:
+    """Phases 15 (1-bit at 1M: fit, the frontier's efs and hop budget, the
+    hop's dot, insert, remove, save/load) and 16 (rabitq2 at 100k: fit,
+    search with the default budget, save/load)."""
+    from alayalite_tpu_torch import Client
+
+    launches = Launches(new_counters())
+    n = data.shape[0]
+    idx = Client().create_index(name, capacity=n + (RABITQ_INSERT if churn
+                                                   else 0), **params)
+    torch.cuda.reset_peak_memory_stats()
+    launches.zero()
+    _, fit_s = synced(torch, lambda: idx.fit(data))
+    launches.read("fit")
+    rep = {"rows": n, "fit_s": fit_s,
+           "fit_phases": dict(idx._engine.build_timings),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "search": {}}
+    log(f"{name}: fit {n} rows in {fit_s:.2f}s, phases "
+        + ", ".join(f"{k}={v:.2f}s" for k, v in rep["fit_phases"].items())
+        + f", peak mem {rep['peak_mem_gib']:.2f} GiB")
+    for ef in floors:
+        rec, qps, ids = rabitq_search(torch, idx, queries, gt, ef, launches,
+                                      f"search ef={ef}", budget)
+        iters = idx._engine.params.search_iters
+        rep["search"][ef] = {"recall": rec, "qps": qps, "iters": iters}
+        log(f"{name} search ef={ef} (iters {iters or 'auto'}): recall@10 "
+            f"{rec:.4f}, {qps:.1f} QPS, launches "
+            f"{launches.steps[f'search ef={ef}']}")
+    low = {ef: r["recall"] for ef, r in rep["search"].items()
+           if r["recall"] < floors[ef]}
+    if low:
+        raise AssertionError(f"{name}: recall@10 below its floor at {low}")
+    ef = max(floors)
+    if churn:
+        rep["hop_dot"] = hop_dot_check(torch, idx._engine.search_space,
+                                       queries)
+        rng = np.random.default_rng(15)
+        new = cluster_rows(rng, RABITQ_INSERT, n)
+        if budget is not None:
+            idx._engine.params.search_iters = budget(64)
+        launches.zero()
+        new_ids, ins_s = synced(torch, lambda: idx.insert(new))
+        launches.read("insert")
+        own = idx.batch_search(new, 1, ef_search=64)[:, 0]
+        rep["insert"] = {"rows": RABITQ_INSERT, "wall_s": ins_s,
+                         "rows_per_s": RABITQ_INSERT / ins_s,
+                         "own_top1": float((own == new_ids).mean())}
+        dead = rng.choice(n, size=RABITQ_REMOVE, replace=False)
+        _, rm_s = synced(torch, lambda: idx.remove(dead))
+        rec, qps, ids = rabitq_search(torch, idx, queries, gt, 64, launches,
+                                      "search after remove", budget)
+        rep["remove"] = {"rows": RABITQ_REMOVE, "wall_s": rm_s,
+                         "returned": int(np.isin(ids, dead).sum())}
+        ef = 64
+        log(f"{name}: insert {RABITQ_INSERT} rows in {ins_s:.2f}s "
+            f"({rep['insert']['rows_per_s']:.1f} rows/s), own top-1 "
+            f"{rep['insert']['own_top1']:.4f}, launches "
+            f"{launches.steps['insert']}; remove {RABITQ_REMOVE} in "
+            f"{rm_s:.2f}s, {rep['remove']['returned']} returned")
+        if rep["insert"]["own_top1"] < CHURN_FLOOR or rep["remove"][
+                "returned"]:
+            raise AssertionError(f"{name} churn failed: {rep}")
+    before = idx.batch_search(queries, K, ef_search=ef)
+    back, rep["save_s"], rep["load_s"] = save_and_load(torch, idx, name)
+    rep["same_ids_after_load"] = bool(
+        (back.batch_search(queries, K, ef_search=ef) == before).all())
+    log(f"{name}: save {rep['save_s']:.2f}s, load {rep['load_s']:.2f}s, same "
+        f"ids after load: {rep['same_ids_after_load']}")
+    if not rep["same_ids_after_load"]:
+        raise AssertionError(f"{name}: a loaded index answers differently")
+    rep["launches"] = launches.steps
+    return rep
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -2153,6 +2612,29 @@ def main() -> int:
 
     report["tiles"] = check_tiles(torch, dev)
     report["flat"] = flat_phases(torch, dev, ds, gt)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    report["collection"] = collection_phase(torch, ds)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 6d's data
+    small = random_dataset(n=N_SMALL, dim=DIM, n_queries=NQ, seed=42,
+                           clusters=max(32, N_SMALL // 2000))
+    report["reindex"] = reindex_phase(torch, small)
+    report["calc_gt"] = calc_gt_phase(torch, dev, ds, gt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["rabitq"] = rabitq_phase(torch, "rabitq_1m", ds.data, ds.queries,
+                                    gt, RABITQ_FLOORS, True, frontier_iters,
+                                    **RABITQ_PARAMS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gt_small = ground_truth(torch, torch.as_tensor(small.data, device=dev),
+                            torch.as_tensor(small.queries, device=dev), K)
+    report["rabitq2"] = rabitq_phase(
+        torch, "rabitq2_100k", small.data, small.queries, gt_small,
+        RABITQ2_FLOORS, False, index_type="hnsw", quantization_type="rabitq2")
     report["total_s"] = time.time() - t_start
 
     def row(name, source, replaces, launches, nums):
@@ -2181,9 +2663,22 @@ def main() -> int:
         return (fit_launches[kernel] + search_launches[kernel]
                 + churn_launches[kernel])
 
+    def new_launches(kernel, phases=NEW_PHASES, steps=None):
+        """Launches in the SDK and rabitq phases (12-16): every step, or
+        the steps named ``steps``."""
+        return sum(counts[kernel] for ph in phases
+                   for step, counts in report[ph]["launches"].items()
+                   if steps is None or step in steps)
+
+    rabitq_searches = sum(new_launches(
+        "block_diagdot", (ph,), [s for s in report[ph]["launches"]
+                                 if s.startswith("search")])
+        for ph in ("rabitq", "rabitq2"))
+
     def pool_row(name, replaces, launched_by, flat=0, **more):
         """``flat``: the kernel's launches on the flat path."""
-        on_path = bsq8_pool[name] + raw_launches(name) + flat
+        on_path = (bsq8_pool[name] + raw_launches(name) + flat
+                   + new_launches(name))
         if on_path <= 0:
             raise AssertionError(f"{name} was launched no time on the paths")
         return {**row(name, "alayalite_tpu_torch/csrc/pool_sort.cu", replaces,
@@ -2192,6 +2687,7 @@ def main() -> int:
                 "launches_raw_path": raw_launches(name),
                 "launches_raw_churn": {k: v[name] for k, v in
                                        raw_churn_launches.items()},
+                "launches_sdk_rabitq": new_launches(name),
                 "differing_entries": report[name]["differing_entries"],
                 "launched_by": launched_by, **more}
 
@@ -2199,7 +2695,7 @@ def main() -> int:
         """A wrapper's launches on the paths by kernel; they must add up to
         its launches, and every path shape must take ``path_route``."""
         by = {c.route: bsq8_pool[c.__name__] + raw_launches(c.__name__)
-              for c in route_counters(fn)}
+                  + new_launches(c.__name__) for c in route_counters(fn)}
         if sum(by.values()) != total:
             raise AssertionError(f"{fn.__name__}'s launches by kernel {by} "
                                  f"do not add up to its {total} launches")
@@ -2209,11 +2705,13 @@ def main() -> int:
         return by
 
     by_route = launches_by_route(
-        pool_merge, bsq8_pool["pool_merge"] + raw_launches("pool_merge"),
-        None)
+        pool_merge, bsq8_pool["pool_merge"] + raw_launches("pool_merge")
+        + new_launches("pool_merge"), None)
     sort_routes = launches_by_route(
-        sort_kv, bsq8_pool["sort_kv"] + raw_launches("sort_kv"), "warp")
-    probe_launches = hop_launches("ring_probe") + raw_launches("ring_probe")
+        sort_kv, bsq8_pool["sort_kv"] + raw_launches("sort_kv")
+        + new_launches("sort_kv"), "warp")
+    probe_launches = (hop_launches("ring_probe") + raw_launches("ring_probe")
+                      + new_launches("ring_probe"))
     probe_routes = launches_by_route(ring_probe, probe_launches, "hash")
     gather, fused = report["gather_diagdot"], report["gather_estimate"]
     # merge_kv by path: find_medoid in the bsq8 fit (the rest of the bsq8
@@ -2225,7 +2723,10 @@ def main() -> int:
                                   - report["fit"]["launches"]["merge_kv"]),
         "raw": raw_launches("merge_kv"),
         "flat_exact": report["flat"]["exact"]["merge_kv_launches"],
-        "flat_fast": report["flat"]["fast"]["merge_kv_launches"]}
+        "flat_fast": report["flat"]["fast"]["merge_kv_launches"],
+        "calc_gt": new_launches("merge_kv", ("calc_gt",)),
+        "sdk_and_rabitq_fits": new_launches("merge_kv", (
+            "collection", "reindex", "rabitq", "rabitq2"))}
     log(f"merge_kv launches by path: {merge_paths}")
 
     def entries(rep):
@@ -2236,38 +2737,52 @@ def main() -> int:
                 for at in ("main", "r1")}
 
     kernels = {"kernels": [
-        # off the hop since gather_diagdot took its place there: no entry
-        # point of Index reaches it; its launches are the churn phase's
-        # block audit calling the space's estimate_for on the inserted nodes
+        # the rabitq hop's binary dot (one launch a hop: Index.batch_search
+        # and the insert's neighbor search), and the bsq8 churn phase's
+        # block audit through BQGSpace.estimate_for
         {**row("block_diagdot", "alayalite_tpu_torch/csrc/gather_diagdot.cu",
-               "alayalite_tpu/ops/pallas_block.py:46",
-               churn_launches["block_diagdot"], report["block_diagdot"]),
+               "alayalite_tpu/ops/pallas_block.py:64",
+               churn_launches["block_diagdot"]
+               + new_launches("block_diagdot"), report["block_diagdot"]),
          "entry": "alaya_block_diagdot (the rows kernel, identity gather)",
-         "launched_by": "BQGSpace.estimate_for in the churn phase's block "
-                        "audit; 0 launches from Index entry points"},
+         "launched_by": "RaBitQSpace.estimate_many: the rabitq / rabitq2 "
+                        "hop's binary dot over the unpacked codes, one "
+                        "launch a hop (Index.batch_search, the insert's "
+                        "neighbor search); BQGSpace.estimate_for in the "
+                        "bsq8 churn phase's block audit",
+         "launches_by_phase": {
+             "bsq8_churn_audit": churn_launches["block_diagdot"],
+             "rabitq_1m": new_launches("block_diagdot", ("rabitq",)),
+             "rabitq2_100k": new_launches("block_diagdot", ("rabitq2",))},
+         "launches_from_index_batch_search": rabitq_searches,
+         "rabitq_hop": report["rabitq"]["hop_dot"]},
         # one source, two entry points (rows, bulk), each with the estimate
         # fused in or not. The dot alone is the sq8 traversal's (R = 1,
         # the numbers above); the hop launches the fused estimate
         {**row("gather_diagdot", "alayalite_tpu_torch/csrc/gather_diagdot.cu",
                "scripts/proto_dma_gather.py:93",
-               raw_launches("gather_diagdot"), gather),
+               raw_launches("gather_diagdot") + new_launches("gather_diagdot"),
+               gather),
          "also_replaces": "scripts/proto_dma_gather2.py:124",
          "launched_by": "SQSpace.gather_dists: the sq8 traversal's dot",
          "variant": gather["variant"], "at": entries(gather)},
         {**row("gather_estimate", "alayalite_tpu_torch/csrc/gather_diagdot.cu",
                "scripts/proto_dma_gather.py:93",
                hop_launches("gather_estimate")
-               + raw_launches("gather_estimate"), fused),
+               + raw_launches("gather_estimate")
+               + new_launches("gather_estimate"), fused),
          "also_replaces": "scripts/proto_dma_gather2.py:124",
          "launched_by": "BQGSpace.estimate_many: every block hop (fit pools, "
                         "search, insert, and a raw graph's insert through "
-                        "its bsq8 shadow), one launch a hop",
+                        "its bsq8 shadow, the collection's inserts too), "
+                        "one launch a hop",
          "launches_raw_churn": raw_launches("gather_estimate"),
+         "launches_sdk": new_launches("gather_estimate"),
          "variant": fused["variant"], "at": entries(fused),
          "kernels_per_estimate_many": report["estimate_many"][
              "kernels_per_call"]},
         {**row("ring_probe", "alayalite_tpu_torch/csrc/ring_probe.cu",
-               "scripts/proto_pallas_sort2.py:105", probe_launches,
+               "scripts/proto_pallas_sort2.py:135", probe_launches,
                report["ring_probe"]),
          "launched_by": "block_beam_search (pop ring and pool as two "
                         "operands) and the raw beam's pop ring, every hop",
@@ -2284,13 +2799,11 @@ def main() -> int:
              "ms", "ms_spin", "hash_ms", "hash_ms_spin", "scan_ms",
              "scan_ms_spin", "bound_ms", "bound_by", "scan_bound_ms")}
              for shape, rep in report["ring_probe"]["at"].items()}},
-        pool_row("sort_kv", "scripts/proto_pallas_sort.py:111",
+        pool_row("sort_kv", "scripts/proto_pallas_sort.py:139",
                  "ops/topk.topk_smallest: the k best of a pool at the end of "
                  "every beam search and exact re-score, the prune's "
                  "compaction, NN-Descent's joins",
-                 also_replaces=["scripts/proto_pallas_sort2.py:81",
-                                "scripts/proto_pallas_sort2.py:87",
-                                "scripts/proto_pallas_sort2.py:92"],
+                 also_replaces=["scripts/proto_pallas_sort2.py:135"],
                  kernel_route=report["sort_kv"]["route"],
                  launches_by_route=sort_routes,
                  **{k: report["sort_kv"][k] for k in (
@@ -2300,7 +2813,7 @@ def main() -> int:
                      "warp_ms", "warp_ms_spin", "network_ms",
                      "network_ms_spin", "plain_ms", "library_ms", "bound_ms")}
                      for shape, rep in report["sort_kv"]["at"].items()}),
-        pool_row("merge_kv", "scripts/proto_pallas_sort.py:117",
+        pool_row("merge_kv", "scripts/proto_pallas_sort.py:154",
                  "ops/distance.exact_topk: the per-tile [Q, k] + [Q, k] merge "
                  "of find_medoid, the overlay's exact kNN and the flat scans",
                  flat=sum(merge_paths[p] for p in ("flat_exact",
@@ -2313,10 +2826,10 @@ def main() -> int:
                      "copy_ms_spin", "plain_ms", "library_ms", "bound_ms",
                      "bound_by")}
                      for shape, rep in report["merge_kv"]["at"].items()}),
-        pool_row("pool_merge", "scripts/proto_pallas_sort.py:111",
+        pool_row("pool_merge", "scripts/proto_pallas_sort.py:139",
                  "ops/topk.merge_topk_dedup / merge_topk_with_flags / "
                  "merge_topk: the pool merge of every hop (raw and block)",
-                 also_replaces=["scripts/proto_pallas_sort.py:117"],
+                 also_replaces=["scripts/proto_pallas_sort.py:154"],
                  kernel_route=report["pool_merge"]["route"],
                  launches_by_route=by_route,
                  network_ms=report["pool_merge"]["network_ms"],
@@ -2342,12 +2855,17 @@ def main() -> int:
              "ms", "ms_spin", "plain_ms", "library_ms", "library_ms_spin",
              "shared_ms", "shared_ms_spin",
              "ns_per_exchange_step_and_list")} for n in ROLLS}},
-        row("l2_tile", "alayalite_tpu_torch/csrc/l2_tile.cu",
-            "alayalite_tpu/ops/pallas_distance.py:43",
-            report["flat"]["exact"]["l2_tile_launches"],
-            report["tiles"]["l2_tile"]),
+        {**row("l2_tile", "alayalite_tpu_torch/csrc/l2_tile.cu",
+               "alayalite_tpu/ops/pallas_distance.py:70",
+               report["flat"]["exact"]["l2_tile_launches"]
+               + new_launches("l2_tile"), report["tiles"]["l2_tile"]),
+         "launches_by_path": {
+             "flat_exact": report["flat"]["exact"]["l2_tile_launches"],
+             "calc_gt": new_launches("l2_tile", ("calc_gt",)),
+             "sdk_and_rabitq_fits": new_launches("l2_tile", (
+                 "collection", "reindex", "rabitq", "rabitq2"))}},
         {**row("sq8_tile", "alayalite_tpu_torch/csrc/sq8_tile.cu",
-               "alayalite_tpu/ops/pallas_distance.py:91",
+               "alayalite_tpu/ops/pallas_distance.py:141",
                report["flat"]["sq8"]["launches"], report["tiles"]["sq8_tile"]),
          "library_f32_ms": report["tiles"]["sq8_tile"]["library_f32_ms"],
          "library_ms_is": "bf16 torch.matmul with a bf16 output; "
@@ -2371,6 +2889,7 @@ def main() -> int:
         "estimate_many": report["estimate_many"],
         "bsq8_pool_launches": bsq8_pool,
         "flat": {k: report["flat"][k] for k in ("fit_s", "exact", "fast")},
+        **{ph: report[ph] for ph in NEW_PHASES},
         "total_s": report["total_s"]}}))
     print(json.dumps(kernels))
     print(card)

@@ -21,6 +21,16 @@ the bsq8 index freed first) fitted on the same rows:
     IndexEngine.insert (the neighbor search through the bsq8 shadow, packed
     by the warm-up batch; the append; fused_raw_connect; the shadow's
     re-encode; the overlay link);
+then, on the 1-bit rabitq index of results/sift1m_frontier.json
+(hnsw_rabitq_R32_efc200: max_nbrs 32, ef_construction 200, seed_sample
+4096, rabitq_ef_boost 4, beam_expand 8) fitted on the same rows:
+  - one batch_search of the 8192 queries at ef = 64 with the frontier's hop
+    budget (8 hops; the pool 256 wide after the boost), each hop's
+    estimate_many (the packed bits gathered and unpacked, one
+    block_diagdot) and the 1-bit result pool;
+  - one rabitq insert batch: 4096 rows from the data's clusters (the
+    neighbor search, the append, the touched rows re-selected, one
+    batched re-quantization);
 then, on a flat index over the same rows:
   - one exact flat search of the 8192 queries, k = 10, and one fast-mode
     search, with the device time split into the l2_tile kernel, the top-k
@@ -175,6 +185,29 @@ def raw_windows(torch, ds, dev) -> dict:
     return out
 
 
+def rabitq_windows(torch, ds, dev) -> dict:
+    from alayalite_tpu_torch import Index, IndexParams
+
+    idx = Index("rq", IndexParams(
+        index_type="hnsw", quantization_type="rabitq", max_nbrs=32,
+        ef_construction=200, prune_alpha=1.0, seed_sample=4096,
+        rabitq_ef_boost=4.0, beam_expand=8, search_iters=64 // 8,
+        capacity=N + 2 * 4096))
+    idx.fit(ds.data)
+    eng = idx._engine
+    out = {"fit_phases": eng.build_timings}
+    q = torch.as_tensor(ds.queries, device=dev)
+    out["search_ef64"] = trace(
+        torch, "rabitq search ef=64 (8 hops)",
+        lambda: eng._batch_search_impl(q, K, 64), top=16)
+    batches = churn_batches(N, 2)                      # warm-up, traced
+    out["insert_batch"] = trace(torch, "rabitq insert batch (4096 rows)",
+                                lambda: eng.insert(next(batches)), top=16)
+    del idx, eng
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -235,6 +268,7 @@ def main() -> int:
     del idx, eng, bq, raw, rows, cand_d, cand_i, q
     torch.cuda.empty_cache()
     out["raw"] = raw_windows(torch, ds, dev)
+    out["rabitq"] = rabitq_windows(torch, ds, dev)
     out["flat"] = flat_windows(torch, ds, dev)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "torch_profile.json"),

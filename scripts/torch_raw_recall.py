@@ -46,7 +46,7 @@ def main() -> int:
 
     ds = random_dataset(n=args.n, dim=128, n_queries=args.nq, seed=42,
                         clusters=max(32, args.n // 2000))
-    gt = calc_gt(ds.data, ds.queries, 10)
+    gt = calc_gt(ds.data, ds.queries, 10, device="cpu")
     idx = Index("raw", IndexParams(index_type="hnsw", capacity=args.n),
                 device=args.device)
     t = time.time()

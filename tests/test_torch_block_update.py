@@ -172,7 +172,8 @@ def test_block_quantized_insert(metric):
     ids = idx.batch_search(new, 5, ef_search=64)
     hit = np.mean([new_ids[i] in ids[i] for i in range(len(new_ids))])
     assert hit >= 0.9, f"hit {hit}"
-    gt = calc_gt(np.concatenate([ds.data, new]), ds.queries, 10, metric=metric)
+    gt = calc_gt(np.concatenate([ds.data, new]), ds.queries, 10,
+                 metric=metric, device="cpu")
     assert calc_recall(idx.batch_search(ds.queries, 10, ef_search=64),
                        gt) >= 0.8
     eng = idx._engine
@@ -258,7 +259,7 @@ def test_update_nodes_rewires_through_removed():
     assert not np.isin(eng.graph.eps.numpy(), removed).any()
     assert torch.equal(eng.graph.nbrs, eng.search_space.nbr_ids)
     assert (nbrs[live] >= 0).sum(1).min() >= 8
-    gt = calc_gt(ds.data, ds.queries, 10, deleted=removed)
+    gt = calc_gt(ds.data, ds.queries, 10, deleted=removed, device="cpu")
     ids = idx.batch_search(ds.queries, 10, ef_search=80)
     assert calc_recall(ids, gt) >= 0.8
     before = nbrs.copy()
@@ -341,7 +342,8 @@ def test_mutated_index_round_trips_through_jax(jax_built, tmp_path):
     idx._engine.compact()
     idx.save(str(tmp_path / "m"))
     live_new = new_ids[5:]
-    gt = calc_gt(np.concatenate([ds.data, new]), ds.queries, 10, deleted=dead)
+    gt = calc_gt(np.concatenate([ds.data, new]), ds.queries, 10,
+                 deleted=dead, device="cpu")
     back = JaxIndex.load(str(tmp_path), "m")
     again = Index.load(str(tmp_path), "m", device="cpu")
     assert int(back._engine.space.num) == again._engine.num == 940

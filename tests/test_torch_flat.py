@@ -28,7 +28,7 @@ METRICS = ["l2", "ip", "cos"]
 @pytest.fixture(scope="module", params=METRICS)
 def ds(request):
     d = random_dataset(n=N, dim=DIM, n_queries=NQ, seed=21, topk=K,
-                       metric=request.param)
+                       metric=request.param, device="cpu")
     d.metric = request.param
     return d
 
@@ -159,7 +159,8 @@ def test_sq8_round_trip(tmp_path, direction):
 def test_client_creates_flat_indices():
     from alayalite_tpu_torch import Client
 
-    ds = random_dataset(n=N, dim=DIM, n_queries=NQ, seed=21, topk=K)
+    ds = random_dataset(n=N, dim=DIM, n_queries=NQ, seed=21, topk=K,
+                        device="cpu")
     c = Client(device="cpu")
     for name, quant in (("f", "none"), ("q", "sq8")):
         idx = c.create_index(name, index_type="flat", quantization_type=quant,

@@ -26,7 +26,7 @@ N, DIM, K = 1200, 16, 10
 @pytest.fixture(scope="module")
 def ds():
     d = random_dataset(n=N, dim=DIM, n_queries=64, seed=11)
-    d.gt = calc_gt(d.data, d.queries, K)
+    d.gt = calc_gt(d.data, d.queries, K, device="cpu")
     return d
 
 

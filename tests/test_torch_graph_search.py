@@ -51,7 +51,7 @@ def _params(kind, cls):
 @pytest.fixture(scope="module")
 def ds():
     d = random_dataset(n=N, dim=DIM, n_queries=NQ, seed=11)
-    d.gts = {m: calc_gt(d.data, d.queries, K, metric=m)
+    d.gts = {m: calc_gt(d.data, d.queries, K, metric=m, device="cpu")
              for m in ("l2", "cos", "ip")}
     return d
 
@@ -196,7 +196,7 @@ def test_tombstones_through_valid(ds, jax_built, kind):
     jidx = JaxIndex.load(str(jax_built["root"]), kind)
     dead = np.random.default_rng(0).choice(N, size=N // 10, replace=False)
     jidx.remove(dead)
-    gt = calc_gt(ds.data, ds.queries, K, deleted=dead)
+    gt = calc_gt(ds.data, ds.queries, K, deleted=dead, device="cpu")
     eng = from_jax_arrays(*_arrays(jidx), device="cpu")
     for ef in EFS:
         ids = eng.batch_search(ds.queries, K, ef=ef)

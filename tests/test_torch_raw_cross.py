@@ -43,7 +43,7 @@ def mutated_pair(tmp_path_factory):
         idx.save(str(root / name))
         out[name] = idx
     out["gt"] = calc_gt(np.concatenate([ds.data, new]), ds.queries, 10,
-                        deleted=dead)
+                        deleted=dead, device="cpu")
     return out
 
 

@@ -506,7 +506,7 @@ def test_update_nodes_rewires_through_removed(kind):
     for lvl in eng.graph.overlay:
         assert not np.isin(lvl.ids.numpy(), removed).any()
     assert not np.isin(eng.graph.eps.numpy(), removed).any()
-    gt = calc_gt(ds.data, ds.queries, 10, deleted=removed)
+    gt = calc_gt(ds.data, ds.queries, 10, deleted=removed, device="cpu")
     assert calc_recall(idx.batch_search(ds.queries, 10, ef_search=80),
                        gt) >= 0.8
     eng.update_nodes(live[:50])                        # no removed set
@@ -581,7 +581,7 @@ def test_insert_shadow_quality(monkeypatch, on):
         got = idx.batch_search(b[:64], 10, ef_search=96)
         assert np.mean([new_ids[i] in got[i] for i in range(64)]) >= 0.95
     full = np.concatenate([ds.data] + [b for _, b in batches])
-    gt = calc_gt(full, ds.queries, 10)
+    gt = calc_gt(full, ds.queries, 10, device="cpu")
     assert calc_recall(idx.batch_search(ds.queries, 10, ef_search=96),
                        gt) >= 0.90
     if on:
@@ -667,7 +667,7 @@ def test_sq_insert_then_remove(quant):
     ids = idx.batch_search(ds.queries, 10, ef_search=80)
     assert not np.isin(ids[ids >= 0], dead).any()
     gt = calc_gt(np.concatenate([ds.data, new]), ds.queries, 10,
-                 deleted=dead)
+                 deleted=dead, device="cpu")
     assert calc_recall(ids, gt) >= 0.8
 
 
@@ -689,7 +689,7 @@ def test_integer_and_float16_storage(dtype, tmp_path):
     new_ids = idx.insert(data[600:])
     assert (new_ids == np.arange(600, 700)).all()
     q = data[::7] + 0.1
-    gt = calc_gt(data, q, 10)
+    gt = calc_gt(data, q, 10, device="cpu")
     ids = idx.batch_search(q, 10, ef_search=64)
     assert calc_recall(ids, gt) >= 0.9
     idx.save(str(tmp_path / "d"))

@@ -34,7 +34,7 @@ EFS = (32, 64)
 @pytest.fixture(scope="module")
 def ds():
     d = random_dataset(n=N, dim=DIM, n_queries=NQ, seed=11)
-    d.gt = calc_gt(d.data, d.queries, K)
+    d.gt = calc_gt(d.data, d.queries, K, device="cpu")
     return d
 
 
@@ -52,7 +52,8 @@ def jax_built(ds, tmp_path_factory):
     dead = np.random.default_rng(0).choice(N, size=N // 10, replace=False)
     idx.remove(dead)
     out["dead"] = dead
-    out["gt_dead"] = calc_gt(ds.data, ds.queries, K, deleted=dead)
+    out["gt_dead"] = calc_gt(ds.data, ds.queries, K, deleted=dead,
+                             device="cpu")
     out["arrays_dead"] = (idx.params.to_json(),
                           idx._engine.space.save_arrays(),
                           idx._engine.graph.save_arrays(),
@@ -141,7 +142,7 @@ def test_load_round_trip_is_exact(ds, port_built):
 @pytest.mark.parametrize("metric", ["cos", "ip"])
 def test_metrics(metric):
     d = random_dataset(n=1200, dim=16, n_queries=32, seed=5, topk=K,
-                       metric=metric)
+                       metric=metric, device="cpu")
     idx = Index("m", IndexParams(quantization_type="bsq8", capacity=1200,
                                  max_nbrs=16, ef_construction=64,
                                  metric=metric), device="cpu")
