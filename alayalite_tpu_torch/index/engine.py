@@ -13,13 +13,14 @@ traversal re-ranked in the build space; insert through the search, the
 append, ``fused_raw_connect`` and ``extend_overlay``, with the neighbor
 search through a bsq8 shadow of the graph on large f32 indices; remove,
 ``compact`` with ``strip_overlay``, ``update_nodes``), the flat index
-(``index_type="flat"`` with quantization none or sq8: exact and fast
-scans, insert, tombstone remove), and save/load in the JAX package's
+(``index_type="flat"`` with quantization none, sq8 or sq4: exact and
+fast scans of the raw rows, insert into both spaces, tombstone remove),
+and save/load in the JAX package's
 on-disk layout (``schema.json`` + npz files), so either package loads
 the other's index directories, mutated or not.
 
 Not ported yet, raising ``NotImplementedError``: sharding (ROADMAP queue
-1, item 6) and flat + sq4.
+1, item 6).
 
 Inserts and rewires run on batches of any size, in slices that bound the
 temporaries: the JAX package pads them to buckets only so XLA does not
@@ -51,9 +52,8 @@ from .graph import Graph
 
 log = logging.getLogger("alayalite_tpu_torch")
 
-_FLAT_QUANT = (QuantizationType.NONE, QuantizationType.SQ8)
-_GRAPH_QUANT = (QuantizationType.NONE, QuantizationType.SQ8,
-                QuantizationType.SQ4)
+_RAW_QUANT = (QuantizationType.NONE, QuantizationType.SQ8,
+              QuantizationType.SQ4)
 INSERT_CHUNK = 4096   # rows per fused insert step (the search's qchunk)
 REWIRE_CHUNK = 2048   # rows per rewire step: bounds the [A, W + W², D] gather
 # A raw f32 graph index with at least this many stored rows searches an
@@ -66,13 +66,12 @@ RESERVOIR = 16        # reverse-table slots per touched row of an insert
 def check_supported(params: IndexParams) -> None:
     """Raise for the parts of IndexParams the port does not cover yet."""
     qt = params.quantization_type
-    flat = params.index_type is IndexType.FLAT
-    if not qt.is_block and qt not in (_FLAT_QUANT if flat else _GRAPH_QUANT):
+    if not qt.is_block and qt not in _RAW_QUANT:
         raise NotImplementedError(
             f"index_type={params.index_type.value!r} with quantization_type="
             f"{qt.value!r} is not ported: the port covers the block "
-            "quantizations (bsq8, rabitq, rabitq2), graph indices with none, "
-            "sq8 or sq4, and flat indices with none or sq8 (ROADMAP)")
+            "quantizations (bsq8, rabitq, rabitq2) and graph and flat "
+            "indices with none, sq8 or sq4 (ROADMAP)")
     if max(params.db_shards, params.build_shards, params.serve_shards) > 1:
         raise NotImplementedError(
             "sharded indices are not ported yet (ROADMAP queue 1, item 6)")
@@ -107,8 +106,9 @@ class IndexEngine:
         self.graph: Optional[Graph] = None     # None for a flat index
         self.build_timings: dict = {}
         self._fitted = False
-        self._sscan = None
-        self._sscan_version = None
+        # (version, arrays) of the seed-scan sample, one attribute so that
+        # concurrent searches never pair one version with another's arrays
+        self._sscan: Optional[tuple] = None
         self._mutations = 0          # removes so far (seed-sample version)
         self._removed: list = []     # tombstones since the last compaction
         self._rng = np.random.default_rng(0xA1A7A)  # entry-point redraws
@@ -288,8 +288,8 @@ class IndexEngine:
         return i, d
 
     def _flat_search(self, q: torch.Tensor, topk: int):
-        """Brute-force scan of the live raw rows (a flat + sq8 index scans
-        them too, as the JAX package does). Exact mode: one f32 pass
+        """Brute-force scan of the live raw rows (a flat + sq8 or sq4
+        index scans them too, as the JAX package does). Exact mode: one f32 pass
         through ``l2_tile`` (or the f32 product for ip/cos). Fast mode: bf16
         coarse scan keeping max(32, 4·topk) candidates, then an f32 rerank.
         The JAX package caches a padded copy of the slab for its fast mode
@@ -311,7 +311,10 @@ class IndexEngine:
     def _seed_scan_arrays(self):
         """Cached (ids, vecs bf16, sq_norms) sample for the per-query seed
         scan: the same ids as the JAX package (numpy rng 0x5EED over the
-        live rows). None below 256 rows or when params.seed_sample == 0."""
+        live rows). None below 256 rows or when params.seed_sample == 0.
+        Safe under concurrent searches: the cache is read and replaced as
+        one (version, arrays) tuple, so a search sees a matching pair and
+        at worst two threads draw the same sample twice."""
         from .search import seed_sample_arrays
 
         S = int(self.params.seed_sample)
@@ -321,19 +324,20 @@ class IndexEngine:
         bucket = 1024 if n < 262_144 else 65_536
         version = (("exact", n) if n < 2048 else ("bucket", n // bucket),
                    self._mutations)
-        if self._sscan is None or self._sscan_version != version:
-            live = np.flatnonzero(self.space.valid[:n].cpu().numpy())
-            S = min(S, (live.size // 128) * 128)
-            if S < 128:
-                return None
-            rng = np.random.default_rng(0x5EED)
-            ids = torch.as_tensor(np.sort(rng.choice(live, size=S,
-                                                     replace=False))
-                                  .astype(np.int32), device=self.device)
-            self._sscan = seed_sample_arrays(self.space.data, ids,
-                                             self.space.user_metric)
-            self._sscan_version = version
-        return self._sscan
+        cached = self._sscan
+        if cached is not None and cached[0] == version:
+            return cached[1]
+        live = np.flatnonzero(self.space.valid[:n].cpu().numpy())
+        S = min(S, (live.size // 128) * 128)
+        if S < 128:
+            return None
+        rng = np.random.default_rng(0x5EED)
+        ids = torch.as_tensor(np.sort(rng.choice(live, size=S, replace=False))
+                              .astype(np.int32), device=self.device)
+        arrays = seed_sample_arrays(self.space.data, ids,
+                                    self.space.user_metric)
+        self._sscan = (version, arrays)
+        return arrays
 
     # --------------------------------------------------------------- update
     def insert(self, vectors, ef: int = 100) -> np.ndarray:

@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..ops.distance import row_dots
 from ..ops.ring_probe import ring_probe
 from ..ops.topk import (merge_topk_dedup, merge_topk_with_flags,
                         topk_smallest)
@@ -230,7 +231,7 @@ def exact_rescore(space, q: Tensor, ids: Tensor, k: int):
     best: the user-facing re-score; ``gather_dists`` only orders a walk."""
     ok = ids >= 0
     safe = torch.where(ok, ids, torch.zeros_like(ids)).long()
-    dot = torch.bmm(space.data[safe].float(), q.unsqueeze(2)).squeeze(2)
+    dot = row_dots(space.data[safe].float(), q)
     if space.metric == "ip":
         d = -dot
     else:

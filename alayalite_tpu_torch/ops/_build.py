@@ -6,6 +6,11 @@ under the source tree's root (or under the working directory when the
 package is installed rather than run from a checkout), and loaded with
 ``ctypes``. The hash covers the source and the flags, so an edited source
 is rebuilt and a stale library is never loaded. ``build()`` starts one ``nvcc`` per source, all at once.
+
+Building and loading hold one process-wide lock, so threads that reach a
+kernel first together (the serving dispatcher, HTTP handler threads) run
+one ``nvcc`` for it and load one library, never two compiles writing one
+``.so``.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -24,6 +30,7 @@ _SRC_ROOT = Path(__file__).resolve().parents[2]
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+_lock = threading.RLock()     # guards build / load / entry and the maps
 _loaded: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[tuple, object] = {}
 # of the sources this process compiled: seconds of each nvcc, its output
@@ -63,12 +70,26 @@ def lib_path(name: str) -> Path:
     return build_dir() / f"lib{name}-{digest}.so"
 
 
+def _start_compile(name: str, tmp: Path, log) -> subprocess.Popen:
+    """One ``nvcc`` process compiling ``csrc/<name>.cu`` into ``tmp``."""
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+
+
+def _open_library(path: Path) -> ctypes.CDLL:
+    return ctypes.CDLL(str(path))
+
+
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     """Compile every named source that has no up-to-date library yet, all
     ``nvcc`` processes in parallel. Raises with the compiler's output if
     one fails. Returns {name: library path}; ``build_seconds`` and
     ``build_logs`` keep each compile's wall seconds and output."""
-    names = list(sources() if names is None else names)
+    with _lock:
+        return _build(list(sources() if names is None else names))
+
+
+def _build(names: list) -> Dict[str, Path]:
     jobs = {}
     t0 = time.time()
     for name in names:
@@ -78,11 +99,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         log = tmp.with_suffix(".log").open("w+")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        jobs[name] = (subprocess.Popen(cmd, stdout=log,
-                                       stderr=subprocess.STDOUT), tmp, out,
-                      log)
+        jobs[name] = (_start_compile(name, tmp, log), tmp, out, log)
     errors = []
     while jobs:
         for name in [n for n, job in jobs.items() if job[0].poll() is not None]:
@@ -105,12 +122,13 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
 
 def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu`` (built on first use)."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(lib_path(name)))
-        _loaded[name] = lib
-    return lib
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = _open_library(lib_path(name))
+            _loaded[name] = lib
+        return lib
 
 
 def entry(name: str, symbol: str, argtypes: list):
@@ -119,10 +137,13 @@ def entry(name: str, symbol: str, argtypes: list):
     key = (name, symbol)
     fn = _entries.get(key)
     if fn is None:
-        fn = getattr(load(name), symbol)
-        fn.argtypes = [*argtypes, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _entries[key] = fn
+        with _lock:
+            fn = _entries.get(key)
+            if fn is None:
+                fn = getattr(load(name), symbol)
+                fn.argtypes = [*argtypes, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                _entries[key] = fn
     return fn
 
 

@@ -130,6 +130,19 @@ def _exact_topk_device(q: Tensor, x: Tensor, x_sq: Optional[Tensor],
     return best_d, best_i
 
 
+def row_dots(rows: Tensor, q: Tensor) -> Tensor:
+    """Σ_d rows[b, k, d]·q[b, d] → f32 [B, K], for rows gathered for this
+    call (overwritten on a CUDA device). There it is an elementwise product
+    and a sum over the last axis, whose order does not depend on B or K:
+    ``torch.bmm`` picks its kernel, and with it the order of the sums, by
+    shape, so a query's distances, and at times its result, would depend
+    on the batch it rides in (``scripts/torch_batch_probe.py``). On the CPU
+    it is ``torch.bmm``, whose results did not depend on the batch there."""
+    if rows.is_cuda:
+        return rows.mul_(q.unsqueeze(1)).sum(-1)
+    return torch.bmm(rows, q.unsqueeze(2)).squeeze(2)
+
+
 def _rerank_device(q: Tensor, x: Tensor, x_sq: Optional[Tensor],
                    cand: Tensor, k: int, metric: str
                    ) -> Tuple[Tensor, Tensor]:
@@ -140,7 +153,7 @@ def _rerank_device(q: Tensor, x: Tensor, x_sq: Optional[Tensor],
         cand = torch.nn.functional.pad(cand, (0, k - cand.shape[1]),
                                        value=-1)
     safe = cand.clamp(min=0).long()
-    dot = torch.bmm(x[safe].float(), q.float().unsqueeze(2)).squeeze(2)
+    dot = row_dots(x[safe].float(), q.float())
     if metric == "ip":
         d = -dot
     else:

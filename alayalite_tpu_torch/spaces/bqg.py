@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..ops.diagdot import block_diagdot
-from ..ops.distance import normalize_rows
+from ..ops.distance import normalize_rows, row_dots
 from ..ops.gather_diagdot import gather_estimate
 from .raw import bump_slots, tombstone
 
@@ -261,7 +261,7 @@ class BQGSpace:
         B, K = ids.shape
         safe = ids.clamp(0, self.capacity - 1).reshape(-1)
         vecs = self.data.index_select(0, safe).view(B, K, -1)
-        dot = torch.bmm(vecs, q.unsqueeze(2)).squeeze(2)
+        dot = row_dots(vecs, q)
         if self.metric == "ip":
             return -dot
         q_sq = (q * q).sum(-1, keepdim=True)

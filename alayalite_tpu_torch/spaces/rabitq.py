@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..ops.diagdot import block_diagdot
-from ..ops.distance import normalize_rows
+from ..ops.distance import normalize_rows, row_dots
 from .raw import bump_slots, tombstone
 
 Tensor = torch.Tensor
@@ -354,7 +354,7 @@ class RaBitQSpace:
         B, K = ids.shape
         safe = ids.clamp(0, self.capacity - 1).reshape(-1)
         vecs = self.data.index_select(0, safe).view(B, K, -1)
-        dot = torch.bmm(vecs, q.unsqueeze(2)).squeeze(2)
+        dot = row_dots(vecs, q)
         q_sq = (q * q).sum(-1, keepdim=True)
         return torch.clamp(
             q_sq + self.sq_norms.index_select(0, safe).view(B, K) - 2.0 * dot,

@@ -20,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.distance import normalize_rows, sqnorms
+from ..ops.distance import normalize_rows, row_dots, sqnorms
 
 
 STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -148,7 +148,7 @@ class RawSpace:
         safe = ids.clamp(0, self.capacity - 1).reshape(-1)
         vecs = self.data.index_select(0, safe).view(B, K, -1).float()
         qq = q.to(torch.bfloat16).float() if self.bf16 else q
-        dot = torch.bmm(vecs, qq.unsqueeze(2)).squeeze(2)
+        dot = row_dots(vecs, qq)
         if self.metric == "ip":
             return -dot
         q_sq = (q * q).sum(-1, keepdim=True)

@@ -58,6 +58,19 @@ def random_dataset(
     return ds
 
 
+def sift_micro(seed: int = 7, topk: int = 10, device=None) -> Dataset:
+    """1k x 128 fixture shaped like the reference's sift_micro CI dataset;
+    its ground truth by ``calc_gt`` on ``device``."""
+    return random_dataset(n=1000, dim=128, n_queries=50, seed=seed,
+                          topk=topk, device=device)
+
+
+def sift_small_like(seed: int = 11, topk: int = 100, device=None) -> Dataset:
+    """10k x 128 fixture shaped like siftsmall."""
+    return random_dataset(n=10_000, dim=128, n_queries=100, seed=seed,
+                          topk=topk, device=device)
+
+
 _REAL_METRIC = {"sift": "l2", "siftsmall": "l2", "gist": "l2",
                 "deep1m": "cos"}
 

@@ -2,9 +2,10 @@
 of ``alayalite_tpu/utils/io.py``).
 
 Each record is an int32 dim header followed by ``dim`` payload elements.
-Pure numpy on the host: the JAX package first tries a native mmap loader,
-which the port does not have (the numpy loader reads the same files into
-the same arrays).
+Host code: ``load_fvecs`` first tries the native mmap loader
+(``native.load_vecs_native``), as the JAX package does, and falls back to
+numpy, which reads the same files into the same arrays, when no compiler
+built the library.
 """
 
 from __future__ import annotations
@@ -33,6 +34,16 @@ def _load_vecs(path: PathLike, dtype: np.dtype) -> np.ndarray:
 
 
 def load_fvecs(path: PathLike) -> np.ndarray:
+    try:  # the native mmap + parallel-strip loader where it built
+        from ..native import load_vecs_native
+
+        out = load_vecs_native(str(path))
+        if out is not None:
+            return out
+    except ValueError:
+        raise
+    except Exception:
+        pass
     return _load_vecs(path, np.dtype(np.float32))
 
 

@@ -173,6 +173,42 @@ Then the SDK front door and RaBitQ:
                save/load (the same ids);
  16. rabitq2   the 2-bit index on phase 6d's data with the defaults:
                recall@10 at ef 96 (fails below 0.95), save/load.
+Then serving, the service, flat + sq4, the native runtime and RAG, each
+where its input stands:
+ 17. serving   (after phase 4's searches, before its churn) SearchServer
+               (topk 10, ef 64, max_batch 1024, timeout 2 ms) on the 1M
+               bsq8 index: an open loop (8 threads submit() the 8192
+               queries, then the futures are read) and a closed loop (64
+               threads x 128 blocking search() calls): QPS, p50 / p99
+               latency, batches popped and their mean size, launches of
+               gather_estimate, ring_probe and pool_merge (each must be >
+               0), recall@10 (fails below 0.95, or, where a served row
+               differs from one direct batch_search_with_distance, more
+               than 0.002 from that call's), no failed request;
+ 18. service   (after phase 12, on the directory it saved) create_app(
+               data_dir) behind the stdlib HTTP server on 127.0.0.1, port
+               0: default mode, the queries as 16 requests of 512 vectors
+               from 4 threads (the ids must be phase 12's), one request's
+               time split into JSON decode, request model, search, join and
+               JSON encode; ALAYALITE_BATCH_SERVING=1, 8192 single-vector
+               requests from 64 threads (recall@10 over the live rows ≥
+               0.90, every document its id's); then over HTTP an insert of
+               1,000 items (own top-1 ≥ 0.95), an upsert of 100, a
+               delete_by_id of 100 (none may come back), a delete_by_filter
+               of one shard, save, and a 404 on a missing collection;
+               requests/s, p50 / p99 latency and bytes a request by mode;
+ 19. flat_sq4  (after phase 11) flat + sq4 on the 1M rows: fit, the exact
+               search of the raw rows (recall@10 ≥ 0.999, l2_tile
+               launches > 0), 1,000 inserts (each its own top-1), 10,000
+               removes (none may come back), save / load (the same ids and
+               codes);
+ 20. native    (last) native.get_lib() must load; the 1M rows through
+     + rag     save_fvecs, then load_fvecs (the native loader) must equal
+               the numpy loader's array, seconds of each; 2,000 generated
+               documents of ~2 kB cut by FixedSizeChunker, embedded by
+               HashingEmbedding(dim=256), inserted into a cos collection;
+               256 chunks' own texts queried, each its own top-1 (fails
+               below 0.99); chunks/s embedded, items/s inserted.
 A summary line (the end-to-end numbers of every phase), the kernels line
 and the card line come before the last line, which is
 {"ok": true, "device": {...}}. A copy of the numbers goes to
@@ -184,7 +220,9 @@ from __future__ import annotations
 import gc
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -293,7 +331,32 @@ RABITQ_INSERT, RABITQ_REMOVE = 4_096, 10_000
 # phase 16: rabitq2 at 100k with the defaults; the JAX package's sweep
 # read 0.9836 at ef 96 (results/sweep_rabitq2_100k.json)
 RABITQ2_FLOORS = {96: 0.95}
-NEW_PHASES = ("collection", "reindex", "calc_gt", "rabitq", "rabitq2")
+# phase 17: SearchServer on phase 4's 1M bsq8 index, before its churn:
+# (a) an open loop of 8 producer threads submitting the 8192 queries, (b)
+# a closed loop of 64 client threads x 128 blocking searches; where a
+# served row differs from one direct call's, recall must stay within
+# SERVE_RECALL_SLACK of that call's
+SERVE = dict(topk=K, ef=64, max_batch=1024, timeout_us=2000)
+SERVE_PRODUCERS, SERVE_CLIENTS, SERVE_CALLS = 8, 64, 128
+SERVE_RECALL_SLACK = 0.002
+# phase 18: the REST service on phase 12's directory: 16 requests of 512
+# vectors from 4 threads (default mode), 8192 single-vector requests from
+# 64 threads (ALAYALITE_BATCH_SERVING=1), then inserts of 1,000 items with
+# int ids from SERVICE_ID0, an upsert of 100, delete_by_id of 100 and a
+# delete_by_filter of one shard, all over HTTP
+SERVICE_REQUESTS, SERVICE_THREADS, SERVICE_CLIENTS = 16, 4, 64
+SERVICE_INSERT, SERVICE_UPSERT, SERVICE_DELETE = 1_000, 100, 100
+SERVICE_ID0, SERVICE_DEAD_SHARD = 10_000_000, 11
+# phase 19: flat + sq4 on the 1M rows (an exact scan of the raw rows)
+FLAT_SQ4_INSERT, FLAT_SQ4_REMOVE = 1_000, 10_000
+# phase 20: RAG: 2,000 generated documents of ~2 kB, FixedSizeChunker's
+# defaults, HashingEmbedding(dim=256), a cos collection; 256 chunks' own
+# texts queried, each its own top-1
+RAG_DOCS, RAG_DOC_CHARS, RAG_DIM, RAG_QUERIES, RAG_FLOOR = (2_000, 2_000, 256,
+                                                            256, 0.99)
+SLICE11_PHASES = ("serving", "service", "flat_sq4", "native_rag")
+NEW_PHASES = ("collection", "reindex", "calc_gt", "rabitq", "rabitq2",
+              *SLICE11_PHASES)
 
 
 def log(msg: str) -> None:
@@ -2136,108 +2199,102 @@ def outer_recall(ids, gt) -> float:
                           for r, g in zip(ids, gt)]))
 
 
-def collection_phase(torch, ds) -> dict:
-    """Phase 12: a 1M-row collection through Client(url): one insert of
-    the 1M items, 8,192 new items, an upsert of 1,024 moved ids and a
+def collection_phase(torch, ds, root: str):
+    """Phase 12: a 1M-row collection through Client(url=root): one insert
+    of the 1M items, 8,192 new items, an upsert of 1,024 moved ids and a
     delete_by_filter of one shard (2,000 rows); 8,192 queries at ef 64
     against ground_truth over the live rows; save_collection, and a fresh
-    Client(url) that finds it and answers with the same ids."""
-    import shutil
-    import tempfile
-
+    Client(url) that finds it and answers with the same ids. Returns the
+    report and, for phase 18, which serves the saved directory, (the ids of
+    the queries, their live ground truth, id -> its document)."""
     from alayalite_tpu_torch import Client
 
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    root = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
     launches = Launches(new_counters())
     rep = {"steps_s": {}}
     steps = rep["steps_s"]
     rng = np.random.default_rng(12)
-    try:
-        client = Client(url=root)
-        col = client.create_collection("docs", capacity=N + SPARE)
-        t = time.time()
-        items = [(f"d{i}", f"document {i}", ds.data[i],
-                  {"shard": i % COLLECTION_SHARDS}) for i in range(N)]
-        steps["items"] = time.time() - t
-        launches.zero()
-        _, steps["insert_1m"] = synced(torch, lambda: col.insert(items))
-        launches.read("insert_1m")
-        del items
-        new = cluster_rows(rng, COLLECTION_NEW, N)
-        launches.zero()
-        _, steps["insert_new"] = synced(torch, lambda: col.insert(
-            [(f"n{i}", f"new {i}", new[i], {"shard": -1})
-             for i in range(COLLECTION_NEW)]))
-        launches.read("insert_new")
-        moved = rng.choice(N, size=COLLECTION_UPSERT, replace=False)
-        moved_to = cluster_rows(rng, COLLECTION_UPSERT, N)
-        launches.zero()
-        _, steps["upsert"] = synced(torch, lambda: col.upsert(
-            [(f"d{i}", f"moved {i}", moved_to[k],
-              {"shard": int(i) % COLLECTION_SHARDS})
-             for k, i in enumerate(moved)]))
-        launches.read("upsert")
-        dead = {f"d{i}" for i in range(COLLECTION_DEAD_SHARD, N,
-                                       COLLECTION_SHARDS)}
-        launches.zero()
-        _, steps["delete_by_filter"] = synced(torch, lambda: col.delete_by_filter(
-            {"shard": COLLECTION_DEAD_SHARD}))
-        launches.read("delete_by_filter")
-        if any(d in col._outer_inner for d in dead) or len(col._cols["id"]) != (
-                N + COLLECTION_NEW - len(dead)):
-            raise AssertionError("delete_by_filter left rows of its shard")
-        gt, steps["ground_truth_live"] = synced(
-            torch, lambda: live_ground_truth(torch, col, ds.queries))
-        col.batch_query(ds.queries, K, ef_search=64)      # warm-up
-        launches.zero()
-        res, steps["batch_query"] = synced(torch, lambda: col.batch_query(
-            ds.queries, K, ef_search=64))
-        launches.read("batch_query")
-        moved_set = {f"d{i}" for i in moved}
+    client = Client(url=root)
+    col = client.create_collection("docs", capacity=N + SPARE)
+    t = time.time()
+    items = [(f"d{i}", f"document {i}", ds.data[i],
+              {"shard": i % COLLECTION_SHARDS}) for i in range(N)]
+    steps["items"] = time.time() - t
+    launches.zero()
+    _, steps["insert_1m"] = synced(torch, lambda: col.insert(items))
+    launches.read("insert_1m")
+    del items
+    new = cluster_rows(rng, COLLECTION_NEW, N)
+    launches.zero()
+    _, steps["insert_new"] = synced(torch, lambda: col.insert(
+        [(f"n{i}", f"new {i}", new[i], {"shard": -1})
+         for i in range(COLLECTION_NEW)]))
+    launches.read("insert_new")
+    moved = rng.choice(N, size=COLLECTION_UPSERT, replace=False)
+    moved_to = cluster_rows(rng, COLLECTION_UPSERT, N)
+    launches.zero()
+    _, steps["upsert"] = synced(torch, lambda: col.upsert(
+        [(f"d{i}", f"moved {i}", moved_to[k],
+          {"shard": int(i) % COLLECTION_SHARDS})
+         for k, i in enumerate(moved)]))
+    launches.read("upsert")
+    dead = {f"d{i}" for i in range(COLLECTION_DEAD_SHARD, N,
+                                   COLLECTION_SHARDS)}
+    launches.zero()
+    _, steps["delete_by_filter"] = synced(torch, lambda: col.delete_by_filter(
+        {"shard": COLLECTION_DEAD_SHARD}))
+    launches.read("delete_by_filter")
+    if any(d in col._outer_inner for d in dead) or len(col._cols["id"]) != (
+            N + COLLECTION_NEW - len(dead)):
+        raise AssertionError("delete_by_filter left rows of its shard")
+    gt, steps["ground_truth_live"] = synced(
+        torch, lambda: live_ground_truth(torch, col, ds.queries))
+    col.batch_query(ds.queries, K, ef_search=64)      # warm-up
+    launches.zero()
+    res, steps["batch_query"] = synced(torch, lambda: col.batch_query(
+        ds.queries, K, ef_search=64))
+    launches.read("batch_query")
+    moved_set = {f"d{i}" for i in moved}
 
-        def doc_of(i):
-            k = i[1:]
-            if i[0] == "n":
-                return f"new {k}"
-            return f"moved {k}" if i in moved_set else f"document {k}"
+    def doc_of(i):
+        k = i[1:]
+        if i[0] == "n":
+            return f"new {k}"
+        return f"moved {k}" if i in moved_set else f"document {k}"
 
-        rep["recall"] = outer_recall(res["id"], gt)
-        rep["deleted_returned"] = sum(i in dead for r in res["id"] for i in r)
-        rep["wrong_documents"] = sum(
-            doc != doc_of(i) for ri, rd in zip(res["id"], res["document"])
-            for i, doc in zip(ri, rd))
-        rep["short_rows"] = sum(len(r) != K for r in res["id"])
-        own, _ = synced(torch, lambda: col.batch_query(new, 1, ef_search=64))
-        rep["new_own_top1"] = float(np.mean(
-            [r[:1] == [f"n{i}"] for i, r in enumerate(own["id"])]))
-        rep["qps"] = NQ / steps["batch_query"]
-        rep["insert_1m_items_per_s"] = N / steps["insert_1m"]
-        rep["insert_new_items_per_s"] = COLLECTION_NEW / steps["insert_new"]
-        _, steps["save_collection"] = synced(
-            torch, lambda: client.save_collection("docs"))
-        del col, client
-        gc.collect()
-        torch.cuda.empty_cache()
-        again, steps["client_url_load"] = synced(torch, lambda: Client(url=root))
-        if again.list_collections() != ["docs"]:
-            raise AssertionError(f"Client(url) found {again.list_collections()}")
-        res2 = again.get_collection("docs").batch_query(ds.queries, K,
-                                                        ef_search=64)
-        rep["same_ids_after_load"] = res2["id"] == res["id"]
-        rep["launches"] = launches.steps
-        log(f"collection 1M: recall@10 {rep['recall']:.4f} at ef 64, "
-            f"{rep['qps']:.1f} QPS, insert {rep['insert_1m_items_per_s']:.1f} "
-            f"items/s (1M), {rep['insert_new_items_per_s']:.1f} items/s "
-            f"({COLLECTION_NEW} new), new items' own top-1 "
-            f"{rep['new_own_top1']:.4f}, deleted returned "
-            f"{rep['deleted_returned']}, wrong documents "
-            f"{rep['wrong_documents']}, same ids after Client(url) "
-            f"{rep['same_ids_after_load']}; seconds "
-            + ", ".join(f"{k} {v:.2f}" for k, v in steps.items())
-            + f"; launches {launches.steps}")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    rep["recall"] = outer_recall(res["id"], gt)
+    rep["deleted_returned"] = sum(i in dead for r in res["id"] for i in r)
+    rep["wrong_documents"] = sum(
+        doc != doc_of(i) for ri, rd in zip(res["id"], res["document"])
+        for i, doc in zip(ri, rd))
+    rep["short_rows"] = sum(len(r) != K for r in res["id"])
+    own, _ = synced(torch, lambda: col.batch_query(new, 1, ef_search=64))
+    rep["new_own_top1"] = float(np.mean(
+        [r[:1] == [f"n{i}"] for i, r in enumerate(own["id"])]))
+    rep["qps"] = NQ / steps["batch_query"]
+    rep["insert_1m_items_per_s"] = N / steps["insert_1m"]
+    rep["insert_new_items_per_s"] = COLLECTION_NEW / steps["insert_new"]
+    _, steps["save_collection"] = synced(
+        torch, lambda: client.save_collection("docs"))
+    del col, client
+    gc.collect()
+    torch.cuda.empty_cache()
+    again, steps["client_url_load"] = synced(torch, lambda: Client(url=root))
+    if again.list_collections() != ["docs"]:
+        raise AssertionError(f"Client(url) found {again.list_collections()}")
+    res2 = again.get_collection("docs").batch_query(ds.queries, K,
+                                                    ef_search=64)
+    rep["same_ids_after_load"] = res2["id"] == res["id"]
+    rep["launches"] = launches.steps
+    log(f"collection 1M: recall@10 {rep['recall']:.4f} at ef 64, "
+        f"{rep['qps']:.1f} QPS, insert {rep['insert_1m_items_per_s']:.1f} "
+        f"items/s (1M), {rep['insert_new_items_per_s']:.1f} items/s "
+        f"({COLLECTION_NEW} new), new items' own top-1 "
+        f"{rep['new_own_top1']:.4f}, deleted returned "
+        f"{rep['deleted_returned']}, wrong documents "
+        f"{rep['wrong_documents']}, same ids after Client(url) "
+        f"{rep['same_ids_after_load']}; seconds "
+        + ", ".join(f"{k} {v:.2f}" for k, v in steps.items())
+        + f"; launches {launches.steps}")
     if rep["recall"] < COLLECTION_FLOOR or rep["deleted_returned"] or (
             rep["wrong_documents"] or rep["short_rows"]
             or rep["new_own_top1"] < CHURN_FLOOR
@@ -2247,7 +2304,7 @@ def collection_phase(torch, ds) -> dict:
             "insert_new"]["gather_estimate"] <= 0:
         raise AssertionError("the collection's search or insert launched a "
                              f"kernel of its path no time: {launches.steps}")
-    return rep
+    return rep, (res["id"], gt, doc_of)
 
 
 def reindex_phase(torch, small) -> dict:
@@ -2468,6 +2525,518 @@ def rabitq_phase(torch, name, data, queries, gt, floors: dict,
     return rep
 
 
+def latency(seconds) -> dict:
+    """p50 / p99 of per-request seconds, in ms."""
+    a = np.asarray(seconds, dtype=np.float64) * 1e3
+    return {"p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99))}
+
+
+def run_threads(n: int, target) -> float:
+    """``target(t)`` on ``n`` threads started together; wall seconds."""
+    import threading
+
+    threads = [threading.Thread(target=target, args=(t,)) for t in range(n)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return time.perf_counter() - t0
+
+
+def serving_phase(torch, idx, queries, gt) -> dict:
+    """Phase 17: SearchServer(topk 10, ef 64, max_batch 1024, 2 ms) over the
+    fitted bsq8 index: an open loop (8 threads submit() every query, then
+    the futures are read) and a closed loop (64 threads x 128 blocking
+    search() calls). Each: QPS, p50 / p99 latency, batches popped and their
+    mean size, the hop kernels' launches (each must be > 0), recall@10, and
+    the share of rows equal to one direct batch_search_with_distance."""
+    from alayalite_tpu_torch.serving import SearchServer
+    from alayalite_tpu_torch.utils.evaluate import calc_recall
+
+    nq = queries.shape[0]
+    launches = Launches(new_counters())
+    direct, _ = idx._engine.batch_search_with_distance(queries, K,
+                                                       ef=SERVE["ef"])
+    rep = {"config": dict(SERVE), "direct_recall": calc_recall(direct, gt)}
+    server = SearchServer(idx, **SERVE)
+    try:
+        server.search(queries[0])                              # warm-up
+        for mode in ("open_loop", "closed_loop"):
+            ids = np.full((nq, K), -1, dtype=np.int64)
+            lat = np.zeros(nq)
+            errors = []
+            b0, q0, s0 = server.batches, server.queries, server.search_s
+            if mode == "open_loop":
+                futs, sent, done = [None] * nq, np.zeros(nq), np.zeros(nq)
+
+                def stamp(i):
+                    return lambda f: done.__setitem__(i, time.perf_counter())
+
+                def producer(p):
+                    for i in range(p, nq, SERVE_PRODUCERS):
+                        sent[i] = time.perf_counter()
+                        futs[i] = server.submit(queries[i])
+                        futs[i].add_done_callback(stamp(i))
+
+                launches.zero()
+                t0 = time.perf_counter()
+                submit_s = run_threads(SERVE_PRODUCERS, producer)
+                for i, f in enumerate(futs):
+                    try:
+                        ids[i] = f.result(timeout=600)[0]
+                    except Exception as e:
+                        errors.append(repr(e))
+                wall = time.perf_counter() - t0
+                lat = done - sent
+            else:
+                def client(c):
+                    for i in range(c * SERVE_CALLS, (c + 1) * SERVE_CALLS):
+                        t = time.perf_counter()
+                        try:
+                            ids[i] = server.search(queries[i])[0]
+                        except Exception as e:
+                            errors.append(repr(e))
+                        lat[i] = time.perf_counter() - t
+
+                launches.zero()
+                submit_s = None
+                wall = run_threads(SERVE_CLIENTS, client)
+            got = launches.read(mode)
+            batches = server.batches - b0
+            search_s = server.search_s - s0
+            same = float((ids == direct).all(1).mean())
+            rec = calc_recall(ids, gt)
+            # where a request's time goes: the dispatcher's searches (a
+            # share of the wall), the rest queue wait and the host's
+            # Python around the queue
+            rep[mode] = {"qps": nq / wall, "wall_s": wall, **latency(lat),
+                         "batches": batches,
+                         "mean_batch": (server.queries - q0) / max(batches, 1),
+                         "search_ms_per_batch": search_s / max(batches, 1)
+                         * 1e3,
+                         "search_share_of_wall": search_s / wall,
+                         "submit_s": submit_s,
+                         "recall": rec, "rows_equal_direct": same,
+                         "errors": len(errors)}
+            log(f"serving {mode}: {nq / wall:.1f} QPS, latency p50 "
+                f"{rep[mode]['p50_ms']:.2f} ms p99 {rep[mode]['p99_ms']:.2f} "
+                f"ms, {batches} batches of {rep[mode]['mean_batch']:.1f} on "
+                f"average, {rep[mode]['search_ms_per_batch']:.2f} ms of search "
+                f"a batch ({rep[mode]['search_share_of_wall']:.3f} of the "
+                f"wall), submit {submit_s}, recall@10 {rec:.4f} (direct call "
+                f"{rep['direct_recall']:.4f}), rows equal to the direct call "
+                f"{same:.4f}, errors {len(errors)}, launches {got}")
+            if errors:
+                raise AssertionError(f"serving {mode}: failed requests "
+                                     f"{errors[:3]}")
+            if min(got[k] for k in ("gather_estimate", "pool_merge",
+                                    "ring_probe")) <= 0:
+                raise AssertionError(f"serving {mode}: a hop kernel was "
+                                     f"launched no time: {got}")
+            if rec < RECALL_FLOOR or (same < 1.0 and abs(
+                    rec - rep["direct_recall"]) > SERVE_RECALL_SLACK):
+                raise AssertionError(f"serving {mode}: recall@10 {rec} "
+                                     f"(direct {rep['direct_recall']})")
+    finally:
+        server.close()
+    rep["launches"] = launches.steps
+    return rep
+
+
+def http_connect(port: int):
+    """A client connection to the service on 127.0.0.1, kept open across
+    requests (HTTP/1.1)."""
+    import http.client
+
+    return http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+
+
+def http_post(conn, route: str, body: str):
+    """(status, decoded response, seconds, response bytes) of one POST of a
+    JSON body on ``conn``."""
+    t = time.perf_counter()
+    conn.request("POST", f"/api/v1/collection/{route}", body,
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    return resp.status, json.loads(data), time.perf_counter() - t, len(data)
+
+
+def start_service(torch, root: str, batched: bool):
+    """create_app on ``root`` (the default device) behind the stdlib HTTP
+    server on 127.0.0.1, port 0, in a thread: (app, server, load seconds)."""
+    import threading
+
+    from alayalite_tpu_torch.service.app import create_app, make_server
+
+    if batched:
+        os.environ["ALAYALITE_BATCH_SERVING"] = "1"
+    else:
+        os.environ.pop("ALAYALITE_BATCH_SERVING", None)
+    app, load_s = synced(torch, lambda: create_app(data_dir=root))
+    os.environ.pop("ALAYALITE_BATCH_SERVING", None)
+    if app.client.list_collections() != ["docs"]:
+        raise AssertionError(f"create_app found "
+                             f"{app.client.list_collections()}")
+    srv = make_server(app, "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return app, srv, load_s
+
+
+def service_breakdown(torch, col, body: str) -> dict:
+    """Where one default-mode query request's time goes, each step timed
+    alone (median of 3): JSON decoding, the request model, the index search,
+    the id -> document join, JSON encoding of the answer."""
+    from alayalite_tpu_torch.service import models as m
+
+    def med(fn):
+        out, times = None, []
+        for _ in range(3):
+            out, dt = synced(torch, fn)
+            times.append(dt)
+        return out, float(np.median(times)) * 1e3
+
+    payload, decode = med(lambda: json.loads(body))
+    req, model = med(lambda: m.QueryCollectionRequest(**payload))
+    qv = np.asarray(req.query_vector, dtype=np.float32)
+    (ids, dists), search = med(lambda: col._index.batch_search_with_distance(
+        qv, req.limit, req.ef_search))
+    res, join = med(lambda: col._join_results(ids, dists))
+    _, encode = med(lambda: json.dumps(res))
+    return {"json_decode_ms": decode, "request_model_ms": model,
+            "search_ms": search, "join_ms": join, "json_encode_ms": encode}
+
+
+def service_phase(torch, root: str, want_ids, gt, doc_of, queries) -> dict:
+    """Phase 18: phase 12's directory served over HTTP by create_app +
+    the stdlib server. Default mode: the queries as 16 requests of 512
+    vectors from 4 threads (the ids must be phase 12's). Batched mode
+    (ALAYALITE_BATCH_SERVING=1): 8192 single-vector requests from 64
+    threads (recall@10 over the live rows ≥ COLLECTION_FLOOR, every document
+    its id's); then insert, upsert, delete_by_id, delete_by_filter, save and
+    a missing collection, all over HTTP."""
+    nq = queries.shape[0]
+    launches = Launches(new_counters())
+    rep = {"steps_s": {}}
+    steps = rep["steps_s"]
+    rows = nq // SERVICE_REQUESTS
+
+    def query_body(vecs, limit=K):
+        return json.dumps({"collection_name": "docs",
+                           "query_vector": np.asarray(vecs).tolist(),
+                           "limit": limit, "ef_search": 64})
+
+    def serve_mode(mode, port, bodies, threads):
+        out = [None] * len(bodies)
+        lat, nbytes, errors = np.zeros(len(bodies)), np.zeros(len(bodies)), []
+
+        def worker(w):
+            conn = http_connect(port)
+            for r in range(w, len(bodies), threads):
+                try:
+                    status, res, lat[r], nbytes[r] = http_post(conn, "query",
+                                                               bodies[r])
+                    if status != 200:
+                        errors.append((status, res))
+                    out[r] = res
+                except Exception as e:
+                    errors.append(repr(e))
+            conn.close()
+
+        launches.zero()
+        wall = run_threads(threads, worker)
+        got = launches.read(mode)
+        if errors:
+            raise AssertionError(f"service {mode}: failed requests "
+                                 f"{errors[:3]}")
+        ids = [row for res in out for row in res["id"]]
+        docs = [row for res in out for row in res["document"]]
+        rep[mode] = {"requests": len(bodies),
+                     "requests_per_s": len(bodies) / wall,
+                     "queries_per_s": nq / wall, "wall_s": wall,
+                     **latency(lat),
+                     "request_bytes": float(np.mean([len(b) for b in bodies])),
+                     "response_bytes": float(nbytes.mean()),
+                     "recall": outer_recall(ids, gt),
+                     "wrong_documents": sum(
+                         doc != doc_of(i) for ri, rd in zip(ids, docs)
+                         for i, doc in zip(ri, rd))}
+        log(f"service {mode}: {len(bodies)} requests from {threads} threads, "
+            f"{rep[mode]['requests_per_s']:.1f} requests/s "
+            f"({rep[mode]['queries_per_s']:.1f} queries/s), latency p50 "
+            f"{rep[mode]['p50_ms']:.2f} ms p99 {rep[mode]['p99_ms']:.2f} ms, "
+            f"{rep[mode]['request_bytes']:.0f} B a request, recall@10 "
+            f"{rep[mode]['recall']:.4f}, wrong documents "
+            f"{rep[mode]['wrong_documents']}, launches {got}")
+        if got["pool_merge"] <= 0 or got["ring_probe"] <= 0:
+            raise AssertionError(f"service {mode}: the search launched a "
+                                 f"kernel of its path no time: {got}")
+        return ids
+
+    # default mode: requests serialized by the app's lock
+    app, srv, steps["create_app_default"] = start_service(torch, root, False)
+    bodies = [query_body(queries[r * rows:(r + 1) * rows])
+              for r in range(SERVICE_REQUESTS)]
+    warm = http_connect(srv.server_address[1])
+    http_post(warm, "query", bodies[0])                          # warm-up
+    warm.close()
+    ids = serve_mode("default", srv.server_address[1], bodies,
+                     SERVICE_THREADS)
+    col = app.client.get_collection("docs")
+    # phase 12 searched all the queries in one call: the searches sum each
+    # distance in an order that does not depend on the batch
+    # (ops.distance.row_dots), so the rows must be equal
+    default = rep["default"]
+    default["ids_equal_phase12"] = float(np.mean(
+        [a == b for a, b in zip(ids, want_ids)]))
+    rep["breakdown_one_request"] = service_breakdown(torch, col, bodies[0])
+    log(f"service: one request of {rows} vectors, timed apart "
+        f"{rep['breakdown_one_request']}; rows equal to phase 12's one "
+        f"call {default['ids_equal_phase12']:.4f}")
+    srv.shutdown()
+    srv.server_close()
+    del app, srv, col
+    gc.collect()
+    torch.cuda.empty_cache()
+    if default["ids_equal_phase12"] < 1.0 or default["wrong_documents"]:
+        raise AssertionError(f"service default mode: {default}")
+
+    # batched mode: single-vector requests coalesce in one SearchServer
+    app, srv, steps["create_app_batched"] = start_service(torch, root, True)
+    port = srv.server_address[1]
+    conn = http_connect(port)
+    try:
+        bodies = [query_body(queries[i:i + 1]) for i in range(nq)]
+        http_post(conn, "query", bodies[0])                      # warm-up
+        serve_mode("batched", port, bodies, SERVICE_CLIENTS)
+        server = app._servers["docs"]
+        rep["batched"].update(
+            batches=server.batches,
+            mean_batch=server.queries / server.batches,
+            search_ms_per_batch=server.search_s / server.batches * 1e3,
+            search_share_of_wall=server.search_s / rep["batched"]["wall_s"])
+        log(f"service batched: {server.batches} batches of "
+            f"{rep['batched']['mean_batch']:.1f} on average, "
+            f"{rep['batched']['search_ms_per_batch']:.2f} ms of search a "
+            f"batch ({rep['batched']['search_share_of_wall']:.3f} of the "
+            f"wall)")
+        if rep["batched"]["recall"] < COLLECTION_FLOOR or rep["batched"][
+                "wrong_documents"]:
+            raise AssertionError(f"service batched mode: {rep['batched']}")
+
+        rng = np.random.default_rng(18)
+        new = cluster_rows(rng, SERVICE_INSERT, N)
+        new_ids = [SERVICE_ID0 + i for i in range(SERVICE_INSERT)]
+
+        def step(name, route, payload, want=200):
+            launches.zero()
+            status, res, steps[name], _ = http_post(conn, route,
+                                                    json.dumps(payload))
+            launches.read(name)
+            if status != want:
+                raise AssertionError(f"service {name}: status {status} "
+                                     f"{res}")
+            return res
+
+        step("insert", "insert", {"collection_name": "docs", "items": [
+            [new_ids[i], f"svc {i}", new[i].tolist(), {"shard": -2}]
+            for i in range(SERVICE_INSERT)]})
+        res = step("insert_own_query", "query", json.loads(query_body(new, 1)))
+        rep["insert_own_top1"] = float(np.mean(
+            [r[:1] == [i] for r, i in zip(res["id"], new_ids)]))
+        moved = cluster_rows(rng, SERVICE_UPSERT, N)
+        step("upsert", "upsert", {"collection_name": "docs", "items": [
+            [new_ids[i], f"svc moved {i}", moved[i].tolist(), {"shard": -2}]
+            for i in range(SERVICE_UPSERT)]})
+        res = step("upsert_query", "query", json.loads(query_body(moved, 1)))
+        rep["upsert_own_documents"] = float(np.mean(
+            [d[:1] == [f"svc moved {i}"] for i, d in enumerate(
+                res["document"])]))
+        gone = new_ids[SERVICE_UPSERT:SERVICE_UPSERT + SERVICE_DELETE]
+        step("delete_by_id", "delete_by_id", {"collection_name": "docs",
+                                              "ids": gone})
+        res = step("delete_query", "query", json.loads(query_body(
+            new[SERVICE_UPSERT:SERVICE_UPSERT + SERVICE_DELETE])))
+        rep["deleted_returned"] = sum(i in set(gone) for r in res["id"]
+                                      for i in r)
+        step("delete_by_filter", "delete_by_filter", {
+            "collection_name": "docs",
+            "filter": {"shard": SERVICE_DEAD_SHARD}})
+        col = app.client.get_collection("docs")
+        rep["shard_rows_left"] = sum(
+            md.get("shard") == SERVICE_DEAD_SHARD for md in col._cols["metadata"])
+        step("save", "save", {"collection_name": "docs"})
+        step("missing", "query", {"collection_name": "nope",
+                                  "query_vector": [[0.0] * DIM], "limit": 1},
+             want=404)
+    finally:
+        conn.close()
+        srv.shutdown()
+        srv.server_close()
+        for s in list(app._servers.values()):
+            s.close()
+    rep["launches"] = launches.steps
+    log(f"service mutations over HTTP: insert own top-1 "
+        f"{rep['insert_own_top1']:.4f}, upserted documents "
+        f"{rep['upsert_own_documents']:.4f}, deleted returned "
+        f"{rep['deleted_returned']}, shard rows left "
+        f"{rep['shard_rows_left']}; seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in steps.items()))
+    if (rep["insert_own_top1"] < CHURN_FLOOR
+            or rep["upsert_own_documents"] < CHURN_FLOOR
+            or rep["deleted_returned"] or rep["shard_rows_left"]):
+        raise AssertionError(f"service mutations failed: {rep}")
+    if launches.steps["insert"]["gather_estimate"] <= 0:
+        raise AssertionError("the service's insert launched its shadow "
+                             "search no time")
+    return rep
+
+
+def flat_sq4_phase(torch, ds, gt) -> dict:
+    """Phase 19: flat + sq4 on the 1M rows: fit, one exact search of the
+    queries (the raw rows scanned through l2_tile; recall@10 ≥
+    FLAT_EXACT_FLOOR), insert 1,000 rows (each its own top-1), remove
+    10,000 (none may come back), save and load (the same ids and codes)."""
+    from alayalite_tpu_torch import Client
+    from alayalite_tpu_torch.utils.evaluate import calc_recall
+
+    launches = Launches(new_counters())
+    rng = np.random.default_rng(19)
+    n = ds.data.shape[0]
+    idx = Client().create_index("flat_sq4", index_type="flat",
+                                quantization_type="sq4",
+                                capacity=n + FLAT_SQ4_INSERT)
+    launches.zero()
+    _, fit_s = synced(torch, lambda: idx.fit(ds.data))
+    launches.read("fit")
+    idx.batch_search(ds.queries, K)
+    launches.zero()
+    (ids, dist), wall = synced(torch, lambda: idx.batch_search_with_distance(
+        ds.queries, K))
+    got = launches.read("search")
+    check_result(ids, dist, n, "flat sq4")
+    rep = {"fit_s": fit_s, "recall": calc_recall(ids, gt),
+           "qps": ds.queries.shape[0] / wall, "search_wall_s": wall,
+           "codes_bytes": int(idx._engine.search_space.codes.numel())}
+    new = cluster_rows(rng, FLAT_SQ4_INSERT, n)
+    launches.zero()
+    new_ids, rep["insert_s"] = synced(torch, lambda: idx.insert(new))
+    launches.read("insert")
+    rep["own_top1"] = float((idx.batch_search(new, 1)[:, 0] == new_ids).mean())
+    dead = rng.choice(n, size=FLAT_SQ4_REMOVE, replace=False)
+    launches.zero()
+    _, rep["remove_s"] = synced(torch, lambda: idx.remove(dead))
+    after = idx.batch_search(ds.queries, K)
+    launches.read("remove_search")
+    rep["removed_returned"] = int(np.isin(after, dead).sum())
+    back, rep["save_s"], rep["load_s"] = save_and_load(torch, idx, "flat_sq4")
+    rep["same_ids_after_load"] = bool(
+        (back.batch_search(ds.queries, K) == after).all())
+    rep["same_codes_after_load"] = bool(torch.equal(
+        back._engine.search_space.codes, idx._engine.search_space.codes))
+    rep["launches"] = launches.steps
+    log(f"flat sq4 1M: fit {fit_s:.2f}s, recall@10 {rep['recall']:.4f}, "
+        f"{rep['qps']:.1f} QPS, insert own top-1 {rep['own_top1']:.4f}, "
+        f"{rep['removed_returned']} removed returned, save "
+        f"{rep['save_s']:.2f}s load {rep['load_s']:.2f}s, same ids "
+        f"{rep['same_ids_after_load']}, same codes "
+        f"{rep['same_codes_after_load']}; launches {launches.steps}")
+    if (rep["recall"] < FLAT_EXACT_FLOOR or rep["own_top1"] < 0.999
+            or rep["removed_returned"] or not rep["same_ids_after_load"]
+            or not rep["same_codes_after_load"] or got["l2_tile"] <= 0):
+        raise AssertionError(f"flat sq4 phase failed: {rep}")
+    return rep
+
+
+def rag_documents(rng, n: int, chars: int) -> list:
+    """``n`` documents of about ``chars`` characters of random words."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = ["".join(rng.choice(letters, size=rng.integers(3, 11)))
+             for _ in range(5000)]
+    docs = []
+    for _ in range(n):
+        words = rng.choice(len(vocab), size=chars // 5)
+        docs.append(" ".join(vocab[w] for w in words)[:chars])
+    return docs
+
+
+def native_rag_phase(torch, ds) -> dict:
+    """Phase 20: the native runtime must load; the 1M x 128 rows written
+    with save_fvecs and read by load_fvecs (through the native loader) and
+    by the numpy loader must be the same array. Then RAG: generated
+    documents cut by FixedSizeChunker, embedded by HashingEmbedding,
+    inserted into a cos collection on the card; chunks' own texts queried,
+    each its own top-1 (RAG_FLOOR)."""
+    import shutil
+    import tempfile
+
+    from alayalite_tpu_torch import Client, native
+    from alayalite_tpu_torch.rag import FixedSizeChunker, HashingEmbedding
+    from alayalite_tpu_torch.utils import io as vio
+
+    if native.get_lib() is None:
+        raise AssertionError("the native library did not build or load")
+    rep = {"native_lib": str(native.lib_path().relative_to(ROOT))}
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        path = os.path.join(tmp, "base.fvecs")
+        _, rep["save_fvecs_s"] = synced(torch, lambda: vio.save_fvecs(
+            path, ds.data))
+        nat, rep["load_fvecs_native_s"] = synced(torch, lambda: vio.load_fvecs(
+            path))
+        ref, rep["load_fvecs_numpy_s"] = synced(torch, lambda: vio._load_vecs(
+            path, np.dtype(np.float32)))
+        direct = native.load_vecs_native(path)
+        rep["native_equals_numpy"] = bool(np.array_equal(nat, ref)
+                                          and np.array_equal(direct, ref)
+                                          and np.array_equal(ref, ds.data))
+        rep["file_bytes"] = os.path.getsize(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"native: {rep['native_lib']}; fvecs of {rep['file_bytes']} B: "
+        f"save {rep['save_fvecs_s']:.2f}s, native load "
+        f"{rep['load_fvecs_native_s']:.3f}s, numpy load "
+        f"{rep['load_fvecs_numpy_s']:.3f}s, same array "
+        f"{rep['native_equals_numpy']}")
+    if not rep["native_equals_numpy"]:
+        raise AssertionError("the native loader's array differs from numpy's")
+
+    launches = Launches(new_counters())
+    rng = np.random.default_rng(20)
+    docs = rag_documents(rng, RAG_DOCS, RAG_DOC_CHARS)
+    chunks, chunk_s = synced(torch, lambda: FixedSizeChunker().chunk_many(docs))
+    emb = HashingEmbedding(dim=RAG_DIM)
+    vecs, embed_s = synced(torch, lambda: emb.embed(chunks))
+    col = Client().create_collection("rag", metric="cos",
+                                     capacity=len(chunks))
+    items = [(f"c{i}", c, vecs[i], {"doc": i}) for i, c in enumerate(chunks)]
+    launches.zero()
+    _, insert_s = synced(torch, lambda: col.insert(items))
+    launches.read("insert")
+    pick = rng.choice(len(chunks), size=RAG_QUERIES, replace=False)
+    q = emb.embed([chunks[i] for i in pick])
+    launches.zero()
+    res, query_s = synced(torch, lambda: col.batch_query(q, 1, ef_search=64))
+    got = launches.read("query")
+    own = float(np.mean([r[:1] == [f"c{i}"] for r, i in zip(res["id"], pick)]))
+    rep["rag"] = {"documents": RAG_DOCS, "chunks": len(chunks),
+                  "chunk_s": chunk_s, "embed_s": embed_s,
+                  "chunks_per_s_embedded": len(chunks) / embed_s,
+                  "insert_s": insert_s,
+                  "items_per_s_inserted": len(chunks) / insert_s,
+                  "query_s": query_s, "own_top1": own}
+    rep["launches"] = launches.steps
+    log(f"rag: {RAG_DOCS} documents -> {len(chunks)} chunks in "
+        f"{chunk_s:.2f}s, embedded at {len(chunks) / embed_s:.1f} chunks/s, "
+        f"inserted at {len(chunks) / insert_s:.1f} items/s, own top-1 "
+        f"{own:.4f} over {RAG_QUERIES} chunks; launches {launches.steps}")
+    if own < RAG_FLOOR or got["pool_merge"] <= 0:
+        raise AssertionError(f"rag phase failed: {rep['rag']}, {got}")
+    return rep
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -2512,6 +3081,14 @@ def main() -> int:
         for ln in lines:
             log(f"build warning ({k}): {ln}")
     report["sq8_sass"] = check_hgmma()
+    # the native host runtime (g++, build/native/): the serving queue and
+    # the vecs loader of phases 17, 18 and 20; no silent numpy fallback
+    from alayalite_tpu_torch import native
+
+    lib, report["native_build_s"] = synced(torch, native.get_lib)
+    if lib is None:
+        raise AssertionError("the native library did not build or load")
+    log(f"native: {native.lib_path().name} in {report['native_build_s']:.2f}s")
 
     report["block_diagdot"] = check_diagdot(torch, dev)
     report.update(check_gather(torch, dev))
@@ -2596,6 +3173,8 @@ def main() -> int:
             launches["gather_estimate"] / launches["estimate_many_calls"])
     if report["search"][64]["recall"] < RECALL_FLOOR:
         raise AssertionError(f"recall@10 at ef=64 below {RECALL_FLOOR}")
+    # phase 17 on the fitted index, before the churn of phase 6b
+    report["serving"] = serving_phase(torch, idx, ds.queries, gt)
 
     report["small"] = small_agreement(torch)
     for c in pool:
@@ -2614,8 +3193,21 @@ def main() -> int:
     report["flat"] = flat_phases(torch, dev, ds, gt)
     gc.collect()
     torch.cuda.empty_cache()
+    report["flat_sq4"] = flat_sq4_phase(torch, ds, gt)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    report["collection"] = collection_phase(torch, ds)
+    # phase 18 serves the directory phase 12 saved
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        report["collection"], handoff = collection_phase(torch, ds, root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["service"] = service_phase(torch, root, *handoff, ds.queries)
+        del handoff
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     # phase 6d's data
@@ -2635,6 +3227,9 @@ def main() -> int:
     report["rabitq2"] = rabitq_phase(
         torch, "rabitq2_100k", small.data, small.queries, gt_small,
         RABITQ2_FLOORS, False, index_type="hnsw", quantization_type="rabitq2")
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["native_rag"] = native_rag_phase(torch, ds)
     report["total_s"] = time.time() - t_start
 
     def row(name, source, replaces, launches, nums):
@@ -2664,11 +3259,17 @@ def main() -> int:
                 + churn_launches[kernel])
 
     def new_launches(kernel, phases=NEW_PHASES, steps=None):
-        """Launches in the SDK and rabitq phases (12-16): every step, or
-        the steps named ``steps``."""
-        return sum(counts[kernel] for ph in phases
+        """Launches in the SDK, rabitq, serving, service, flat + sq4 and
+        RAG phases (12-20): every step, or the steps named ``steps``."""
+        return sum(counts.get(kernel, 0) for ph in phases
                    for step, counts in report[ph]["launches"].items()
                    if steps is None or step in steps)
+
+    def by_new_phase(kernel):
+        """A kernel's launches in each of phases 17-20."""
+        return {ph: new_launches(kernel, (ph,)) for ph in SLICE11_PHASES}
+
+    sdk_rabitq = NEW_PHASES[:5]
 
     rabitq_searches = sum(new_launches(
         "block_diagdot", (ph,), [s for s in report[ph]["launches"]
@@ -2687,7 +3288,8 @@ def main() -> int:
                 "launches_raw_path": raw_launches(name),
                 "launches_raw_churn": {k: v[name] for k, v in
                                        raw_churn_launches.items()},
-                "launches_sdk_rabitq": new_launches(name),
+                "launches_sdk_rabitq": new_launches(name, sdk_rabitq),
+                "launches_by_new_phase": by_new_phase(name),
                 "differing_entries": report[name]["differing_entries"],
                 "launched_by": launched_by, **more}
 
@@ -2726,7 +3328,8 @@ def main() -> int:
         "flat_fast": report["flat"]["fast"]["merge_kv_launches"],
         "calc_gt": new_launches("merge_kv", ("calc_gt",)),
         "sdk_and_rabitq_fits": new_launches("merge_kv", (
-            "collection", "reindex", "rabitq", "rabitq2"))}
+            "collection", "reindex", "rabitq", "rabitq2")),
+        **by_new_phase("merge_kv")}
     log(f"merge_kv launches by path: {merge_paths}")
 
     def entries(rep):
@@ -2750,6 +3353,7 @@ def main() -> int:
                         "launch a hop (Index.batch_search, the insert's "
                         "neighbor search); BQGSpace.estimate_for in the "
                         "bsq8 churn phase's block audit",
+         "launches_by_new_phase": by_new_phase("block_diagdot"),
          "launches_by_phase": {
              "bsq8_churn_audit": churn_launches["block_diagdot"],
              "rabitq_1m": new_launches("block_diagdot", ("rabitq",)),
@@ -2764,6 +3368,7 @@ def main() -> int:
                raw_launches("gather_diagdot") + new_launches("gather_diagdot"),
                gather),
          "also_replaces": "scripts/proto_dma_gather2.py:124",
+         "launches_by_new_phase": by_new_phase("gather_diagdot"),
          "launched_by": "SQSpace.gather_dists: the sq8 traversal's dot",
          "variant": gather["variant"], "at": entries(gather)},
         {**row("gather_estimate", "alayalite_tpu_torch/csrc/gather_diagdot.cu",
@@ -2777,7 +3382,8 @@ def main() -> int:
                         "its bsq8 shadow, the collection's inserts too), "
                         "one launch a hop",
          "launches_raw_churn": raw_launches("gather_estimate"),
-         "launches_sdk": new_launches("gather_estimate"),
+         "launches_sdk": new_launches("gather_estimate", sdk_rabitq),
+         "launches_by_new_phase": by_new_phase("gather_estimate"),
          "variant": fused["variant"], "at": entries(fused),
          "kernels_per_estimate_many": report["estimate_many"][
              "kernels_per_call"]},
@@ -2788,6 +3394,7 @@ def main() -> int:
                         "operands) and the raw beam's pop ring, every hop",
          "kernel_route": report["ring_probe"]["route"],
          "launches_by_route": probe_routes,
+         "launches_by_new_phase": by_new_phase("ring_probe"),
          "hash_ms": report["ring_probe"]["hash_ms"],
          "hash_ms_spin": report["ring_probe"]["hash_ms_spin"],
          "scan_ms": report["ring_probe"]["scan_ms"],
@@ -2845,6 +3452,7 @@ def main() -> int:
          "shared_ms": report["roll_n"]["shared_ms"],
          "shared_ms_spin": report["roll_n"]["shared_ms_spin"],
          "library_ms_spin": report["roll_n"]["library_ms_spin"],
+         "launches_by_new_phase": by_new_phase("roll_n"),
          "launched_by": "no path: it calibrates the cost of one exchange "
                         "step, as scripts/opt_hop2.py does on the TPU",
          "n": ROLLS[0],
@@ -2859,6 +3467,7 @@ def main() -> int:
                "alayalite_tpu/ops/pallas_distance.py:70",
                report["flat"]["exact"]["l2_tile_launches"]
                + new_launches("l2_tile"), report["tiles"]["l2_tile"]),
+         "launches_by_new_phase": by_new_phase("l2_tile"),
          "launches_by_path": {
              "flat_exact": report["flat"]["exact"]["l2_tile_launches"],
              "calc_gt": new_launches("l2_tile", ("calc_gt",)),
@@ -2868,6 +3477,7 @@ def main() -> int:
                "alayalite_tpu/ops/pallas_distance.py:141",
                report["flat"]["sq8"]["launches"], report["tiles"]["sq8_tile"]),
          "library_f32_ms": report["tiles"]["sq8_tile"]["library_f32_ms"],
+         "launches_by_new_phase": by_new_phase("sq8_tile"),
          "library_ms_is": "bf16 torch.matmul with a bf16 output; "
                           "library_f32_ms: torch.mm(..., out_dtype=float32)",
          "hgmma_instructions": report["sq8_sass"]["hgmma_instructions"]},

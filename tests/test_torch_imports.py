@@ -40,7 +40,11 @@ def test_import_leaves_no_jax_in_sys_modules():
             "alayalite_tpu_torch.utils.io, alayalite_tpu_torch.utils.datasets, "
             "alayalite_tpu_torch.utils.evaluate, "
             "alayalite_tpu_torch.ops.hadamard, "
-            "alayalite_tpu_torch.spaces.rabitq\n"
+            "alayalite_tpu_torch.spaces.rabitq, alayalite_tpu_torch.serving, "
+            "alayalite_tpu_torch.native, alayalite_tpu_torch.service, "
+            "alayalite_tpu_torch.service.app, alayalite_tpu_torch.service.asgi, "
+            "alayalite_tpu_torch.service.models, alayalite_tpu_torch.rag, "
+            "alayalite_tpu_torch.rag.chunker, alayalite_tpu_torch.rag.embedder\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED + ('pandas', 'h5py')!r})\n"
             "print(','.join(bad))")
@@ -58,6 +62,13 @@ def test_no_banned_import_in_sources():
     files += [os.path.join(scripts, f) for f in os.listdir(scripts)
               if f.startswith("torch_") and f.endswith(".py")]
     assert os.path.join(scripts, "torch_pallas_bench.py") in files
+    # the port's copies of the examples and the ann-benchmarks adapter
+    files += [os.path.join(ROOT, "examples", "torch_quickstart.py"),
+              os.path.join(ROOT, "adapters", "annbenchmark",
+                           "alayalite_tpu_torch", "module.py")]
+    rag = os.path.join(ROOT, "examples", "rag_torch")
+    files += [os.path.join(rag, f) for f in os.listdir(rag)
+              if f.endswith(".py")]
     assert len(files) > 20
     for path in files:
         assert not (_imported_roots(path) & set(BANNED)), path
@@ -116,10 +127,13 @@ def test_unported_surfaces_raise():
     from alayalite_tpu_torch import Client
 
     c = Client(device="cpu")
-    # every index of the single-device JAX package is ported but flat +
-    # sq4; sharding still waits, naming its ROADMAP item
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c.create_index("flat4", index_type="flat", quantization_type="sq4")
+    # every index of the single-device JAX package is ported, flat + sq4
+    # the last; sharding still waits, naming its ROADMAP item
+    flat4 = c.create_index("flat4", index_type="flat",
+                           quantization_type="sq4", capacity=300)
+    flat4.fit(torch.randn(200, 8).numpy())
+    assert flat4.insert(torch.zeros(8).numpy()) == 200
+    flat4.remove([1])
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         c.create_index("shards", index_type="flat", db_shards=2)
     for shards in ("build_shards", "serve_shards"):
