@@ -4,13 +4,15 @@ The JAX package's ``save_arrays()`` methods return numpy dicts (the npz
 files of a saved index directory). ``from_jax_arrays`` turns them into a
 fitted port ``IndexEngine`` on ``device``: the arrays play the role that
 weights play for a model. ``IndexEngine.load`` is this function applied to
-the npz files.
+the npz files. ``from_jax_sharded_leaves`` does the same for the JAX
+package's sharded objects on a given mesh.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .device import DeviceLike
@@ -61,3 +63,56 @@ def _shared_slab(space: RawSpace):
         return None
     return space.data, space.sq_norms, space.valid, space.num
 
+
+
+def from_jax_sharded_leaves(kind: str, leaves, mesh, metric: str = "l2",
+                            params: Optional[IndexParams] = None,
+                            device: DeviceLike = None):
+    """The numpy leaves of a JAX sharded object → the port's on ``mesh``
+    (the concatenated row-sharded arrays split into one tensor per "db"
+    shard on its device):
+
+      "block": ``ShardedBlockIndex._leaves`` (data, sq_norms, dmin [ndb, D],
+               scale, nbr_ids, nbr_codes, nbr_xsq, valid, eps [ndb, E]) →
+               ``ShardedBlockIndex``;
+      "graph": ``(*ShardedGraphIndex._leaves, _nbrs, _eps)`` (data,
+               sq_norms, valid, nbrs, eps [ndb, E]) → ``ShardedGraphIndex``;
+      "dist":  a ``DistGraphEngine``'s ``dist_graph.npz`` arrays (data,
+               nbrs, eps, valid, n) with its ``params`` → ``DistGraphEngine``
+               (its mesh is the engine's own)."""
+    from .parallel.sharded import ShardedBlockIndex, ShardedGraphIndex
+
+    if kind == "dist":
+        from .parallel.dist_graph import DistGraphEngine
+
+        return DistGraphEngine.from_arrays(params, leaves, device=device)
+    devs = mesh.axis_devices("db")
+
+    def split(x, dtype=None):
+        parts = np.split(np.asarray(x), len(devs))
+        return [torch.as_tensor(p if dtype is None else p.astype(dtype),
+                                device=d) for p, d in zip(parts, devs)]
+
+    if kind == "block":
+        data, sq, dmin, scale, nids, ncodes, nxsq, valid, eps = leaves
+        idx = ShardedBlockIndex(mesh, metric=metric,
+                                max_nbrs=np.asarray(nids).shape[1])
+        idx._leaves = (split(data, np.float32), split(sq, np.float32),
+                       [x[0] for x in split(dmin, np.float32)],
+                       [x[0] for x in split(scale, np.float32)],
+                       split(nids, np.int32), split(ncodes, np.uint8),
+                       split(nxsq, np.float32), split(valid, bool),
+                       [x[0] for x in split(eps, np.int32)])
+    elif kind == "graph":
+        data, sq, valid, nbrs, eps = leaves
+        idx = ShardedGraphIndex(mesh, metric=metric,
+                                max_nbrs=np.asarray(nbrs).shape[1])
+        idx._leaves = (split(data, np.float32), split(sq, np.float32),
+                       split(valid, bool))
+        idx._nbrs = split(nbrs, np.int32)
+        idx._eps = [x[0] for x in split(eps, np.int32)]
+    else:
+        raise ValueError(f"unknown sharded kind {kind!r}")
+    idx._per = np.asarray(leaves[0]).shape[0] // len(devs)
+    idx._n = int(np.asarray(leaves[-2 if kind == "block" else 2]).sum())
+    return idx

@@ -19,8 +19,10 @@ and save/load in the JAX package's
 on-disk layout (``schema.json`` + npz files), so either package loads
 the other's index directories, mutated or not.
 
-Not ported yet, raising ``NotImplementedError``: sharding (ROADMAP queue
-1, item 6).
+Sharding lives in ``parallel/``: ``db_shards`` and ``serve_shards`` are
+other engines (``index_api._make_engine``); ``build_shards`` is a branch of
+``fit`` here, the raw graph built by ``parallel.build_sharded`` over a
+("db",) mesh of ``utils.platforms.devices``.
 
 Inserts and rewires run on batches of any size, in slices that bound the
 temporaries: the JAX package pads them to buckets only so XLA does not
@@ -72,9 +74,6 @@ def check_supported(params: IndexParams) -> None:
             f"{qt.value!r} is not ported: the port covers the block "
             "quantizations (bsq8, rabitq, rabitq2) and graph and flat "
             "indices with none, sq8 or sq4 (ROADMAP)")
-    if max(params.db_shards, params.build_shards, params.serve_shards) > 1:
-        raise NotImplementedError(
-            "sharded indices are not ported yet (ROADMAP queue 1, item 6)")
 
 
 def _make_builder(params: IndexParams, seed: int = 0):
@@ -160,13 +159,37 @@ class IndexEngine:
                                                 device=self.device).fit(v))
             del v
             self.graph = None
-            if p.index_type is not IndexType.FLAT:
+            if p.index_type is IndexType.FLAT:
+                pass
+            elif p.build_shards > 1:
+                self.graph = self._build_sharded(n)
+            else:
                 builder = _make_builder(p)
                 self.graph = builder.build_graph(self.space, n)
                 self.build_timings = dict(builder.timings)
         self._fitted = True
         synchronize(self.device)
         log.info("fit: n=%d dim=%d in %.2fs", n, dim, time.time() - t0)
+
+    def _build_sharded(self, n: int) -> Graph:
+        """The raw graph built with its rows sharded over a ("db",) mesh of
+        ``build_shards`` devices of the engine's kind; raises as the JAX
+        package does when there are fewer."""
+        from ..parallel.build_sharded import (build_graph_sharded,
+                                              make_build_mesh)
+        from ..utils import platforms
+
+        shards = int(self.params.build_shards)
+        devs = platforms.devices(self.device.type)
+        if len(devs) < shards:
+            raise RuntimeError(
+                f"build_shards={shards} needs that many devices; "
+                f"{len(devs)} available")
+        self.build_timings = {}
+        return build_graph_sharded(self.space, n, self.params.max_nbrs,
+                                   self.params,
+                                   mesh=make_build_mesh(shards, devs),
+                                   timings=self.build_timings)
 
     def _make_block_space(self, capacity: int, dim: int, v: torch.Tensor):
         """The block space of a fit: BQGSpace (bsq8, degree max_nbrs), or a

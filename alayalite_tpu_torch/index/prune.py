@@ -63,6 +63,16 @@ def occlusion_prune_chunk(space, cand_d: Tensor, cand_i: Tensor, r: int,
     # pair_t[:, j, :] == pair_d[:, :, j], contiguous per step
     pair_t = pair_d.transpose(1, 2).contiguous()
     del dots, pair_d, vecs
+    return occlude_greedy(cand_d, cand_i, pair_t, r, alpha)
+
+
+def occlude_greedy(cand_d: Tensor, cand_i: Tensor, pair_t: Tensor, r: int,
+                   alpha: float = 1.0) -> Tensor:
+    """The occlusion rule's greedy walk over candidates sorted ascending
+    (ids −1 / inf padded) with their pair distances ``pair_t`` [C, M, M]
+    (``pair_t[:, j, t]`` = d(t, j)). Returns [C, r] i32, −1 padded."""
+    C, M = cand_i.shape
+    valid = cand_i >= 0
     usable = valid & torch.isfinite(cand_d)
 
     selected = torch.zeros((C, M), dtype=torch.bool, device=cand_d.device)

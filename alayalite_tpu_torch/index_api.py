@@ -1,7 +1,8 @@
 """User-facing Index (port of the thin part of ``index_api.py``): the same
 validation, capacity error and save/load directory contract as the JAX
-package, over the PyTorch ``IndexEngine`` (flat and bsq8 indices take
-insert and remove).
+package, over the PyTorch ``IndexEngine``, the db-sharded
+``parallel.engine_sharded.ShardedEngine`` or the serve-sharded
+``parallel.dist_graph.DistGraphEngine``, as the params ask.
 """
 
 from __future__ import annotations
@@ -23,13 +24,28 @@ def _assert(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def _make_engine(params: IndexParams, device: DeviceLike = None):
+    """serve_shards > 1: the single graph with its slab row-sharded
+    (``DistGraphEngine``); db_shards > 1: the row-partitioned engine
+    (``ShardedEngine``); else ``IndexEngine``. The same surface."""
+    if params.serve_shards > 1:
+        from .parallel.dist_graph import DistGraphEngine
+
+        return DistGraphEngine(params, device=device)
+    if params.db_shards > 1:
+        from .parallel.engine_sharded import ShardedEngine
+
+        return ShardedEngine(params, device=device)
+    return IndexEngine(params, device=device)
+
+
 class Index:
     def __init__(self, name: str = "default",
                  params: Optional[IndexParams] = None,
                  device: DeviceLike = None):
         self.name = name
         self.params = params if params is not None else IndexParams()
-        self._engine = IndexEngine(self.params, device=device)
+        self._engine = _make_engine(self.params, device=device)
         self._dim: Optional[int] = None
         self._dtype = np.float32
 
@@ -148,12 +164,23 @@ class Index:
         directory = os.path.join(url, name)
         if not os.path.exists(directory):
             raise RuntimeError(f"Index {name} does not exist")
-        engine = IndexEngine.load(directory, device=device)
+        with open(os.path.join(directory, "schema.json")) as f:
+            schema = json.load(f)
+        if int(schema.get("serve_shards", 1)) > 1:
+            from .parallel.dist_graph import DistGraphEngine
+
+            engine = DistGraphEngine.load(directory, device=device)
+        elif int(schema.get("db_shards", 1)) > 1:
+            from .parallel.engine_sharded import ShardedEngine
+
+            engine = ShardedEngine.load(directory, device=device)
+        else:
+            engine = IndexEngine.load(directory, device=device)
         idx = cls.__new__(cls)
         idx.name = name
         idx.params = engine.params
         idx._engine = engine
-        idx._dim = engine.space.dim
+        idx._dim = engine.space.dim if engine.space is not None else None
         idx._dtype = np.float32
         return idx
 

@@ -208,7 +208,42 @@ where its input stands:
                documents of ~2 kB cut by FixedSizeChunker, embedded by
                HashingEmbedding(dim=256), inserted into a cos collection;
                256 chunks' own texts queried, each its own top-1 (fails
-               below 0.99); chunks/s embedded, items/s inserted.
+               below 0.99); chunks/s embedded, items/s inserted; the
+               fvecs file stays for phase 24.
+ 21. db_shards hnsw + bsq8 with phase 4's parameters and db_shards=4 on the
+               1M rows through Client (4 shards of 250,000, per-shard fit
+               seconds), the 8192 queries at ef 32 and 64 with the card's
+               real device list (one card: the per-shard search and a host
+               merge) and under force_devices(4, "cuda") (the mesh program
+               db_sharded_block_search): recall@10 (floor 0.95 at ef 64 in
+               both), QPS, launches of gather_estimate, ring_probe,
+               pool_merge and sort_kv (each > 0); 8,192 inserted rows (ids
+               past 1M, own top-1 ≥ 0.95, their blocks audited through
+               block_diagdot), 10,000 removes (none may come back),
+               compact, save / load (the same ids in both modes); then flat
+               exact with db_shards=4 (recall ≥ 0.999, distances against
+               direct f32 distances, the same ids in both modes, l2_tile
+               launched);
+ 22. build_shards  results/sharded_build_100k.json's data (100k x 64, 64
+               clusters) and index (hnsw, R 24, efc 96) with
+               build_shards=8 under force_devices(8, "cuda"): seconds by
+               build phase, recall@10 at ef 48 / 64 / 96 (floors 0.91 /
+               0.94 / 0.96), the single-device control on the same data;
+               sort_kv and pool_merge launched;
+ 23. serve_shards  phase 6d's data, hnsw with the defaults, serve_shards=4
+               under force_devices(4, "cuda"): fit seconds (build phases,
+               repair rounds with their unreached counts), recall@10 at ef
+               64 / 96 (floor 0.90 at ef 96, and at most 0.02 under a
+               single-device fit), each shard a quarter of the padded rows;
+               ids 0-999 removed (none may come back, the last 1,000 rows
+               still their own top-1), save / load (the same ids);
+               ring_probe and pool_merge launched;
+ 24. multihost phase 20's fvecs file: probe_vecs, the 4 shards' ranged
+               reads and load_vecs_global's blocks equal to the array,
+               fit_shards_from_file into a flat db_shards=4 index (the ids
+               of an array-fed fit), maybe_distributed_init with a one-rank
+               NCCL group from ALAYA_* on 127.0.0.1, one all_gather of a
+               device tensor, destroy_process_group.
 A summary line (the end-to-end numbers of every phase), the kernels line
 and the card line come before the last line, which is
 {"ok": true, "device": {...}}. A copy of the numbers goes to
@@ -354,9 +389,30 @@ FLAT_SQ4_INSERT, FLAT_SQ4_REMOVE = 1_000, 10_000
 # texts queried, each its own top-1
 RAG_DOCS, RAG_DOC_CHARS, RAG_DIM, RAG_QUERIES, RAG_FLOOR = (2_000, 2_000, 256,
                                                             256, 0.99)
+# phase 21: hnsw + bsq8 with phase 4's parameters, db_shards=4 on the 1M
+# rows (4 shards of 250,000), searched with the card's real device list (the
+# per-shard search and a host merge) and under force_devices(4, "cuda") (the
+# mesh program); recall@10 floor at ef 64 in both: phase 5's; then 8,192
+# inserted rows (own top-1 floor CHURN_FLOOR), 10,000 removes, compact,
+# save / load; then flat exact, db_shards=4
+DB_SHARDS, DB_INSERT, DB_REMOVE = 4, 8_192, 10_000
+# phase 22: results/sharded_build_100k.json's data and parameters; the JAX
+# package read 0.9313 / 0.9641 / 0.9863 at ef 48 / 64 / 96 on its 8-virtual-
+# CPU mesh, and the streams differ, so the floors sit under those
+BUILD_SHARDS = 8
+BUILD_DATA = dict(n=100_000, dim=64, n_queries=1024, seed=42, clusters=64)
+BUILD_PARAMS = dict(index_type="hnsw", max_nbrs=24, ef_construction=96)
+BUILD_FLOORS = {48: 0.91, 64: 0.94, 96: 0.96}
+# phase 23: serve_shards=4 on phase 6d's data with the defaults; JAX's own
+# bounds (tests/test_dist_graph.py): 0.90 at ef 96, and at most 0.02 under a
+# single-device fit
+SERVE_SHARDS, SERVE_EFS, SERVE_FLOOR, SERVE_SLACK = 4, (64, 96), 0.90, 0.02
+SERVE_REMOVE = 1_000
+MH_SHARDS = 4                        # phase 24: ranged reads and file fit
 SLICE11_PHASES = ("serving", "service", "flat_sq4", "native_rag")
+SLICE12_PHASES = ("db_shards", "build_shards", "serve_shards", "multihost")
 NEW_PHASES = ("collection", "reindex", "calc_gt", "rabitq", "rabitq2",
-              *SLICE11_PHASES)
+              *SLICE11_PHASES, *SLICE12_PHASES)
 
 
 def log(msg: str) -> None:
@@ -2962,16 +3018,14 @@ def rag_documents(rng, n: int, chars: int) -> list:
     return docs
 
 
-def native_rag_phase(torch, ds) -> dict:
+def native_rag_phase(torch, ds, path: str) -> dict:
     """Phase 20: the native runtime must load; the 1M x 128 rows written
-    with save_fvecs and read by load_fvecs (through the native loader) and
-    by the numpy loader must be the same array. Then RAG: generated
+    with save_fvecs to ``path`` (phase 24 reads it again) and read by
+    load_fvecs (through the native loader) and by the numpy loader must be
+    the same array. Then RAG: generated
     documents cut by FixedSizeChunker, embedded by HashingEmbedding,
     inserted into a cos collection on the card; chunks' own texts queried,
     each its own top-1 (RAG_FLOOR)."""
-    import shutil
-    import tempfile
-
     from alayalite_tpu_torch import Client, native
     from alayalite_tpu_torch.rag import FixedSizeChunker, HashingEmbedding
     from alayalite_tpu_torch.utils import io as vio
@@ -2979,22 +3033,18 @@ def native_rag_phase(torch, ds) -> dict:
     if native.get_lib() is None:
         raise AssertionError("the native library did not build or load")
     rep = {"native_lib": str(native.lib_path().relative_to(ROOT))}
-    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
-    try:
-        path = os.path.join(tmp, "base.fvecs")
-        _, rep["save_fvecs_s"] = synced(torch, lambda: vio.save_fvecs(
-            path, ds.data))
-        nat, rep["load_fvecs_native_s"] = synced(torch, lambda: vio.load_fvecs(
-            path))
-        ref, rep["load_fvecs_numpy_s"] = synced(torch, lambda: vio._load_vecs(
-            path, np.dtype(np.float32)))
-        direct = native.load_vecs_native(path)
-        rep["native_equals_numpy"] = bool(np.array_equal(nat, ref)
-                                          and np.array_equal(direct, ref)
-                                          and np.array_equal(ref, ds.data))
-        rep["file_bytes"] = os.path.getsize(path)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    _, rep["save_fvecs_s"] = synced(torch, lambda: vio.save_fvecs(
+        path, ds.data))
+    nat, rep["load_fvecs_native_s"] = synced(torch, lambda: vio.load_fvecs(
+        path))
+    ref, rep["load_fvecs_numpy_s"] = synced(torch, lambda: vio._load_vecs(
+        path, np.dtype(np.float32)))
+    direct = native.load_vecs_native(path)
+    rep["native_equals_numpy"] = bool(np.array_equal(nat, ref)
+                                      and np.array_equal(direct, ref)
+                                      and np.array_equal(ref, ds.data))
+    rep["file_bytes"] = os.path.getsize(path)
+    del nat, ref, direct
     log(f"native: {rep['native_lib']}; fvecs of {rep['file_bytes']} B: "
         f"save {rep['save_fvecs_s']:.2f}s, native load "
         f"{rep['load_fvecs_native_s']:.3f}s, numpy load "
@@ -3034,6 +3084,426 @@ def native_rag_phase(torch, ds) -> dict:
         f"{own:.4f} over {RAG_QUERIES} chunks; launches {launches.steps}")
     if own < RAG_FLOOR or got["pool_merge"] <= 0:
         raise AssertionError(f"rag phase failed: {rep['rag']}, {got}")
+    return rep
+
+
+# ---- multi-device on one card (phases 21-24) ----
+def shard_modes(dev, n: int):
+    """The two device lists of a sharded phase: the real one ("fallback":
+    one card, so the per-shard search with a host merge) and ``n`` virtual
+    copies of the card ("mesh")."""
+    import contextlib
+
+    from alayalite_tpu_torch.utils import platforms
+
+    return {"fallback": contextlib.nullcontext,
+            "mesh": lambda: platforms.force_devices(n, dev.type)}
+
+
+def distance_mismatches(torch, dev, data, queries, ids, dist):
+    """Returned distances against direct f32 distances of the returned
+    rows: (mismatches, worst error in eps·(|q|² + |x|²)). The expansion
+    |q|² + |x|² − 2 q·x rounds sums near |q|² + |x|², so the error scales
+    with that magnitude: allowed 1e-4·d + 2·sqrt(D)·eps·(|q|² + |x|²)."""
+    bad, worst = 0, 0.0
+    xd = torch.as_tensor(data, device=dev)
+    for lo in range(0, queries.shape[0], 1024):
+        qd = torch.as_tensor(queries[lo:lo + 1024], device=dev)
+        rows = xd[torch.as_tensor(ids[lo:lo + 1024], device=dev).long()]
+        ref = ((rows - qd[:, None, :]) ** 2).sum(-1)
+        ulps = float(torch.finfo(torch.float32).eps) * (
+            (qd * qd).sum(1)[:, None] + (rows * rows).sum(-1))
+        err = (torch.as_tensor(dist[lo:lo + 1024], device=dev) - ref).abs()
+        bad += int((err > 1e-4 * ref + 2 * data.shape[1] ** 0.5 * ulps).sum())
+        worst = max(worst, float((err / ulps).max()))
+    return bad, worst
+
+
+def sharded_searches(torch, dev, idx, queries, gt, efs, launches, step: str,
+                     need=("gather_estimate", "ring_probe", "pool_merge",
+                           "sort_kv")) -> tuple:
+    """Each ef searched in both device modes (a warm-up call, then the
+    counts set to 0 and one synchronised call): ({mode: {ef: numbers}},
+    {mode: ids at the last ef}). Fails where a mode took the other path or
+    a kernel of ``need`` was launched no time."""
+    from alayalite_tpu_torch.utils.evaluate import calc_recall
+
+    eng = idx._engine
+    rep, last = {}, {}
+    for mode, ctx in shard_modes(dev, eng.ndb).items():
+        rep[mode] = {}
+        with ctx():
+            if (eng._mesh() is not None) != (mode == "mesh"):
+                raise AssertionError(f"{step}: {mode} took the other path")
+            for ef in efs:
+                idx.batch_search(queries, K, ef_search=ef)
+                launches.zero()
+                (ids, dist), wall = synced(
+                    torch, lambda: idx.batch_search_with_distance(
+                        queries, K, ef_search=ef))
+                got = launches.read(f"{step}_{mode}_ef{ef}")
+                check_result(ids, dist, eng.capacity, f"{step} {mode} ef={ef}")
+                rec = calc_recall(ids, gt)
+                rep[mode][ef] = {"recall": rec, "wall_s": wall,
+                                 "qps": queries.shape[0] / wall,
+                                 "launches": {k: got[k] for k in need}}
+                log(f"{step} {mode} ef={ef}: recall@10 {rec:.4f}, "
+                    f"{queries.shape[0] / wall:.1f} QPS (wall {wall:.3f}s), "
+                    f"launches {rep[mode][ef]['launches']}")
+                if min(got[k] for k in need) <= 0:
+                    raise AssertionError(f"{step} {mode}: a kernel was "
+                                         f"launched no time: {got}")
+                last[mode] = ids
+    return rep, last
+
+
+def db_shards_phase(torch, dev, ds, gt) -> dict:
+    """Phase 21: hnsw + bsq8 (phase 4's parameters) with db_shards=4 on the
+    1M rows through the Client, searched in both device modes at EFS; an
+    insert of DB_INSERT rows from the data's clusters (new ids past the
+    fitted rows, own top-1 at ef 64 ≥ CHURN_FLOOR, the new blocks audited
+    through block_diagdot), DB_REMOVE removes (none may come back),
+    compact, save / load (the same ids in both modes); then flat exact
+    with db_shards=4 (recall ≥ FLAT_EXACT_FLOOR, distances against direct
+    f32 distances, the same ids in both modes)."""
+    from alayalite_tpu_torch import Client
+    from alayalite_tpu_torch.utils.evaluate import calc_recall
+
+    launches = Launches(new_counters())
+    rng = np.random.default_rng(21)
+    n = ds.data.shape[0]
+    idx = Client(device=dev).create_index(
+        "db4", index_type="hnsw", quantization_type="bsq8", max_nbrs=32,
+        ef_construction=200, prune_alpha=1.2, seed_sample=16384,
+        beam_expand=8, db_shards=DB_SHARDS, capacity=n + SPARE)
+    launches.zero()
+    _, fit_s = synced(torch, lambda: idx.fit(ds.data))
+    launches.read("fit")
+    eng = idx._engine
+    rep = {"fit_s": fit_s, "shard_fit_s": list(eng.fit_seconds),
+           "shard_rows": [sh.space.num for sh in eng.shards],
+           "shard_capacity": [sh.space.capacity for sh in eng.shards]}
+    log(f"db_shards: fit {n} rows over {DB_SHARDS} shards in {fit_s:.2f}s "
+        f"(per shard {[round(x, 2) for x in rep['shard_fit_s']]}s, rows "
+        f"{rep['shard_rows']}), launches {launches.steps['fit']}")
+    rep["search"], _ = sharded_searches(torch, dev, idx, ds.queries, gt, EFS,
+                                        launches, "bsq8")
+    for mode, by_ef in rep["search"].items():
+        if by_ef[64]["recall"] < RECALL_FLOOR:
+            raise AssertionError(f"db_shards {mode}: recall@10 at ef 64 "
+                                 f"below {RECALL_FLOOR}")
+
+    new = cluster_rows(rng, DB_INSERT, n)
+    launches.zero()
+    new_ids, rep["insert_s"] = synced(torch, lambda: idx.insert(new))
+    own = float((idx.batch_search(new, 1, ef_search=64)[:, 0]
+                 == new_ids).mean())
+    launches.read("insert")
+    ss, ll = eng._gid_map.lookup(new_ids)
+    s0 = ss == ss[0]
+    launches.zero()
+    rep["audit"] = audit_blocks(
+        torch, eng.shards[int(ss[0])].search_space,
+        torch.as_tensor(new[s0], device=dev), ll[s0])
+    rep["audit"]["block_diagdot_launches"] = launches.read("audit")[
+        "block_diagdot"]
+    rep.update(own_top1=own, new_ids=[int(new_ids.min()),
+                                      int(new_ids.max())])
+    log(f"db_shards: inserted {DB_INSERT} rows in {rep['insert_s']:.2f}s as "
+        f"ids {rep['new_ids']}, own top-1 {own:.4f}; block audit "
+        f"{rep['audit']}")
+    if (new_ids.min() < n or own < CHURN_FLOOR
+            or rep["audit"]["estimate_excess"] > 0
+            or rep["audit"]["block_diagdot_launches"] <= 0):
+        raise AssertionError(f"db_shards insert failed: {rep}")
+
+    dead = rng.choice(n, size=DB_REMOVE, replace=False)
+    launches.zero()
+    _, rep["remove_s"] = synced(torch, lambda: idx.remove(dead))
+    _, rep["compact_s"] = synced(torch, eng.compact)
+    launches.read("remove_compact")
+    before = {}
+    for mode, ctx in shard_modes(dev, DB_SHARDS).items():
+        with ctx():
+            before[mode] = idx.batch_search(ds.queries, K, ef_search=64)
+    rep["removed_returned"] = {m: int(np.isin(i, dead).sum())
+                               for m, i in before.items()}
+    back, rep["save_s"], rep["load_s"] = save_and_load(torch, idx, "db4")
+    rep["same_ids_after_load"] = {}
+    for mode, ctx in shard_modes(dev, DB_SHARDS).items():
+        with ctx():
+            rep["same_ids_after_load"][mode] = bool(
+                (back.batch_search(ds.queries, K, ef_search=64)
+                 == before[mode]).all())
+    log(f"db_shards: remove {rep['remove_s']:.2f}s, compact "
+        f"{rep['compact_s']:.2f}s, removed ids returned "
+        f"{rep['removed_returned']}, save {rep['save_s']:.2f}s, load "
+        f"{rep['load_s']:.2f}s, same ids after load "
+        f"{rep['same_ids_after_load']}")
+    if (any(rep["removed_returned"].values())
+            or not all(rep["same_ids_after_load"].values())):
+        raise AssertionError(f"db_shards churn or save / load failed: {rep}")
+    del idx, back, eng
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    flat = Client(device=dev).create_index("db4_flat", index_type="flat",
+                                           db_shards=DB_SHARDS, capacity=n)
+    launches.zero()
+    _, rep["flat_fit_s"] = synced(torch, lambda: flat.fit(ds.data))
+    launches.read("flat_fit")
+    rep["flat"], ids = sharded_searches(torch, dev, flat, ds.queries, gt,
+                                        (K,), launches, "flat",
+                                        need=("l2_tile",))
+    rep["flat_same_ids"] = bool((ids["fallback"] == ids["mesh"]).all())
+    _, dist = flat.batch_search_with_distance(ds.queries, K)
+    rep["flat_distance_mismatches"], rep["flat_worst_error_eps"] = (
+        distance_mismatches(torch, dev, ds.data, ds.queries, ids["fallback"],
+                            dist))
+    log(f"db_shards flat: fit {rep['flat_fit_s']:.2f}s, same ids in both "
+        f"modes {rep['flat_same_ids']}, distance mismatches "
+        f"{rep['flat_distance_mismatches']} (worst "
+        f"{rep['flat_worst_error_eps']:.2f} eps·(|q|² + |x|²))")
+    if (min(r[K]["recall"] for r in rep["flat"].values()) < FLAT_EXACT_FLOOR
+            or not rep["flat_same_ids"] or rep["flat_distance_mismatches"]):
+        raise AssertionError(f"db_shards flat failed: {rep['flat']}")
+    rep["launches"] = launches.steps
+    return rep
+
+
+def graph_recalls(torch, idx, queries, gt, efs, launches, step: str) -> dict:
+    from alayalite_tpu_torch.utils.evaluate import calc_recall
+
+    out = {}
+    for ef in efs:
+        idx.batch_search(queries, K, ef_search=ef)
+        launches.zero()
+        (ids, dist), wall = synced(torch, lambda: idx.batch_search_with_distance(
+            queries, K, ef_search=ef))
+        got = launches.read(f"{step}_ef{ef}")
+        check_result(ids, dist, idx._engine.capacity, f"{step} ef={ef}")
+        out[ef] = {"recall": calc_recall(ids, gt), "wall_s": wall,
+                   "qps": queries.shape[0] / wall,
+                   "launches": {k: got[k] for k in POOL_KERNELS}}
+        log(f"{step} ef={ef}: recall@10 {out[ef]['recall']:.4f}, "
+            f"{out[ef]['qps']:.1f} QPS, launches {out[ef]['launches']}")
+    return out
+
+
+def build_shards_phase(torch, dev) -> dict:
+    """Phase 22: results/sharded_build_100k.json's data and index with
+    build_shards=8 under force_devices(8, the card): build seconds by phase,
+    recall@10 at ef 48 / 64 / 96 (BUILD_FLOORS), the single-device control
+    on the same data; sort_kv launched by the build, pool_merge by the
+    searches of the built graph."""
+    from alayalite_tpu_torch import Client
+    from alayalite_tpu_torch.utils import platforms
+    from alayalite_tpu_torch.utils.datasets import random_dataset
+
+    launches = Launches(new_counters())
+    ds = random_dataset(**BUILD_DATA)
+    gt = ground_truth(torch, torch.as_tensor(ds.data, device=dev),
+                      torch.as_tensor(ds.queries, device=dev), K)
+    n = ds.data.shape[0]
+    rep = {}
+    for name, shards in (("sharded", BUILD_SHARDS), ("single", 1)):
+        with platforms.force_devices(shards, dev.type):
+            idx = Client(device=dev).create_index(
+                f"build_{name}", capacity=n, build_shards=shards,
+                **BUILD_PARAMS)
+            launches.zero()
+            _, fit_s = synced(torch, lambda: idx.fit(ds.data))
+            got = launches.read(f"{name}_fit")
+            rep[name] = {"fit_s": fit_s,
+                         "fit_phases": dict(idx._engine.build_timings),
+                         "fit_launches": {k: got[k] for k in POOL_KERNELS}}
+            log(f"build_shards {name}: fit {fit_s:.2f}s, phases "
+                f"{rep[name]['fit_phases']}, launches "
+                f"{rep[name]['fit_launches']}")
+            rep[name]["search"] = graph_recalls(
+                torch, idx, ds.queries, gt, BUILD_FLOORS, launches,
+                f"build_{name}")
+        del idx
+    sharded = rep["sharded"]
+    # the ring build's merges are sort-dedups (sort_kv), as the single
+    # device NN-Descent's: it launches no pool_merge, which the searches of
+    # the built graph launch on every hop; each is checked on its own run
+    search_merges = sum(s["launches"]["pool_merge"]
+                        for s in sharded["search"].values())
+    if (any(sharded["search"][ef]["recall"] < f
+            for ef, f in BUILD_FLOORS.items())
+            or sharded["fit_launches"]["sort_kv"] <= 0
+            or search_merges <= 0):
+        raise AssertionError(f"build_shards phase failed: {rep}")
+    rep["launches"] = launches.steps
+    return rep
+
+
+def serve_shards_phase(torch, dev, small) -> dict:
+    """Phase 23: serve_shards=4 on phase 6d's data with the defaults under
+    force_devices(4, the card): fit seconds (the sharded build's phases,
+    the repair rounds and their unreached counts), recall@10 at SERVE_EFS
+    against a single-device fit of the same parameters (SERVE_FLOOR,
+    SERVE_SLACK), each shard holding a quarter of the padded rows; ids
+    0..999 removed (none may come back, and the last 1,000 rows must still
+    find themselves: the JAX package bounds ids by the live count and loses
+    them); save / load (the same ids); ring_probe and pool_merge
+    launched."""
+    from alayalite_tpu_torch import Client
+    from alayalite_tpu_torch.utils import platforms
+
+    launches = Launches(new_counters())
+    gt = ground_truth(torch, torch.as_tensor(small.data, device=dev),
+                      torch.as_tensor(small.queries, device=dev), K)
+    n = small.data.shape[0]
+    rep = {}
+    single = Client(device=dev).create_index("serve_single", capacity=n)
+    launches.zero()
+    _, rep["single_fit_s"] = synced(torch, lambda: single.fit(small.data))
+    launches.read("single_fit")
+    rep["single"] = graph_recalls(torch, single, small.queries, gt,
+                                  SERVE_EFS, launches, "serve_single")
+    del single
+    with platforms.force_devices(SERVE_SHARDS, dev.type):
+        idx = Client(device=dev).create_index(
+            "serve4", capacity=n, serve_shards=SERVE_SHARDS)
+        launches.zero()
+        _, rep["fit_s"] = synced(torch, lambda: idx.fit(small.data))
+        launches.read("fit")
+        eng = idx._engine
+        rep["fit_phases"] = dict(eng.build_timings)
+        rep["repair_rounds_unreached_components"] = eng.repair_rounds
+        rows = [x.shape[0] for x in eng._data_sh]
+        rep["shard_rows"], rep["padded_rows"] = rows, eng._npad
+        log(f"serve_shards: fit {rep['fit_s']:.2f}s, phases "
+            f"{rep['fit_phases']}, repair rounds (unreached, components) "
+            f"{eng.repair_rounds}, shard rows {rows} of {eng._npad}")
+        rep["search"] = graph_recalls(torch, idx, small.queries, gt,
+                                      SERVE_EFS, launches, "serve4")
+        ef = SERVE_EFS[-1]
+        dead = np.arange(SERVE_REMOVE)
+        launches.zero()
+        idx.remove(dead)
+        after = idx.batch_search(small.queries, K, ef_search=ef)
+        tail = idx.batch_search(small.data[n - SERVE_REMOVE:], 1,
+                                ef_search=ef)[:, 0]
+        launches.read("remove_search")
+        rep["removed_returned"] = int(np.isin(after, dead).sum())
+        rep["tail_own_top1"] = float(
+            (tail == np.arange(n - SERVE_REMOVE, n)).mean())
+        back, rep["save_s"], rep["load_s"] = save_and_load(torch, idx,
+                                                           "serve4")
+        rep["same_ids_after_load"] = bool(
+            (back.batch_search(small.queries, K, ef_search=ef) == after).all())
+        del back, idx, eng
+    log(f"serve_shards: removed returned {rep['removed_returned']}, last "
+        f"{SERVE_REMOVE} rows own top-1 {rep['tail_own_top1']:.4f}, save "
+        f"{rep['save_s']:.2f}s load {rep['load_s']:.2f}s, same ids "
+        f"{rep['same_ids_after_load']}")
+    ef = SERVE_EFS[-1]
+    got = rep["search"][ef]
+    if (got["recall"] < SERVE_FLOOR
+            or got["recall"] < rep["single"][ef]["recall"] - SERVE_SLACK
+            or any(r != rows[0] or r * SERVE_SHARDS != rep["padded_rows"]
+                   for r in rows)
+            or rep["removed_returned"] or rep["tail_own_top1"] < CHURN_FLOOR
+            or not rep["same_ids_after_load"]
+            or min(got["launches"][k] for k in ("ring_probe", "pool_merge"))
+            <= 0):
+        raise AssertionError(f"serve_shards phase failed: {rep}")
+    rep["launches"] = launches.steps
+    return rep
+
+
+def multihost_phase(torch, dev, ds, path: str) -> dict:
+    """Phase 24 on phase 20's fvecs file of the 1M rows: probe_vecs, the
+    ranged reads of the 4 shards' rows (equal to the array's), the padded
+    per-shard blocks of load_vecs_global on 4 virtual copies of the card,
+    fit_shards_from_file into a flat db_shards=4 index (its ids those of an
+    array-fed fit), then maybe_distributed_init with a one-rank group from
+    ALAYA_* on 127.0.0.1 (NCCL on the card), one all_gather of a device
+    tensor, destroy_process_group."""
+    import socket
+
+    import torch.distributed as dist
+
+    from alayalite_tpu_torch import Client
+    from alayalite_tpu_torch.parallel import (fit_shards_from_file,
+                                              load_vecs_global,
+                                              load_vecs_rows,
+                                              maybe_distributed_init,
+                                              probe_vecs)
+    from alayalite_tpu_torch.parallel.build_sharded import make_build_mesh
+    from alayalite_tpu_torch.parallel.multihost import process_row_range
+    from alayalite_tpu_torch.utils import platforms
+
+    launches = Launches(new_counters())
+    n = ds.data.shape[0]
+    rep = {"probe": list(probe_vecs(path))}
+    ranged, rep["ranged_read_s"] = synced(torch, lambda: [
+        load_vecs_rows(path, *process_row_range(n, MH_SHARDS, s))
+        for s in range(MH_SHARDS)])
+    rep["ranged_equal"] = all(
+        np.array_equal(r, ds.data[slice(*process_row_range(n, MH_SHARDS, s))])
+        for s, r in enumerate(ranged))
+    del ranged
+    with platforms.force_devices(MH_SHARDS, dev.type):
+        parts, n_file = load_vecs_global(path, make_build_mesh(MH_SHARDS))
+    rows = -(-n // MH_SHARDS)
+    rep["global_equal"] = bool(n_file == n and all(
+        p.shape[0] == rows and p.device.type == dev.type for p in parts)
+        and np.array_equal(torch.cat(parts).cpu().numpy()[:n], ds.data))
+    del parts
+    client = Client(device=dev)
+    from_file = client.create_index("mh_file", index_type="flat",
+                                    db_shards=MH_SHARDS, capacity=n)
+    launches.zero()
+    _, rep["file_fit_s"] = synced(torch, lambda: fit_shards_from_file(
+        from_file._engine, path))
+    ids_file = from_file.batch_search(ds.queries, K)
+    launches.read("file_fit_search")
+    del from_file
+    from_array = client.create_index("mh_array", index_type="flat",
+                                     db_shards=MH_SHARDS, capacity=n)
+    from_array.fit(ds.data)
+    rep["file_ids_equal"] = bool(
+        (from_array.batch_search(ds.queries, K) == ids_file).all())
+    del from_array
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = {"ALAYA_COORDINATOR": f"127.0.0.1:{port}",
+           "ALAYA_NUM_PROCESSES": "1", "ALAYA_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        started, rep["dist_init_s"] = synced(
+            torch, lambda: maybe_distributed_init(timeout_s=120))
+        rep["backend"] = dist.get_backend()
+        x = torch.arange(4, dtype=torch.float32, device=dev)
+        out = [torch.zeros_like(x)]
+        dist.all_gather(out, x)
+        rep["all_gather_equal"] = bool(started and torch.equal(out[0], x))
+        dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    rep["launches"] = launches.steps
+    log(f"multihost: probe {rep['probe']}, ranged reads equal "
+        f"{rep['ranged_equal']} in {rep['ranged_read_s']:.2f}s, "
+        f"load_vecs_global equal {rep['global_equal']}, file-fed fit "
+        f"{rep['file_fit_s']:.2f}s with the array-fed ids "
+        f"{rep['file_ids_equal']}, {rep['backend']} group in "
+        f"{rep['dist_init_s']:.2f}s, all_gather equal "
+        f"{rep['all_gather_equal']}")
+    if not (rep["probe"] == [n, DIM] and rep["ranged_equal"]
+            and rep["global_equal"] and rep["file_ids_equal"]
+            and rep["all_gather_equal"]):
+        raise AssertionError(f"multihost phase failed: {rep}")
     return rep
 
 
@@ -3229,7 +3699,26 @@ def main() -> int:
         RABITQ2_FLOORS, False, index_type="hnsw", quantization_type="rabitq2")
     gc.collect()
     torch.cuda.empty_cache()
-    report["native_rag"] = native_rag_phase(torch, ds)
+    # phase 24 reads the fvecs file phase 20 writes
+    fvecs_dir = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        fvecs = os.path.join(fvecs_dir, "base.fvecs")
+        report["native_rag"] = native_rag_phase(torch, ds, fvecs)
+        for phase_name, phase in (
+                ("db_shards", lambda: db_shards_phase(torch, dev, ds, gt)),
+                ("build_shards", lambda: build_shards_phase(torch, dev)),
+                ("serve_shards", lambda: serve_shards_phase(torch, dev,
+                                                            small)),
+                ("multihost", lambda: multihost_phase(torch, dev, ds,
+                                                      fvecs))):
+            gc.collect()
+            torch.cuda.empty_cache()
+            t = time.time()
+            report[phase_name] = phase()
+            report[phase_name]["phase_s"] = time.time() - t
+            log(f"{phase_name}: phase {report[phase_name]['phase_s']:.1f}s")
+    finally:
+        shutil.rmtree(fvecs_dir, ignore_errors=True)
     report["total_s"] = time.time() - t_start
 
     def row(name, source, replaces, launches, nums):
@@ -3266,8 +3755,9 @@ def main() -> int:
                    if steps is None or step in steps)
 
     def by_new_phase(kernel):
-        """A kernel's launches in each of phases 17-20."""
-        return {ph: new_launches(kernel, (ph,)) for ph in SLICE11_PHASES}
+        """A kernel's launches in each of phases 17-24."""
+        return {ph: new_launches(kernel, (ph,))
+                for ph in (*SLICE11_PHASES, *SLICE12_PHASES)}
 
     sdk_rabitq = NEW_PHASES[:5]
 
@@ -3357,7 +3847,9 @@ def main() -> int:
          "launches_by_phase": {
              "bsq8_churn_audit": churn_launches["block_diagdot"],
              "rabitq_1m": new_launches("block_diagdot", ("rabitq",)),
-             "rabitq2_100k": new_launches("block_diagdot", ("rabitq2",))},
+             "rabitq2_100k": new_launches("block_diagdot", ("rabitq2",)),
+             "db_shards_audit": new_launches("block_diagdot",
+                                             ("db_shards",))},
          "launches_from_index_batch_search": rabitq_searches,
          "rabitq_hop": report["rabitq"]["hop_dot"]},
         # one source, two entry points (rows, bulk), each with the estimate
@@ -3504,7 +3996,7 @@ def main() -> int:
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

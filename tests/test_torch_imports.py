@@ -44,7 +44,14 @@ def test_import_leaves_no_jax_in_sys_modules():
             "alayalite_tpu_torch.native, alayalite_tpu_torch.service, "
             "alayalite_tpu_torch.service.app, alayalite_tpu_torch.service.asgi, "
             "alayalite_tpu_torch.service.models, alayalite_tpu_torch.rag, "
-            "alayalite_tpu_torch.rag.chunker, alayalite_tpu_torch.rag.embedder\n"
+            "alayalite_tpu_torch.rag.chunker, alayalite_tpu_torch.rag.embedder, "
+            "alayalite_tpu_torch.parallel, "
+            "alayalite_tpu_torch.parallel.sharded, "
+            "alayalite_tpu_torch.parallel.engine_sharded, "
+            "alayalite_tpu_torch.parallel.build_sharded, "
+            "alayalite_tpu_torch.parallel.dist_graph, "
+            "alayalite_tpu_torch.parallel.multihost, "
+            "alayalite_tpu_torch.utils.platforms\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED + ('pandas', 'h5py')!r})\n"
             "print(','.join(bad))")
@@ -125,20 +132,29 @@ def test_entry_points_default_to_cuda(tmp_path):
 
 def test_unported_surfaces_raise():
     from alayalite_tpu_torch import Client
+    from alayalite_tpu_torch.parallel.engine_sharded import ShardedEngine
 
     c = Client(device="cpu")
-    # every index of the single-device JAX package is ported, flat + sq4
-    # the last; sharding still waits, naming its ROADMAP item
+    # every index of the JAX package is ported, sharding the last: nothing
+    # raises NotImplementedError any more. With fewer devices than shards
+    # build_shards (at fit) and serve_shards (at construction) raise
+    # RuntimeError, as in the JAX package; db_shards constructs (it falls
+    # back to the per-shard search)
     flat4 = c.create_index("flat4", index_type="flat",
                            quantization_type="sq4", capacity=300)
     flat4.fit(torch.randn(200, 8).numpy())
     assert flat4.insert(torch.zeros(8).numpy()) == 200
     flat4.remove([1])
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        c.create_index("shards", index_type="flat", db_shards=2)
-    for shards in ("build_shards", "serve_shards"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-            c.create_index("shards", index_type="hnsw", **{shards: 2})
+    sh = c.create_index("shards", index_type="flat", db_shards=2,
+                        capacity=300)
+    assert isinstance(sh._engine, ShardedEngine)
+    sh.fit(torch.randn(200, 8).numpy())
+    assert sh.batch_search(torch.randn(2, 8).numpy(), 3).shape == (2, 3)
+    with pytest.raises(RuntimeError, match="serve_shards=2"):
+        c.create_index("serve", index_type="hnsw", serve_shards=2)
+    build = c.create_index("build", index_type="hnsw", build_shards=2)
+    with pytest.raises(RuntimeError, match="build_shards=2"):
+        build.fit(torch.randn(200, 8).numpy())
     c.create_collection("col").insert(
         [("a", "doc", torch.ones(8).numpy(), {})])
     c.create_index("u8", index_type="flat", data_type="uint8")
