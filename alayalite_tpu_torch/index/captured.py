@@ -1,0 +1,289 @@
+"""Captured search slices: the port's counterpart of JAX's ``jit``.
+
+The JAX package runs a search as one compiled program: its loops are
+``lax.while_loop``s on the device, and the engine pads a batch to a fixed
+bucket (``_BATCH_BUCKETS``) so that few shapes are compiled. The port runs
+the same loops from Python, tens of small launches a hop. Here each slice
+of a search is captured once into a ``torch.cuda.CUDAGraph`` and replayed:
+
+``run(name, fn, inputs, reads, static)`` calls ``fn(*inputs)``, a function
+of tensors whose rows are independent (every input and output is [B, ...]
+with the same B, and row b of an output depends on row b of the inputs
+only). On the card:
+
+  - the first call of a key pads B to its bucket (``bucket``), runs ``fn``
+    once on a side stream (this builds the kernels, runs each launcher's
+    ``cudaFuncSetAttribute`` and makes every lazily built table outside the
+    capture), then captures it (``capture_error_mode="thread_local"``:
+    serving has other threads) into the device's one memory pool;
+  - every call copies the inputs into the graph's static buffers (rows past
+    B are zero), replays the graph and clones the first B rows of each
+    output. The three steps run under one lock, and each replay waits for
+    the previous one, on whatever stream it ran: the graphs share one pool,
+    so two replays must never overlap on the card;
+  - a capture that fails raises with its CUDA error. Nothing runs the slice
+    uncaptured in its place.
+
+On a CPU tensor, with ``capture=False`` (a private argument of the search
+functions that only comparisons pass), inside another capture, or where a
+tensor that ``fn`` reads lies on another device than the inputs (the
+distributed beam of ``parallel/dist_graph`` across cards), ``fn`` is called
+as it is.
+
+The key of a graph holds ``name``, ``static`` (the Python values the caller
+fixes: k, ef, M, max_iters, ...), the padded B, each input's trailing shape
+and dtype, TF32's switch and the two gather variants, and the state of
+``reads``: each tensor's ``data_ptr()``, shape, strides and dtype, and each
+scalar field of a dataclass in it. Capture freezes scalars into the graph,
+so a key that missed one would replay stale work. The scalars the captured
+code reads, audited:
+
+  search.py           B, k, ef, M, max_iters, visited_mode, exact_rerank
+                      (``static``); ``space.capacity`` (a shape);
+                      ``space.metric`` (``exact_rescore``); ``nseed``;
+  spaces/raw.py       ``capacity``, ``bf16``, ``metric``;
+  spaces/sq.py        ``capacity``, ``bits`` (``levels``), ``dim``,
+                      ``metric``, ``GATHER_VARIANT``;
+  spaces/bqg.py       ``capacity``, ``dim`` / ``code_dim`` (shapes),
+                      ``metric`` (the estimate's coefficient and clamp),
+                      ``ESTIMATE_VARIANT``;
+  spaces/rabitq.py    ``capacity``, ``bits``, ``code_dim`` (shapes);
+  parallel/dist_graph ``DistSlab.n_total``, ``metric``;
+  ops/*.py            routes and vector-load switches from shapes and from
+                      the operands' ``data_ptr() % 16`` (pointers in the
+                      key, or buffers of the graph itself).
+
+``num`` is the one scalar field left out: no search reads it, and an insert
+in place moves it, so the graph of a grown index is kept. A slab that is
+reallocated (fit, load, compact, a new ``valid`` or seed sample) changes a
+pointer and so the key.
+
+The kernels' counters (``.calls``, ``.launches``, ``.route_launches``) are
+Python integers that a replay does not touch: the layer records each
+counter's change during a capture, takes it back (nothing ran), and adds it
+again on every replay, so a count read around a search stays the count of
+kernels that ran. ``stats`` counts captures, their seconds and replays.
+
+A device keeps at most ``MAX_GRAPHS`` graphs, the least recently used
+dropped first; at its next search it drops every graph whose first read
+tensor (the space's slab) has been freed. The graphs of a device share
+one memory pool (``torch.cuda.graph_pool_handle()``), which is safe
+because replays never overlap and outputs are cloned before the lock is
+released; the pool holds the largest slice's temporaries, not their sum.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+import weakref
+from typing import Callable, Dict, Sequence, Tuple
+
+import torch
+
+Tensor = torch.Tensor
+BATCH_BUCKETS = (64, 256, 1024, 4096, 16384)   # the JAX engine's buckets
+MAX_GRAPHS = 64            # graphs kept per device
+_NOT_READ = frozenset({"num"})
+
+_lock = threading.RLock()
+_tls = threading.local()
+_devices: Dict[torch.device, "_DeviceState"] = {}
+stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
+
+
+def bucket(b: int) -> int:
+    """The JAX engine's batch bucket of ``b`` rows: the first of
+    ``BATCH_BUCKETS`` that holds it, past the last a multiple of 4096."""
+    for s in BATCH_BUCKETS:
+        if b <= s:
+            return s
+    return -(-b // 4096) * 4096
+
+
+def slice_rows(nq: int, max_slice: int) -> Tuple[int, int]:
+    """(rows a slice, padded batch) as the JAX engine pads a batch of
+    ``nq`` queries: slices of min(max_slice, bucket(nq)) rows, the batch
+    rounded up to a whole number of them."""
+    qchunk = min(int(max_slice), bucket(nq))
+    return qchunk, -(-nq // qchunk) * qchunk
+
+
+def pad_rows(x: Tensor, b: int) -> Tensor:
+    """``x`` with zero rows appended up to ``b`` rows."""
+    if x.shape[0] == b:
+        return x
+    pad = torch.zeros((b - x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    return torch.cat([x, pad])
+
+
+def _walk(x, tensors: list):
+    """The key of ``x`` (tensors, dataclasses, sequences, scalars), with
+    every tensor appended to ``tensors``."""
+    if isinstance(x, Tensor):
+        tensors.append(x)
+        return ("T", x.data_ptr(), tuple(x.shape), tuple(x.stride()),
+                x.dtype, x.device)
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return (type(x).__name__, x)
+    if isinstance(x, (tuple, list)):
+        return tuple(_walk(v, tensors) for v in x)
+    if dataclasses.is_dataclass(x):
+        return (type(x).__qualname__,
+                tuple((f.name, _walk(getattr(x, f.name), tensors))
+                      for f in dataclasses.fields(x)
+                      if f.name not in _NOT_READ))
+    raise TypeError(f"cannot key a captured search on {type(x).__name__}")
+
+
+def _globals() -> tuple:
+    from ..spaces import bqg, sq
+
+    return (torch.backends.cuda.matmul.allow_tf32, bqg.ESTIMATE_VARIANT,
+            sq.GATHER_VARIANT)
+
+
+def _counted() -> tuple:
+    from ..ops.diagdot import block_diagdot
+    from ..ops.gather_diagdot import gather_diagdot, gather_estimate
+    from ..ops.l2_tile import l2_tile
+    from ..ops.pool_sort import merge_kv, pool_merge, roll_n, sort_kv
+    from ..ops.ring_probe import ring_probe
+    from ..ops.sq8_tile import sq8_tile
+
+    return (block_diagdot, gather_diagdot, gather_estimate, l2_tile, merge_kv,
+            pool_merge, roll_n, sort_kv, ring_probe, sq8_tile)
+
+
+def counts() -> dict:
+    """Every kernel counter: {(wrapper, attribute, route or None): n}."""
+    out = {}
+    for fn in _counted():
+        for attr in ("calls", "launches"):
+            out[(fn, attr, None)] = getattr(fn, attr)
+        for route, n in getattr(fn, "route_launches", {}).items():
+            out[(fn, "route_launches", route)] = n
+    return out
+
+
+def _add(delta: dict, sign: int) -> None:
+    for (fn, attr, route), n in delta.items():
+        if route is None:
+            setattr(fn, attr, getattr(fn, attr) + sign * n)
+        else:
+            fn.route_launches[route] += sign * n
+
+
+class _DeviceState:
+    def __init__(self, dev: torch.device):
+        self.pool = torch.cuda.graph_pool_handle()
+        self.side = torch.cuda.Stream(dev)     # warm-up and capture
+        self.done = torch.cuda.Event()
+        self.entries: Dict[tuple, "_Entry"] = {}
+
+
+@dataclasses.dataclass
+class _Entry:
+    graph: "torch.cuda.CUDAGraph"
+    static_in: Tuple[Tensor, ...]
+    static_out: Tuple[Tensor, ...]
+    delta: dict
+    owner: Callable
+
+
+def _state(dev: torch.device) -> _DeviceState:
+    st = _devices.get(dev)
+    if st is None:
+        st = _devices[dev] = _DeviceState(dev)
+    for key in [k for k, e in st.entries.items() if e.owner() is None]:
+        del st.entries[key]
+    return st
+
+
+def clear() -> None:
+    """Drop every captured graph (their pool goes with the last one)."""
+    with _lock:
+        for st in _devices.values():
+            st.entries.clear()
+
+
+def cached() -> int:
+    """Graphs held, over all devices."""
+    return sum(len(st.entries) for st in _devices.values())
+
+
+def _capture(st: _DeviceState, fn, inputs, B: int, Bp: int,
+             owner) -> _Entry:
+    dev = inputs[0].device
+    static_in = tuple(torch.zeros((Bp, *x.shape[1:]), dtype=x.dtype,
+                                  device=dev) for x in inputs)
+    for buf, x in zip(static_in, inputs):
+        buf[:B].copy_(x)
+    cur = torch.cuda.current_stream(dev)
+    st.side.wait_stream(cur)
+    with torch.cuda.stream(st.side):
+        fn(*static_in)                        # warm-up: these launches ran
+    cur.wait_stream(st.side)
+    graph = torch.cuda.CUDAGraph()
+    before = counts()
+    t0 = time.perf_counter()
+    try:
+        with torch.cuda.graph(graph, pool=st.pool, stream=st.side,
+                              capture_error_mode="thread_local"):
+            outs = fn(*static_in)
+    finally:
+        after = counts()
+        delta = {k: after[k] - n for k, n in before.items()
+                 if after[k] != n}
+        _add(delta, -1)                       # a capture launches nothing
+    stats["captures"] += 1
+    stats["capture_s"] += time.perf_counter() - t0
+    return _Entry(graph, static_in, tuple(outs), delta,
+                  weakref.ref(static_in[0] if owner is None else owner))
+
+
+def run(name: str, fn, inputs: Sequence[Tensor], reads=(), static=(),
+        capture: bool = True) -> Tuple[Tensor, ...]:
+    """``fn(*inputs)``, replayed from a captured graph on the card (see the
+    module's docstring); a tuple of tensors."""
+    inputs = tuple(inputs)
+    dev = inputs[0].device
+    if (not capture or dev.type != "cuda" or getattr(_tls, "busy", False)
+            or torch.cuda.is_current_stream_capturing()):
+        return tuple(fn(*inputs))
+    tensors: list = []
+    rkey = _walk(reads, tensors)
+    if any(t.device != dev for t in tensors):
+        return tuple(fn(*inputs))
+    B = inputs[0].shape[0]
+    Bp = bucket(B)
+    key = (name, tuple(static), Bp,
+           tuple((tuple(x.shape[1:]), x.dtype) for x in inputs), rkey,
+           _globals())
+    with _lock, torch.cuda.device(dev):
+        _tls.busy = True
+        try:
+            st = _state(dev)
+            ent = st.entries.pop(key, None)
+            if ent is None:
+                ent = _capture(st, fn, inputs, B, Bp,
+                               tensors[0] if tensors else None)
+            st.entries[key] = ent                     # most recent last
+            while len(st.entries) > MAX_GRAPHS:
+                del st.entries[next(iter(st.entries))]
+            stream = torch.cuda.current_stream(dev)
+            stream.wait_event(st.done)
+            for buf, x in zip(ent.static_in, inputs):
+                buf[:B].copy_(x)
+                if B < Bp:
+                    buf[B:].zero_()
+            ent.graph.replay()
+            out = tuple(o[:B].clone() for o in ent.static_out)
+            st.done.record(stream)
+            _add(ent.delta, +1)
+            stats["replays"] += 1
+            return out
+        finally:
+            _tls.busy = False

@@ -28,9 +28,11 @@ Inserts and rewires run on batches of any size, in slices that bound the
 temporaries: the JAX package pads them to buckets only so XLA does not
 recompile.
 
-Queries are searched in slices of ``qchunk`` rows (4096; 1024 at dim ≥ 512
-on the block path) without padding the batch: the JAX package pads to
-fixed buckets only so XLA does not recompile on new shapes.
+Queries are searched in slices of min(4096, bucket) rows (1024 at dim ≥
+512 on the block path), the batch padded to the JAX package's buckets
+(``captured.slice_rows``): on the card each slice is one replay of a
+captured CUDA graph, and the buckets keep the set of graphs small, as they
+keep XLA's set of compiled shapes small.
 """
 
 from __future__ import annotations
@@ -229,8 +231,10 @@ class IndexEngine:
                 d.cpu().numpy())
 
     def _batch_search_impl(self, queries, topk: int, ef: int = 100,
-                           num_threads: int = 1):
-        """Device tensors (ids [Q, topk] i32, dists [Q, topk] f32)."""
+                           num_threads: int = 1, _capture: bool = True):
+        """Device tensors (ids [Q, topk] i32, dists [Q, topk] f32).
+        ``_capture=False`` runs the same slices uncaptured, for a
+        comparison on the card; no entry point passes it."""
         from .search import block_search_device
 
         del num_threads
@@ -245,7 +249,7 @@ class IndexEngine:
             return self._flat_search(q, topk)
         ef = max(int(ef), int(topk))
         if not self._is_block:
-            return self._graph_search(q, topk, ef)
+            return self._graph_search(q, topk, ef, _capture)
         if self.params.quantization_type is QuantizationType.RABITQ:
             # 1-bit estimates need ~4x the pool width for equal recall
             ef = max(ef, int(round(ef * self.params.rabitq_ef_boost)))
@@ -264,7 +268,7 @@ class IndexEngine:
             self.search_space.prep_query(q), k=topk, ef=ef,
             valid=self.space.valid, max_iters=self.params.search_iters,
             n_expand=self.params.beam_expand, qchunk=qchunk,
-            seed_sample=seed_arrays)
+            seed_sample=seed_arrays, _capture=_capture)
         if self.space.user_metric == "cos":
             # block spaces score squared L2 of normalized vectors (2 − 2cos);
             # return the −cos convention of every other path
@@ -289,7 +293,8 @@ class IndexEngine:
     def _is_block(self) -> bool:
         return self.params.quantization_type.is_block
 
-    def _graph_search(self, q: torch.Tensor, topk: int, ef: int):
+    def _graph_search(self, q: torch.Tensor, topk: int, ef: int,
+                      _capture: bool = True):
         """Raw graph search. Raw space: descent, beam and exact re-score of
         the k results. sq space: the walk keeps a pool of ``ef`` ids by the
         quantized distance, re-ranked exactly in the build space."""
@@ -297,7 +302,7 @@ class IndexEngine:
 
         g, p = self.graph, self.params
         kw = dict(max_iters=p.search_iters, valid=self.space.valid,
-                  n_expand=p.beam_expand)
+                  n_expand=p.beam_expand, _capture=_capture)
         if self.search_space is self.space:
             d, i = graph_search_device(self.space, g.nbrs, g.eps, g.overlay,
                                        self.space.prep_query(q), k=topk,

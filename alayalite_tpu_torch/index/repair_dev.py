@@ -28,20 +28,30 @@ log = logging.getLogger("alayalite_tpu_torch")
 
 Tensor = torch.Tensor
 REP_CAP = 8192  # components attached per round (the rest next round)
+# Steps of the reachability BFS and of the label propagation between two
+# host tests (JAX runs both as lax.while_loops on the device). A step past
+# the fixpoint changes nothing, so the chunk only adds work, never a change.
+LOOP_CHUNK = 8
 
 
 def _expand_reached(nbrs: Tensor, reached: Tensor) -> Tensor:
     """Grow ``reached`` to the directed-BFS fixpoint along ``nbrs`` rows;
-    only rows reached in the last pass push their edges."""
+    only rows reached in the last pass push their edges. Each step scatters
+    every edge (an edge that does not push adds 0 to its own row's count),
+    so no step waits for the host; ``LOOP_CHUNK`` steps a test."""
+    n = nbrs.shape[0]
+    edge = nbrs >= 0
+    rows = torch.arange(n, device=nbrs.device)[:, None].expand_as(nbrs)
+    tgt = torch.where(edge, nbrs.long(), rows).reshape(-1)
     reached = reached.clone()
     frontier = reached.clone()
     while bool(frontier.any()):
-        tgt = nbrs[frontier]
-        tgt = tgt[tgt >= 0].long()
-        hit = torch.zeros_like(reached)
-        hit[tgt] = True
-        frontier = hit & ~reached
-        reached |= hit
+        for _ in range(LOOP_CHUNK):
+            push = (frontier[:, None] & edge).reshape(-1).int()
+            hit = torch.zeros(n, dtype=torch.int32, device=nbrs.device)
+            hit = hit.scatter_add_(0, tgt, push) > 0
+            frontier = hit & ~reached
+            reached |= hit
     return reached
 
 
@@ -58,26 +68,33 @@ def _component_labels(nbrs: Tensor, mask: Tensor) -> Tensor:
     tgt = torch.where(edge_ok, safe, torch.full_like(safe, n))
     nfill = torch.full((1,), n, dtype=torch.int32, device=dev)
     labels = torch.where(mask, iota, torch.full_like(iota, n))
-    while True:
-        lab_ext = torch.cat([labels, nfill])
-        # pull along out-edges
-        pulled = torch.where(edge_ok, lab_ext[tgt],
-                             torch.full_like(tgt, n, dtype=torch.int32)
-                             ).amin(1)
-        new = torch.minimum(labels, pulled)
-        # push along out-edges (the reverse direction)
-        pushed = torch.full((n + 1,), n, dtype=torch.int32, device=dev)
-        pushed.scatter_reduce_(0, tgt.reshape(-1),
-                               new[:, None].expand_as(tgt).reshape(-1),
-                               reduce="amin")
-        new = torch.minimum(new, pushed[:n])
-        # pointer jumping: labels name member nodes, so chase them
-        lab_ext = torch.cat([new, nfill])
-        new = torch.minimum(new, lab_ext[new.long()])
-        new = torch.where(mask, new, torch.full_like(new, n))
-        if not bool((new != labels).any()):
-            return new
-        labels = new
+    changed = torch.ones((), dtype=torch.bool, device=dev)
+    while bool(changed):
+        for _ in range(LOOP_CHUNK):
+            labels, changed = _label_step(labels, mask, edge_ok, tgt, nfill)
+    return labels
+
+
+def _label_step(labels, mask, edge_ok, tgt, nfill):
+    """One pull / push / pointer-jump step: (labels, whether any moved).
+    At the fixpoint it returns its input."""
+    n = labels.shape[0]
+    lab_ext = torch.cat([labels, nfill])
+    # pull along out-edges
+    pulled = torch.where(edge_ok, lab_ext[tgt],
+                         torch.full_like(tgt, n, dtype=torch.int32)).amin(1)
+    new = torch.minimum(labels, pulled)
+    # push along out-edges (the reverse direction)
+    pushed = torch.full((n + 1,), n, dtype=torch.int32, device=labels.device)
+    pushed.scatter_reduce_(0, tgt.reshape(-1),
+                           new[:, None].expand_as(tgt).reshape(-1),
+                           reduce="amin")
+    new = torch.minimum(new, pushed[:n])
+    # pointer jumping: labels name member nodes, so chase them
+    lab_ext = torch.cat([new, nfill])
+    new = torch.minimum(new, lab_ext[new.long()])
+    new = torch.where(mask, new, torch.full_like(new, n))
+    return new, (new != labels).any()
 
 
 def _representatives(labels: Tensor, mask: Tensor) -> Tensor:

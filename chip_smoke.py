@@ -244,6 +244,28 @@ where its input stands:
                of an array-fed fit), maybe_distributed_init with a one-rank
                NCCL group from ALAYA_* on 127.0.0.1, one all_gather of a
                device tensor, destroy_process_group.
+Every search above runs captured: a query slice is one replay of a CUDA
+graph (alayalite_tpu_torch/index/captured.py), the batch padded to the JAX
+engine's buckets, the hop loops free of host syncs.
+ 25. captured  (on the indices of phases 4, 6c and 15, while they stand)
+               the 8192 queries through IndexEngine._batch_search_impl on
+               the card, captured and uncaptured (its private
+               _capture=False): the 1M bsq8 index at ef 32 / 64 / 96, one
+               bsq8 build-pool chunk (4096 rows for their own pools at ef
+               128, seeded as build_phases seeds them), the raw hnsw at ef
+               64 (and its descent's steps by level) and the 1-bit rabitq
+               at ef 64 (hop budget 8): ids and distances bit for bit
+               (fails otherwise), the same launch counts in a replay as in
+               an uncaptured call, wall ms median [min, max] of 7
+               synchronised calls of each, the first (capturing) call's ms,
+               graphs captured and capture seconds, host syncs a call
+               counted by torch.cuda.set_sync_debug_mode (fails on one
+               outside the descent's tests), reserved memory of each with
+               no other graph held, the hop at which the early stop the
+               loops made before would have ended each slice; then phase
+               17's closed loop again over the captured index and an
+               uncaptured one: QPS, p50 / p99, rows held to one direct call
+               as in phase 17.
 A summary line (the end-to-end numbers of every phase), the kernels line
 and the card line come before the last line, which is
 {"ok": true, "device": {...}}. A copy of the numbers goes to
@@ -409,6 +431,19 @@ BUILD_FLOORS = {48: 0.91, 64: 0.94, 96: 0.96}
 SERVE_SHARDS, SERVE_EFS, SERVE_FLOOR, SERVE_SLACK = 4, (64, 96), 0.90, 0.02
 SERVE_REMOVE = 1_000
 MH_SHARDS = 4                        # phase 24: ranged reads and file fit
+# phase 25: every search above runs captured (index/captured.py: a query
+# slice is one replay of a CUDA graph, the batch padded to the JAX engine's
+# buckets). Here each of the 1M bsq8 index at CAPTURE_EFS, one bsq8
+# build-pool chunk (4096 rows at ef 128), the 1M raw hnsw at ef 64 and the
+# 1M rabitq at ef 64 (the frontier's hop budget) runs captured and
+# uncaptured (the private _capture=False): ids and distances bit for bit,
+# CAPTURE_REPS synchronised calls of each after the capturing one, host
+# syncs a call (torch's sync debug mode), graphs and capture seconds, the
+# reserved memory of each with no other graph held, the hop at which the
+# early stop the loops made before would have ended each slice; then
+# phase 17's closed loop again, captured and uncaptured
+CAPTURE_EFS, CAPTURE_REPS = (32, 64, 96), 7
+POOL_CHUNK, POOL_EF, POOL_RAND = 4096, 128, 16
 SLICE11_PHASES = ("serving", "service", "flat_sq4", "native_rag")
 SLICE12_PHASES = ("db_shards", "build_shards", "serve_shards", "multihost")
 NEW_PHASES = ("collection", "reindex", "calc_gt", "rabitq", "rabitq2",
@@ -1738,7 +1773,8 @@ def hop_cat_kernels(torch, sp) -> dict:
     search's shape (4096 queries, ef 64, 8 pops): the difference between a
     search of 9 hops and one of 1, over the hops. It must be 1, the pop
     ring's shift: the stale check takes the pop ring and the pool as two
-    operands and concatenates nothing."""
+    operands and concatenates nothing. The hops run uncaptured, so the
+    profiler sees each launch."""
     from torch.profiler import ProfilerActivity, profile
 
     from alayalite_tpu_torch.index.search import block_beam_search
@@ -1755,12 +1791,12 @@ def hop_cat_kernels(torch, sp) -> dict:
     seen = {}
     for iters in (1, 9):
         block_beam_search(sp, seeds, q, k=K, ef=64, max_iters=iters,
-                          n_expand=8)
+                          n_expand=8, _capture=False)
         torch.cuda.synchronize()
         hops = gather_estimate.calls
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             block_beam_search(sp, seeds, q, k=K, ef=64, max_iters=iters,
-                              n_expand=8)
+                              n_expand=8, _capture=False)
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1779,12 +1815,14 @@ def hop_cat_kernels(torch, sp) -> dict:
 
 
 def graph_index_phase(torch, dev, name, data, queries, gt, floors: dict,
-                      save_load: bool, churn=None, **params) -> dict:
+                      save_load: bool, churn=None, captured=None,
+                      **params) -> dict:
     """Fit a graph index through the client, search the queries at every ef
     of ``floors`` ({ef: least recall@10}); with ``save_load`` also
     save, load and search again (the ids must not change); then, where
-    ``churn`` is given, ``churn(idx)`` on the (loaded) index. Launch counts
-    are taken around the fit and around each search."""
+    ``churn`` is given, ``churn(idx)`` on the (loaded) index; ``captured(
+    idx)``, phase 25's cases, on the fitted index before either. Launch
+    counts are taken around the fit and around each search."""
     from alayalite_tpu_torch import Client
     from alayalite_tpu_torch.index.search import overlay_descend
     from alayalite_tpu_torch.utils.evaluate import calc_recall
@@ -1828,6 +1866,8 @@ def graph_index_phase(torch, dev, name, data, queries, gt, floors: dict,
     for ef, floor in floors.items():
         if rep["search"][ef]["recall"] < floor:
             raise AssertionError(f"{name}: recall@10 at ef={ef} below {floor}")
+    if captured is not None:
+        rep["captured"] = captured(idx)
     if save_load:
         idx, rep["save_s"], rep["load_s"] = save_and_load(torch, idx, name)
         again = idx.batch_search(queries, K, ef_search=ef)
@@ -1999,14 +2039,26 @@ def raw_churn(torch, dev, idx, name, data, queries, shape, shadow: bool,
 
 
 def raw_graph_phases(torch, dev, ds, gt) -> dict:
-    """Phases 6c and 6d."""
+    """Phases 6c and 6d, and phase 25's raw hnsw case."""
+    from alayalite_tpu_torch.utils.timing import card_line
+
+    card = card_line()
+
+    def captured(idx):
+        qd = torch.as_tensor(ds.queries, device=dev)
+        steps = descent_steps(torch, idx, qd)
+        log(f"raw hnsw 1M: descent steps by level (one test a step, the "
+            f"first 4096 queries): {steps}")
+        return {**engine_case(torch, "raw hnsw 1M ef 64", idx, qd, 64, card,
+                              raw=True), "descent_steps_by_level": steps}
+
     rep = {"hnsw_1m": graph_index_phase(
         torch, dev, "raw_hnsw", ds.data, ds.queries, gt,
         RAW_FLOORS["hnsw_1m"], True,
         churn=lambda idx: raw_churn(torch, dev, idx, "raw_hnsw", ds.data,
                                     ds.queries, RAW_CHURN["hnsw_1m"],
                                     shadow=True),
-        index_type="hnsw", capacity=N + SPARE)}
+        captured=captured, index_type="hnsw", capacity=N + SPARE)}
     gc.collect()
     torch.cuda.empty_cache()
     rep["hnsw_1m_alpha12"] = graph_index_phase(
@@ -2541,6 +2593,15 @@ def rabitq_phase(torch, name, data, queries, gt, floors: dict,
         raise AssertionError(f"{name}: recall@10 below its floor at {low}")
     ef = max(floors)
     if churn:
+        from alayalite_tpu_torch.utils.timing import card_line
+
+        # phase 25's rabitq case, at ef 64 with the frontier's hop budget
+        if budget is not None:
+            idx._engine.params.search_iters = budget(64)
+        rep["captured"] = engine_case(
+            torch, "rabitq 1M ef 64", idx,
+            torch.as_tensor(queries, device=idx._engine.device), 64,
+            card_line())
         rep["hop_dot"] = hop_dot_check(torch, idx._engine.search_space,
                                        queries)
         rng = np.random.default_rng(15)
@@ -2698,6 +2759,299 @@ def serving_phase(torch, idx, queries, gt) -> dict:
     finally:
         server.close()
     rep["launches"] = launches.steps
+    return rep
+
+
+# ---- the captured search (phase 25) ----
+def host_syncs(torch, fn):
+    """(fn's result, the synchronizing CUDA calls it made): torch's sync
+    debug mode warns "called a synchronizing CUDA operation" once for each
+    (and once, on its first use, that it does not see every kind)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+
+
+def reserved_of(torch, fn):
+    """(fn's result, peak reserved GiB over fn, GiB still reserved after it
+    and an empty_cache), both above the reserved memory at the start, with
+    no captured graph held before fn."""
+    from alayalite_tpu_torch.index import captured
+
+    captured.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_reserved() - base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, peak / 2**30, (torch.cuda.memory_reserved() - base) / 2**30
+
+
+def spread(ms) -> dict:
+    return {"median_ms": float(np.median(ms)), "min_ms": float(min(ms)),
+            "max_ms": float(max(ms)), "ms": [float(x) for x in ms]}
+
+
+def stop_hops(torch, sp, seeds, q, k, ef, m, max_iters, nbrs=None):
+    """(the hop after which no query of the slice had an unchecked entry,
+    where the early stop the loops made before ended the loop; the hops the
+    loop runs now). ``nbrs``: the raw beam over that adjacency, else the block
+    beam."""
+    from alayalite_tpu_torch.index import search as S
+
+    L = max(ef, k)
+    iters = S._default_iters(L, m, max_iters)
+    if nbrs is None:
+        ctx, state = S._block_start(sp, seeds, q, k, L, m, iters)
+        res_pool = getattr(sp, "bits", 0) == 1
+
+        def hop(state):
+            return S._block_hop(sp, ctx, q, *state, m, L, k, res_pool)
+    else:
+        state = S._beam_start(sp, seeds, q, nbrs.shape[0], L, m, iters, True)
+
+        def hop(state):
+            return S._beam_hop(sp, nbrs, q, *state, m, L, True)
+    for h in range(iters):
+        if not bool(S._has_next(*state[1:4]).any()):
+            return h, iters
+        state = hop(state)
+    return iters, iters
+
+
+def captured_case(torch, what: str, search, stops, card: str) -> dict:
+    """One search of phase 25: ``search(capture)`` -> (d or ids, ...) on the
+    card, ``stops()`` -> [(stop hop, hops)] a slice."""
+    from alayalite_tpu_torch.index import captured
+    from alayalite_tpu_torch.index.search import overlay_descend
+
+    launches = Launches(new_counters())
+    want, peak_u, held_u = reserved_of(torch, lambda: search(False))
+    s0 = dict(captured.stats)
+    t = time.perf_counter()
+    _, peak_c, held_c = reserved_of(torch, lambda: search(True))
+    first_ms = (time.perf_counter() - t) * 1e3
+    graphs = captured.stats["captures"] - s0["captures"]
+    capture_s = captured.stats["capture_s"] - s0["capture_s"]
+    launches.zero()
+    got = search(True)
+    launches.read("replay")
+    launches.zero()
+    search(False)
+    launches.read("uncaptured")
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    if not same:
+        raise AssertionError(f"captured {what}: a replay differs from the "
+                             "uncaptured search")
+    if launches.steps["replay"] != launches.steps["uncaptured"]:
+        raise AssertionError(f"captured {what}: a replay's launch counts "
+                             f"{launches.steps} differ from the uncaptured")
+    times = {True: [], False: []}
+    for _ in range(CAPTURE_REPS):
+        for mode in (True, False):
+            _, wall = synced(torch, lambda: search(mode))
+            times[mode].append(wall * 1e3)
+    syncs, descent = {}, {}
+    for mode in (True, False):
+        d0 = overlay_descend.syncs
+        _, syncs[mode] = host_syncs(torch, lambda: search(mode))
+        descent[mode] = overlay_descend.syncs - d0
+    stop = stops()
+    hop_syncs = {m: syncs[m] - descent[m] for m in (True, False)}
+    rep = {"bit_equal": same, "captured": spread(times[True]),
+           "uncaptured": spread(times[False]), "first_call_ms": first_ms,
+           "graphs_captured": graphs, "capture_s": capture_s,
+           "host_syncs_per_call": syncs[True],
+           "host_syncs_per_call_uncaptured": syncs[False],
+           "descent_syncs_per_call": descent[True],
+           "hop_syncs_per_call": hop_syncs[True],
+           "peak_reserved_gib": peak_c, "held_reserved_gib": held_c,
+           "peak_reserved_gib_uncaptured": peak_u,
+           "held_reserved_gib_uncaptured": held_u,
+           "stop_hops": [h for h, _ in stop], "hops": stop[0][1],
+           "wasted_hops": [n - h for h, n in stop],
+           "launches_per_call": launches.steps["replay"], "card": card}
+    log(f"captured {what}: bit-equal {same}; wall ms median "
+        f"{rep['captured']['median_ms']:.3f} [{rep['captured']['min_ms']:.3f}"
+        f", {rep['captured']['max_ms']:.3f}] captured against "
+        f"{rep['uncaptured']['median_ms']:.3f} "
+        f"[{rep['uncaptured']['min_ms']:.3f}, "
+        f"{rep['uncaptured']['max_ms']:.3f}] uncaptured "
+        f"({CAPTURE_REPS} calls each); first call {first_ms:.1f} ms with "
+        f"{graphs} graph(s) captured in {capture_s:.3f} s; host syncs a call "
+        f"{syncs[True]} ({descent[True]} of the descent, {hop_syncs[True]} "
+        f"in the hops; uncaptured {syncs[False]}); reserved GiB peak "
+        f"{peak_c:.3f} held {held_c:.3f} captured, peak {peak_u:.3f} held "
+        f"{held_u:.3f} uncaptured; the early stop would have ended the "
+        f"slices at hops {rep['stop_hops']} of {rep['hops']}; {card}")
+    if hop_syncs[True] or hop_syncs[False]:
+        raise AssertionError(f"captured {what}: a host sync outside the "
+                             f"descent: {syncs}, descent {descent}")
+    return rep
+
+
+def engine_case(torch, what, idx, qd, ef, card, raw=False):
+    """A whole batch through ``IndexEngine._batch_search_impl`` (device
+    queries, device results), captured and not; stop hops by slice."""
+    from alayalite_tpu_torch.index.search import graph_seeds, scan_seeds
+
+    eng = idx._engine
+    p = eng.params
+    k_ef = max(ef, K)
+    if p.quantization_type.value == "rabitq":
+        k_ef = max(k_ef, int(round(k_ef * p.rabitq_ef_boost)))
+
+    def stops():
+        out = []
+        for lo in range(0, qd.shape[0], 4096):
+            q = qd[lo:lo + 4096]
+            if raw:
+                g = eng.graph
+                seeds = graph_seeds(eng.space, g.eps, g.overlay,
+                                    eng.space.prep_query(q), _capture=False)
+                out.append(stop_hops(torch, eng.space, seeds,
+                                     eng.space.prep_query(q), K, k_ef,
+                                     p.beam_expand, p.search_iters,
+                                     nbrs=g.nbrs))
+            else:
+                sp = eng.search_space
+                qp = sp.prep_query(q)
+                seeds = scan_seeds(qp, *eng._seed_scan_arrays())
+                out.append(stop_hops(torch, sp, seeds, qp, K, k_ef,
+                                     p.beam_expand, p.search_iters))
+        return out
+
+    return captured_case(
+        torch, what, lambda c: eng._batch_search_impl(qd, K, ef, _capture=c),
+        stops, card)
+
+
+def pool_chunk_case(torch, idx, card) -> dict:
+    """One build-pool chunk on the fitted bsq8 index's block space: the
+    first POOL_CHUNK rows searched for their own pools at POOL_EF, seeded as
+    build_phases._pool_seeds seeds them."""
+    from alayalite_tpu_torch.index.build_phases import (_pool_seeds,
+                                                        make_generator)
+    from alayalite_tpu_torch.index.search import block_beam_search
+
+    eng = idx._engine
+    sp = eng.search_space
+    rows = sp.data[:POOL_CHUNK]
+    seeds = _pool_seeds(eng.graph.eps, rows, sp.num, POOL_RAND,
+                        make_generator(sp.device, 25),
+                        eng._seed_scan_arrays())
+    m = eng.params.beam_expand
+    return captured_case(
+        torch, f"bsq8 pool chunk ({POOL_CHUNK} rows, ef {POOL_EF})",
+        lambda c: block_beam_search(sp, seeds, rows, k=POOL_EF, ef=POOL_EF,
+                                    n_expand=m, _capture=c),
+        lambda: [stop_hops(torch, sp, seeds, rows, POOL_EF, POOL_EF, m, 0)],
+        card)
+
+
+def descent_steps(torch, idx, qd) -> list:
+    """The steps of each overlay level's descent for the first slice (one
+    host test a step): what DESCENT_CHUNK is picked from."""
+    from alayalite_tpu_torch.index import search as S
+
+    eng = idx._engine
+    q = eng.space.prep_query(qd[:4096])
+    overlay = eng.graph.overlay
+    cur = torch.argmax((overlay[0].ids >= 0).to(torch.int8)).to(
+        torch.int32).expand(q.shape[0])
+    chunk, S.DESCENT_CHUNK = S.DESCENT_CHUNK, 1
+    steps = []
+    try:
+        for lvl in overlay:
+            s0 = S.overlay_descend.syncs
+            cur = S.overlay_descend(eng.space, lvl.ids, lvl.nbrs, lvl.down,
+                                    cur, q, _capture=False)
+            steps.append(S.overlay_descend.syncs - s0)
+    finally:
+        S.DESCENT_CHUNK = chunk
+    return steps
+
+
+class Uncaptured:
+    """An index whose engine searches with ``_capture=False``: the
+    SearchServer of phase 25's uncaptured closed loop."""
+
+    def __init__(self, idx):
+        self._idx, self._engine = idx, self
+
+    def get_dim(self):
+        return self._idx.get_dim()
+
+    def batch_search_with_distance(self, queries, topk, ef=100,
+                                   num_threads=1):
+        eng = self._idx._engine
+        ids, d = eng._batch_search_impl(queries, topk, ef, _capture=False)
+        return (ids.cpu().numpy().astype(eng._id_dtype, copy=False),
+                d.cpu().numpy())
+
+
+def closed_loop_case(torch, idx, queries, gt, card) -> dict:
+    """Phase 17's closed loop (SERVE_CLIENTS threads x SERVE_CALLS blocking
+    search() calls) over the captured index and over ``Uncaptured``: QPS,
+    p50 / p99, batches, recall@10 and the rows equal to one direct call."""
+    from alayalite_tpu_torch.serving import SearchServer
+    from alayalite_tpu_torch.utils.evaluate import calc_recall
+
+    nq = queries.shape[0]
+    direct, _ = idx._engine.batch_search_with_distance(queries, K,
+                                                       ef=SERVE["ef"])
+    rep = {"card": card}
+    for mode, target in (("captured", idx), ("uncaptured", Uncaptured(idx))):
+        server = SearchServer(target, **SERVE)
+        try:
+            server.search(queries[0])                          # warm-up
+            ids = np.full((nq, K), -1, dtype=np.int64)
+            lat = np.zeros(nq)
+            errors = []
+
+            def client(c):
+                for i in range(c * SERVE_CALLS, (c + 1) * SERVE_CALLS):
+                    t = time.perf_counter()
+                    try:
+                        ids[i] = server.search(queries[i])[0]
+                    except Exception as e:
+                        errors.append(repr(e))
+                    lat[i] = time.perf_counter() - t
+
+            b0, q0 = server.batches, server.queries
+            wall = run_threads(SERVE_CLIENTS, client)
+            batches = server.batches - b0
+        finally:
+            server.close()
+        same = float((ids == direct).all(1).mean())
+        rec = calc_recall(ids, gt)
+        rep[mode] = {"qps": nq / wall, "wall_s": wall, **latency(lat),
+                     "batches": batches,
+                     "mean_batch": (server.queries - q0) / max(batches, 1),
+                     "recall": rec, "rows_equal_direct": same,
+                     "errors": len(errors)}
+        log(f"captured serving closed loop, {mode}: {nq / wall:.1f} QPS, "
+            f"p50 {rep[mode]['p50_ms']:.2f} ms p99 {rep[mode]['p99_ms']:.2f} "
+            f"ms, {batches} batches of {rep[mode]['mean_batch']:.1f}, recall "
+            f"{rec:.4f}, rows equal to the direct call {same:.4f}; {card}")
+        direct_rec = calc_recall(direct, gt)
+        if errors or rec < RECALL_FLOOR or (same < 1.0 and abs(
+                rec - direct_rec) > SERVE_RECALL_SLACK):
+            raise AssertionError(f"captured serving {mode}: {rep[mode]} "
+                                 f"(direct {direct_rec}), {errors[:3]}")
     return rep
 
 
@@ -3643,8 +3997,18 @@ def main() -> int:
             launches["gather_estimate"] / launches["estimate_many_calls"])
     if report["search"][64]["recall"] < RECALL_FLOOR:
         raise AssertionError(f"recall@10 at ef=64 below {RECALL_FLOOR}")
+    # phase 25 on the 1M bsq8 index (its raw hnsw and rabitq cases run in
+    # phases 6c and 15)
+    qd = torch.as_tensor(ds.queries, device=dev)
+    report["captured"] = {
+        "bsq8": {ef: engine_case(torch, f"bsq8 1M ef {ef}", idx, qd, ef,
+                                 card) for ef in CAPTURE_EFS},
+        "bsq8_pool_chunk": pool_chunk_case(torch, idx, card)}
+    del qd
     # phase 17 on the fitted index, before the churn of phase 6b
     report["serving"] = serving_phase(torch, idx, ds.queries, gt)
+    report["captured"]["serving"] = closed_loop_case(torch, idx, ds.queries,
+                                                     gt, card)
 
     report["small"] = small_agreement(torch)
     for c in pool:
@@ -3658,6 +4022,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     report["raw"] = raw_graph_phases(torch, dev, ds, gt)
+    report["captured"]["raw_hnsw"] = report["raw"]["hnsw_1m"]["captured"]
 
     report["tiles"] = check_tiles(torch, dev)
     report["flat"] = flat_phases(torch, dev, ds, gt)
@@ -3690,6 +4055,7 @@ def main() -> int:
     report["rabitq"] = rabitq_phase(torch, "rabitq_1m", ds.data, ds.queries,
                                     gt, RABITQ_FLOORS, True, frontier_iters,
                                     **RABITQ_PARAMS)
+    report["captured"]["rabitq"] = report["rabitq"]["captured"]
     gc.collect()
     torch.cuda.empty_cache()
     gt_small = ground_truth(torch, torch.as_tensor(small.data, device=dev),
@@ -3992,6 +4358,7 @@ def main() -> int:
         "bsq8_pool_launches": bsq8_pool,
         "flat": {k: report["flat"][k] for k in ("fit_s", "exact", "fast")},
         **{ph: report[ph] for ph in NEW_PHASES},
+        "captured": report["captured"],
         "total_s": report["total_s"]}}))
     print(json.dumps(kernels))
     print(card)

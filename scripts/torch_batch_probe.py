@@ -52,8 +52,10 @@ def bmm_dots(rows, q):
 
 @contextmanager
 def dots_as(fn):
-    """Every search module's ``row_dots`` replaced by ``fn``."""
-    from alayalite_tpu_torch.index import search
+    """Every search module's ``row_dots`` replaced by ``fn``. The captured
+    search graphs are dropped on the way in and out, so each form captures
+    its own."""
+    from alayalite_tpu_torch.index import captured, search
     from alayalite_tpu_torch.ops import distance
     from alayalite_tpu_torch.spaces import bqg, rabitq, raw
 
@@ -61,11 +63,13 @@ def dots_as(fn):
     saved = [m.row_dots for m in mods]
     for m in mods:
         m.row_dots = fn
+    captured.clear()
     try:
         yield
     finally:
         for m, f in zip(mods, saved):
             m.row_dots = f
+        captured.clear()
 
 
 def main() -> int:

@@ -114,8 +114,14 @@ def merge_probe(torch, dev, ds, gt) -> dict:
     from torch_profile import trace
 
     from alayalite_tpu_torch import Index, IndexParams
-    from alayalite_tpu_torch.index import search
+    from alayalite_tpu_torch.index import captured, search
     from alayalite_tpu_torch.utils.evaluate import calc_recall
+
+    def use(fn):
+        """The hop's merge as ``fn``; the captured search graphs are
+        dropped, so the next search captures with it."""
+        search.merge_topk_dedup = fn
+        captured.clear()
 
     shipped = search.merge_topk_dedup
     two, bare = two_launch_forms(torch)
@@ -133,8 +139,8 @@ def merge_probe(torch, dev, ds, gt) -> dict:
         idx.fit(ds.data)
         eng = idx._engine
 
-        def run():
-            return eng._batch_search_impl(q, K, EF)
+        def run(capture=True):
+            return eng._batch_search_impl(q, K, EF, _capture=capture)
 
         # rows whose pool arrives out of order, over one search as shipped
         seen = {"rows": 0, "unsorted": 0, "merges": 0}
@@ -145,14 +151,14 @@ def merge_probe(torch, dev, ds, gt) -> dict:
             seen["unsorted"] += int((d1[:, 1:] < d1[:, :-1]).any(1).sum())
             return shipped(d1, i1, f1, d2, i2, f2, k)
 
-        search.merge_topk_dedup = counting
-        run()
+        use(counting)
+        run(False)              # counting reads the pools on the host
         rep = {"pool_rows": seen["rows"], "merges": seen["merges"],
                "pool_rows_not_ascending": seen["unsorted"]}
         walls = {f: [] for f in forms}
         for _ in range(3):
             for form in ("one", "two", "bare", "bare", "two", "one"):
-                search.merge_topk_dedup = forms[form]
+                use(forms[form])
                 run()                                          # warm-up
                 torch.cuda.synchronize()
                 t = time.time()
@@ -160,7 +166,7 @@ def merge_probe(torch, dev, ds, gt) -> dict:
                 torch.cuda.synchronize()
                 walls[form].append((time.time() - t) * 1e3)
         for form, fn in forms.items():
-            search.merge_topk_dedup = fn
+            use(fn)
             ids = run()[0].cpu().numpy()
             prof = trace(torch, f"{name} ef={EF}, merge form {form!r}", run,
                          top=6)
@@ -169,7 +175,7 @@ def merge_probe(torch, dev, ds, gt) -> dict:
                          "device_ms": prof["device_ms"],
                          "profiled_wall_ms": prof["wall_ms"],
                          "recall": calc_recall(ids, gt)}
-        search.merge_topk_dedup = shipped
+        use(shipped)
         print(f"{name}: {rep['pool_rows_not_ascending']} of "
               f"{rep['pool_rows']} pool rows not ascending over "
               f"{rep['merges']} merges; " + "; ".join(

@@ -37,6 +37,10 @@ then, on a flat index over the same rows:
     selection (torch.topk and the merge sorts) and the rest; beside it the
     time to write one [4096, 16384] f32 tile alone (``fill_``), times the
     number of tiles, as a measure of the tile write inside the kernel.
+Every search runs as its entry point runs it: on the card each query slice
+is one replay of a captured CUDA graph (``index/captured.py``), so the
+warm-up call of a window captures and the traced call replays; the
+kernels inside a replay are listed as any other.
 For each window it prints the wall time, the summed device-kernel time and
 its share of the wall (the rest is the device idle, waiting on the host),
 the kernels with the most device time, and every launch of the port's own

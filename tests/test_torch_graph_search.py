@@ -115,10 +115,16 @@ def test_load_from_directory_and_from_arrays(ds, jax_built, kind):
 @pytest.mark.parametrize("kind", ["hnsw", "cos", "sq8"])
 def test_seeds_match_jax(ds, jax_built, kind):
     """``graph_seeds`` (``overlay_descend`` per level) lands every query on
-    the node JAX's descent lands it on, and counts one host sync per step."""
+    the node JAX's descent lands it on, with one host sync per chunk of
+    ``DESCENT_CHUNK`` steps and level: at least one a level, at most
+    levels x ceil(steps / DESCENT_CHUNK), where steps is what the walk
+    takes one step a test."""
+    import math
+
     import jax.numpy as jnp
 
     from alayalite_tpu.index.search import graph_seeds as jax_seeds
+    from alayalite_tpu_torch.index import search
     from alayalite_tpu_torch.index.search import graph_seeds, overlay_descend
 
     jeng = jax_built["idx"][kind]._engine
@@ -127,10 +133,23 @@ def test_seeds_match_jax(ds, jax_built, kind):
     jq = jeng.search_space.prep_query(jnp.asarray(ds.queries))
     want = np.asarray(jax_seeds(jeng.search_space, jeng.graph.eps,
                                 jeng.graph.overlay, jq))
+    args = (eng.search_space, eng.graph.eps, eng.graph.overlay,
+            eng.search_space.prep_query(q))
+    chunk = search.DESCENT_CHUNK
+    try:
+        search.DESCENT_CHUNK = 1
+        syncs = overlay_descend.syncs
+        one = graph_seeds(*args)
+        steps = overlay_descend.syncs - syncs
+    finally:
+        search.DESCENT_CHUNK = chunk
     syncs = overlay_descend.syncs
-    got = graph_seeds(eng.search_space, eng.graph.eps, eng.graph.overlay,
-                      eng.search_space.prep_query(q))
-    assert overlay_descend.syncs - syncs >= 2 * len(eng.graph.overlay)
+    got = graph_seeds(*args)
+    syncs = overlay_descend.syncs - syncs
+    levels = len(eng.graph.overlay)
+    assert levels <= syncs <= levels * math.ceil(steps / chunk)
+    assert steps > syncs                       # chunks save tests here
+    np.testing.assert_array_equal(one.numpy(), got.numpy())
     assert got.shape == (NQ, 1) and got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     assert len(np.unique(want)) > 4            # the descent does move
