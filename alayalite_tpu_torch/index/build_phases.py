@@ -1,8 +1,12 @@
 """Device-resident builder phases (port of part of ``index/build_phases.py``).
 
 Every heavy intermediate stays on the device; the JAX package's
-``lax.scan`` over chunk starts becomes a plain Python loop here, writing
-each chunk's rows into a preallocated output in place.
+``lax.scan`` over chunk starts becomes a Python loop here, writing each
+chunk's rows into a preallocated output in place. The prune phases and the
+two-hop pools run their chunks through ``captured.run_chunks``: one shape a
+phase (the tail chunk overlaps), the chunk's row ids an input, no host
+sync, and on the card each chunk one replay of a captured graph. The
+private ``_capture=False`` runs them uncaptured, for a comparison.
 
   search_pool_dev          beam-search pools over a raw (bf16) space
   block_pool_dev           the same beams over an interim block space
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from ..device import synchronize
+from .captured import chunk_starts, run_chunks
 from .prune import occlusion_prune_chunk
 from .search import beam_search, block_beam_search, scan_seeds
 
@@ -64,15 +69,6 @@ def bf16_pool_space(space):
                                bf16=True)
 
 
-def _chunks(n: int, chunk: int):
-    """Chunk starts covering [0, n) with a possibly-overlapping tail."""
-    chunk = min(chunk, n)
-    starts = list(range(0, n - chunk + 1, chunk))
-    if n % chunk and (not starts or starts[-1] + chunk < n):
-        starts.append(n - chunk)
-    return starts, chunk
-
-
 def _pool_seeds(eps_dev, qj, n, n_rand_seeds, gen, seed_sample):
     """[scan seeds ‖ entry points ‖ random nodes] per row of ``qj``."""
     b = qj.shape[0]
@@ -87,12 +83,12 @@ def _pool_seeds(eps_dev, qj, n, n_rand_seeds, gen, seed_sample):
 def search_pool_dev(space, nbrs_dev: Tensor, eps: np.ndarray, ef: int,
                     n: int, chunk: int = 4096, n_rand_seeds: int = 16,
                     seed: int = 0, max_iters: int = 0, seed_sample=None,
-                    ) -> Tuple[Tensor, Tensor]:
+                    _capture: bool = True) -> Tuple[Tensor, Tensor]:
     """Beam-search pool for each of the first n nodes' own vectors over
     the adjacency ``nbrs_dev``. Returns (pool_d [n, ef], pool_i [n, ef])."""
     dev = space.device
     eps_dev = torch.as_tensor(np.asarray(eps, np.int32), device=dev)
-    starts, chunk = _chunks(n, chunk)
+    starts, chunk = chunk_starts(n, chunk)
     pool_d = torch.zeros((n, ef), dtype=torch.float32, device=dev)
     pool_i = torch.zeros((n, ef), dtype=torch.int32, device=dev)
     gen = make_generator(dev, seed ^ 0xB00F)
@@ -100,7 +96,8 @@ def search_pool_dev(space, nbrs_dev: Tensor, eps: np.ndarray, ef: int,
         qj = space.data[lo:lo + chunk].float()
         seeds = _pool_seeds(eps_dev, qj, n, n_rand_seeds, gen, seed_sample)
         d, i = beam_search(space, nbrs_dev, seeds, qj, k=ef, ef=ef,
-                           n_expand=8, max_iters=max_iters)
+                           n_expand=8, max_iters=max_iters,
+                           _capture=_capture)
         pool_d[lo:lo + chunk] = d
         pool_i[lo:lo + chunk] = i
     return pool_d, pool_i
@@ -109,13 +106,13 @@ def search_pool_dev(space, nbrs_dev: Tensor, eps: np.ndarray, ef: int,
 def block_pool_dev(bspace, eps: np.ndarray, ef: int, n: int,
                    chunk: int = 4096, n_rand_seeds: int = 16, seed: int = 0,
                    max_iters: int = 0, seed_sample=None, n_expand: int = 8,
-                   ) -> Tuple[Tensor, Tensor]:
+                   _capture: bool = True) -> Tuple[Tensor, Tensor]:
     """Beam-search pools over a block space whose neighbor blocks were
     packed from the kNN graph: one ``gather_estimate`` and one ``ring_probe``
     per hop. The in-search exact rerank makes the returned pool_d exact f32."""
     dev = bspace.device
     eps_dev = torch.as_tensor(np.asarray(eps, np.int32), device=dev)
-    starts, chunk = _chunks(n, chunk)
+    starts, chunk = chunk_starts(n, chunk)
     pool_d = torch.zeros((n, ef), dtype=torch.float32, device=dev)
     pool_i = torch.zeros((n, ef), dtype=torch.int32, device=dev)
     gen = make_generator(dev, seed ^ 0xB10C)
@@ -123,60 +120,58 @@ def block_pool_dev(bspace, eps: np.ndarray, ef: int, n: int,
         qj = bspace.data[lo:lo + chunk]
         seeds = _pool_seeds(eps_dev, qj, n, n_rand_seeds, gen, seed_sample)
         d, i = block_beam_search(bspace, seeds, qj, k=ef, ef=ef,
-                                 n_expand=n_expand, max_iters=max_iters)
+                                 n_expand=n_expand, max_iters=max_iters,
+                                 _capture=_capture)
         pool_d[lo:lo + chunk] = d
         pool_i[lo:lo + chunk] = i
     return pool_d, pool_i
 
 
 def twohop_pool_dev(space, knn_i: Tensor, ef: int, n: int,
-                    chunk: int = 4096) -> Tuple[Tensor, Tensor]:
+                    chunk: int = 4096,
+                    _capture: bool = True) -> Tuple[Tensor, Tensor]:
     """Pools from the kNN graph alone: each node's kNN row ∪ its
     neighbors' kNN rows (a [C, K + K²] gather a chunk), itself dropped,
     scored exactly, duplicates dropped, the ``ef`` best kept. Returns
-    (pool_d [n, ef], pool_i [n, ef]), inf / −1 past the candidates."""
+    (pool_d [n, ef], pool_i [n, ef]), inf / −1 past the candidates. On the
+    card each chunk is one replay (``captured.run_chunks``)."""
     from .prune import _sort_dedup
 
-    starts, chunk = _chunks(n, chunk)
-    pool_d = torch.zeros((n, ef), dtype=torch.float32, device=knn_i.device)
-    pool_i = torch.zeros((n, ef), dtype=torch.int32, device=knn_i.device)
-    for lo in starts:
-        ki = knn_i[lo:lo + chunk]                                  # [C, K]
+    def one_chunk(rows, ki):                                       # [C, K]
         ok = ki >= 0
         hop2 = knn_i[torch.where(ok, ki, torch.zeros_like(ki)).long()]
         hop2 = torch.where(ok[:, :, None], hop2, torch.full_like(hop2, -1))
         cand = torch.cat([ki, hop2.reshape(ki.shape[0], -1)], dim=1)
-        me = lo + torch.arange(ki.shape[0], dtype=torch.int32,
-                               device=ki.device)[:, None]
-        cand = torch.where(cand == me, torch.full_like(cand, -1), cand)
-        d = space.gather_dists(space.data[lo:lo + chunk].float(),
+        cand = torch.where(cand == rows[:, None], torch.full_like(cand, -1),
+                           cand)
+        d = space.gather_dists(space.data[rows.long()].float(),
                                cand.clamp(min=0))
         d = torch.where(cand >= 0, d, torch.full_like(d, FINF))
         sd, si = _sort_dedup(d, cand)
-        pool_d[lo:lo + chunk] = sd[:, :ef]
-        pool_i[lo:lo + chunk] = si[:, :ef]
-    return pool_d, pool_i
+        return sd[:, :ef], si[:, :ef]
+
+    return run_chunks("twohop_pool", one_chunk, n, chunk, (knn_i[:n],),
+                      reads=(space, knn_i), static=(ef,), capture=_capture)
 
 
-def _drop_self(cd: Tensor, ci: Tensor, lo: int):
-    me = lo + torch.arange(ci.shape[0], dtype=torch.int32,
-                           device=ci.device)[:, None]
-    is_me = ci == me
+def _drop_self(cd: Tensor, ci: Tensor, rows: Tensor):
+    is_me = ci == rows[:, None]
     return (torch.where(is_me, torch.full_like(cd, FINF), cd),
             torch.where(is_me, torch.full_like(ci, -1), ci))
 
 
 def prune_all_dev(space, cand_d: Tensor, cand_i: Tensor, r: int,
-                  alpha: float = 1.0, chunk: int = 4096) -> Tensor:
-    """Occlusion-prune every node's candidate row (self-edges dropped)."""
-    n = cand_i.shape[0]
-    starts, chunk = _chunks(n, chunk)
-    out = torch.zeros((n, r), dtype=torch.int32, device=cand_i.device)
-    for lo in starts:
-        cd, ci = _drop_self(cand_d[lo:lo + chunk], cand_i[lo:lo + chunk], lo)
-        out[lo:lo + chunk] = occlusion_prune_chunk(space, cd, ci, r=r,
-                                                   alpha=alpha)
-    return out
+                  alpha: float = 1.0, chunk: int = 4096,
+                  _capture: bool = True) -> Tensor:
+    """Occlusion-prune every node's candidate row (self-edges dropped). On
+    the card each chunk is one replay (``captured.run_chunks``)."""
+    def one_chunk(rows, cd, ci):
+        cd, ci = _drop_self(cd, ci, rows)
+        return (occlusion_prune_chunk(space, cd, ci, r=r, alpha=alpha),)
+
+    return run_chunks("prune", one_chunk, cand_i.shape[0], chunk,
+                      (cand_d, cand_i), reads=(space,),
+                      static=(r, float(alpha)), capture=_capture)[0]
 
 
 def reverse_edges_dev(nbrs: Tensor, gen: torch.Generator,
@@ -195,37 +190,35 @@ def reverse_edges_dev(nbrs: Tensor, gen: torch.Generator,
 
 
 def reprune_with_reverse_dev(space, nbrs: Tensor, rev: Tensor, r: int,
-                             alpha: float = 1.0, chunk: int = 4096) -> Tensor:
-    """Re-prune every node over [current edges ∪ reverse candidates]."""
-    n = nbrs.shape[0]
-    starts, chunk = _chunks(n, chunk)
-    out = torch.zeros((n, r), dtype=torch.int32, device=nbrs.device)
-    for lo in starts:
-        ci = torch.cat([nbrs[lo:lo + chunk], rev[lo:lo + chunk]], dim=1)
-        me = lo + torch.arange(ci.shape[0], dtype=torch.int32,
-                               device=ci.device)[:, None]
-        ci = torch.where(ci == me, torch.full_like(ci, -1), ci)
+                             alpha: float = 1.0, chunk: int = 4096,
+                             _capture: bool = True) -> Tensor:
+    """Re-prune every node over [current edges ∪ reverse candidates]. On
+    the card each chunk is one replay (``captured.run_chunks``)."""
+    def one_chunk(rows, nb, rv):
+        ci = torch.cat([nb, rv], dim=1)
+        ci = torch.where(ci == rows[:, None], torch.full_like(ci, -1), ci)
         ok = ci >= 0
-        vecs = space.data[lo:lo + chunk].float()
-        cd = space.gather_dists(vecs, torch.where(ok, ci, torch.zeros_like(ci)))
+        vecs = space.data[rows.long()].float()
+        cd = space.gather_dists(vecs, torch.where(ok, ci,
+                                                  torch.zeros_like(ci)))
         cd = torch.where(ok, cd, torch.full_like(cd, FINF))
-        out[lo:lo + chunk] = occlusion_prune_chunk(space, cd, ci, r=r,
-                                                   alpha=alpha)
-    return out
+        return (occlusion_prune_chunk(space, cd, ci, r=r, alpha=alpha),)
+
+    return run_chunks("reprune", one_chunk, nbrs.shape[0], chunk,
+                      (nbrs, rev), reads=(space,),
+                      static=(r, float(alpha)), capture=_capture)[0]
 
 
 def fill_degree_dev(nbrs: Tensor, cand_d: Tensor, cand_i: Tensor, r: int,
-                    chunk: int = 4096) -> Tensor:
+                    chunk: int = 4096, _capture: bool = True) -> Tensor:
     """Pad every row to exactly r edges with its nearest unused candidates
-    (keep-first dedup of [row ‖ candidates by distance], compacted left)."""
-    n = nbrs.shape[0]
-    starts, chunk = _chunks(n, chunk)
-    out = torch.zeros((n, r), dtype=torch.int32, device=nbrs.device)
-    for lo in starts:
-        cd, ci = _drop_self(cand_d[lo:lo + chunk], cand_i[lo:lo + chunk], lo)
+    (keep-first dedup of [row ‖ candidates by distance], compacted left).
+    On the card each chunk is one replay (``captured.run_chunks``)."""
+    def one_chunk(rows, nb, cd, ci):
+        cd, ci = _drop_self(cd, ci, rows)
         order = torch.sort(cd, dim=1, stable=True).indices
         ci = torch.gather(ci, 1, order)
-        cat = torch.cat([nbrs[lo:lo + chunk], ci], dim=1)
+        cat = torch.cat([nb, ci], dim=1)
         s, order_keys = torch.sort(cat, dim=1, stable=True)
         first = torch.cat([torch.ones_like(s[:, :1], dtype=torch.bool),
                            s[:, 1:] != s[:, :-1]], dim=1) & (s >= 0)
@@ -237,5 +230,8 @@ def fill_degree_dev(nbrs: Tensor, cand_d: Tensor, cand_i: Tensor, r: int,
         if vals.shape[1] < r:
             vals = torch.nn.functional.pad(vals, (0, r - vals.shape[1]),
                                            value=-1)
-        out[lo:lo + chunk] = vals
-    return out
+        return (vals,)
+
+    return run_chunks("fill", one_chunk, nbrs.shape[0], chunk,
+                      (nbrs, cand_d, cand_i), static=(r,),
+                      capture=_capture)[0]

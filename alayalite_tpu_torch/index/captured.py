@@ -1,10 +1,12 @@
-"""Captured search slices: the port's counterpart of JAX's ``jit``.
+"""Captured slices: the port's counterpart of JAX's ``jit``.
 
-The JAX package runs a search as one compiled program: its loops are
-``lax.while_loop``s on the device, and the engine pads a batch to a fixed
-bucket (``_BATCH_BUCKETS``) so that few shapes are compiled. The port runs
-the same loops from Python, tens of small launches a hop. Here each slice
-of a search is captured once into a ``torch.cuda.CUDAGraph`` and replayed:
+The JAX package runs a search, a build phase's chunk and an insert batch
+as one compiled program each: its loops are ``lax.while_loop``s and
+``lax.scan``s on the device, and the engine pads a batch to a fixed bucket
+(``_BATCH_BUCKETS``) so that few shapes are compiled. The port runs the
+same loops from Python, tens of small launches a hop or a greedy step.
+Here each slice is captured once into a ``torch.cuda.CUDAGraph`` and
+replayed:
 
 ``run(name, fn, inputs, reads, static)`` calls ``fn(*inputs)``, a function
 of tensors whose rows are independent (every input and output is [B, ...]
@@ -24,17 +26,29 @@ only). On the card:
   - a capture that fails raises with its CUDA error. Nothing runs the slice
     uncaptured in its place.
 
-On a CPU tensor, with ``capture=False`` (a private argument of the search
-functions that only comparisons pass), inside another capture, or where a
+``run_chunks`` drives a build phase's chunk loop through ``run``: the
+chunk's row ids are an input (the chunks have one shape, the tail one
+overlapping the one before), so one graph serves every chunk of a phase.
+``run_inplace(name, fn, inputs, idle, writes, reads, static)`` serves the
+inserts' connect steps, which write the space's slabs and the adjacency in
+place and whose rows are not independent: nothing is padded (the caller
+pads to its bucket), and the warm-up runs ``fn`` on ``idle``, inputs of the
+same shapes under which it writes nothing (every row masked), so the state
+is written once, by the replay.
+
+On a CPU tensor, with ``capture=False`` (a private argument of the search,
+build and insert functions that only comparisons pass), inside another
+capture, or where a
 tensor that ``fn`` reads lies on another device than the inputs (the
 distributed beam of ``parallel/dist_graph`` across cards), ``fn`` is called
 as it is.
 
 The key of a graph holds ``name``, ``static`` (the Python values the caller
 fixes: k, ef, M, max_iters, ...), the padded B, each input's trailing shape
-and dtype, TF32's switch and the two gather variants, and the state of
-``reads``: each tensor's ``data_ptr()``, shape, strides and dtype, and each
-scalar field of a dataclass in it. Capture freezes scalars into the graph,
+(``run_inplace``: its whole shape) and dtype, TF32's switch and the two
+gather variants, and the state of ``reads`` (and ``writes``): each tensor's
+``data_ptr()``, shape, strides and dtype, and each scalar field of a
+dataclass in it. Capture freezes scalars into the graph,
 so a key that missed one would replay stale work. The scalars the captured
 code reads, audited:
 
@@ -49,12 +63,22 @@ code reads, audited:
                       ``ESTIMATE_VARIANT``;
   spaces/rabitq.py    ``capacity``, ``bits``, ``code_dim`` (shapes);
   parallel/dist_graph ``DistSlab.n_total``, ``metric``;
+  prune.py            r, alpha (its ``passes``), bf16 (``static``; bf16 is
+                      the default in every phase); ``space.metric``;
+  build_phases.py     r, alpha, ef (``static``), the chunk (a shape);
+  fused_insert.py     r, w, row_w, alpha, chunk, ``MATES``,
+                      ``TOUCHED_CHUNK`` (``static``); B and the capacity
+                      (shapes); ``space.metric``; the bsq8 space's
+                      ``ENCODE_CHUNK`` and ``degree`` (set_neighbor_rows'
+                      slices, a shape) and ``metric`` (``store_sq``);
   ops/*.py            routes and vector-load switches from shapes and from
                       the operands' ``data_ptr() % 16`` (pointers in the
                       key, or buffers of the graph itself).
 
-``num`` is the one scalar field left out: no search reads it, and an insert
-in place moves it, so the graph of a grown index is kept. A slab that is
+``num`` is the one scalar field left out: no captured code reads it (an
+insert's bump slots are worked out on the host from ``num`` and the
+capacity and go in as an input, and the append is an eager copy), and an
+insert in place moves it, so the graph of a grown index is kept. A slab that is
 reallocated (fit, load, compact, a new ``valid`` or seed sample) changes a
 pointer and so the key.
 
@@ -110,12 +134,12 @@ def slice_rows(nq: int, max_slice: int) -> Tuple[int, int]:
     return qchunk, -(-nq // qchunk) * qchunk
 
 
-def pad_rows(x: Tensor, b: int) -> Tensor:
-    """``x`` with zero rows appended up to ``b`` rows."""
+def pad_rows(x: Tensor, b: int, value=0) -> Tensor:
+    """``x`` with rows of ``value`` appended up to ``b`` rows."""
     if x.shape[0] == b:
         return x
-    pad = torch.zeros((b - x.shape[0], *x.shape[1:]), dtype=x.dtype,
-                      device=x.device)
+    pad = torch.full((b - x.shape[0], *x.shape[1:]), value, dtype=x.dtype,
+                     device=x.device)
     return torch.cat([x, pad])
 
 
@@ -214,13 +238,11 @@ def cached() -> int:
     return sum(len(st.entries) for st in _devices.values())
 
 
-def _capture(st: _DeviceState, fn, inputs, B: int, Bp: int,
+def _capture(st: _DeviceState, fn, static_in: Tuple[Tensor, ...],
              owner) -> _Entry:
-    dev = inputs[0].device
-    static_in = tuple(torch.zeros((Bp, *x.shape[1:]), dtype=x.dtype,
-                                  device=dev) for x in inputs)
-    for buf, x in zip(static_in, inputs):
-        buf[:B].copy_(x)
+    """Warm ``fn`` up on ``static_in`` on the side stream (these launches
+    run and count), then capture it on the same buffers."""
+    dev = static_in[0].device
     cur = torch.cuda.current_stream(dev)
     st.side.wait_stream(cur)
     with torch.cuda.stream(st.side):
@@ -244,14 +266,50 @@ def _capture(st: _DeviceState, fn, inputs, B: int, Bp: int,
                   weakref.ref(static_in[0] if owner is None else owner))
 
 
+def _uncaptured(capture: bool, dev: torch.device) -> bool:
+    return (not capture or dev.type != "cuda" or getattr(_tls, "busy", False)
+            or torch.cuda.is_current_stream_capturing())
+
+
+def _replay(dev, key, make, inputs: Tuple[Tensor, ...], B: int,
+            cut: bool = True) -> Tuple[Tensor, ...]:
+    """Under the lock: the entry of ``key`` (``make(st)`` captures it on a
+    miss), the inputs copied into its buffers (rows past B zeroed), one
+    replay, and every output cloned (its first B rows where ``cut``)."""
+    with _lock, torch.cuda.device(dev):
+        _tls.busy = True
+        try:
+            st = _state(dev)
+            ent = st.entries.pop(key, None)
+            if ent is None:
+                ent = make(st)
+            st.entries[key] = ent                     # most recent last
+            while len(st.entries) > MAX_GRAPHS:
+                del st.entries[next(iter(st.entries))]
+            stream = torch.cuda.current_stream(dev)
+            stream.wait_event(st.done)
+            for buf, x in zip(ent.static_in, inputs):
+                buf[:B].copy_(x)
+                if B < buf.shape[0]:
+                    buf[B:].zero_()
+            ent.graph.replay()
+            out = tuple((o[:B] if cut else o).clone()
+                        for o in ent.static_out)
+            st.done.record(stream)
+            _add(ent.delta, +1)
+            stats["replays"] += 1
+            return out
+        finally:
+            _tls.busy = False
+
+
 def run(name: str, fn, inputs: Sequence[Tensor], reads=(), static=(),
         capture: bool = True) -> Tuple[Tensor, ...]:
     """``fn(*inputs)``, replayed from a captured graph on the card (see the
     module's docstring); a tuple of tensors."""
     inputs = tuple(inputs)
     dev = inputs[0].device
-    if (not capture or dev.type != "cuda" or getattr(_tls, "busy", False)
-            or torch.cuda.is_current_stream_capturing()):
+    if _uncaptured(capture, dev):
         return tuple(fn(*inputs))
     tensors: list = []
     rkey = _walk(reads, tensors)
@@ -262,28 +320,76 @@ def run(name: str, fn, inputs: Sequence[Tensor], reads=(), static=(),
     key = (name, tuple(static), Bp,
            tuple((tuple(x.shape[1:]), x.dtype) for x in inputs), rkey,
            _globals())
-    with _lock, torch.cuda.device(dev):
-        _tls.busy = True
-        try:
-            st = _state(dev)
-            ent = st.entries.pop(key, None)
-            if ent is None:
-                ent = _capture(st, fn, inputs, B, Bp,
-                               tensors[0] if tensors else None)
-            st.entries[key] = ent                     # most recent last
-            while len(st.entries) > MAX_GRAPHS:
-                del st.entries[next(iter(st.entries))]
-            stream = torch.cuda.current_stream(dev)
-            stream.wait_event(st.done)
-            for buf, x in zip(ent.static_in, inputs):
-                buf[:B].copy_(x)
-                if B < Bp:
-                    buf[B:].zero_()
-            ent.graph.replay()
-            out = tuple(o[:B].clone() for o in ent.static_out)
-            st.done.record(stream)
-            _add(ent.delta, +1)
-            stats["replays"] += 1
-            return out
-        finally:
-            _tls.busy = False
+
+    def make(st):
+        static_in = tuple(pad_rows(x, Bp).clone() for x in inputs)
+        return _capture(st, fn, static_in, tensors[0] if tensors else None)
+
+    return _replay(dev, key, make, inputs, B)
+
+
+def chunk_starts(n: int, chunk: int) -> Tuple[list, int]:
+    """Chunk starts covering [0, n) with chunks of one size: the tail chunk
+    overlaps the one before it (JAX's ``_chunks``)."""
+    chunk = min(chunk, n)
+    starts = list(range(0, n - chunk + 1, chunk))
+    if n % chunk and (not starts or starts[-1] + chunk < n):
+        starts.append(n - chunk)
+    return starts, chunk
+
+
+def run_chunks(name: str, fn, n: int, chunk: int, inputs, reads=(),
+               static=(), capture: bool = True) -> Tuple[Tensor, ...]:
+    """A build phase's chunk loop: ``fn(rows, *[x[rows] for x in
+    inputs])`` for every chunk of [0, n) (``chunk_starts``), where ``rows``
+    [C] i32 are the chunk's row ids, an input like the others, so that one
+    graph serves every chunk. ``fn`` is row-independent (``run``); its
+    outputs are written into [n, ...] tensors, the overlapping tail's rows
+    twice with the same values. Each chunk is one ``run``."""
+    starts, chunk = chunk_starts(n, chunk)
+    dev = inputs[0].device
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    outs = None
+    for lo in starts:
+        got = run(name, fn, (ids[lo:lo + chunk],
+                             *(x[lo:lo + chunk] for x in inputs)),
+                  reads, static, capture)
+        if outs is None:
+            outs = tuple(torch.empty((n, *g.shape[1:]), dtype=g.dtype,
+                                     device=g.device) for g in got)
+        for o, g in zip(outs, got):
+            o[lo:lo + chunk] = g
+    return outs
+
+
+def run_inplace(name: str, fn, inputs: Sequence[Tensor],
+                idle: Sequence[Tensor], writes=(), reads=(), static=(),
+                capture: bool = True) -> Tuple[Tensor, ...]:
+    """``fn(*inputs)`` where ``fn`` writes the tensors in ``writes`` in
+    place (an insert's connect step: the adjacency and the block space),
+    replayed from a captured graph on the card; a tuple of tensors.
+
+    Unlike ``run``, rows are not independent and nothing is padded or
+    cut: the caller pads to its bucket, the inputs' shapes are the graph's,
+    and every output is cloned whole. The
+    key holds the state of ``writes`` as of ``reads`` (pointers, shapes,
+    strides, dtypes and every scalar field but ``num``) and every input's
+    full shape. ``idle``: inputs of the same shapes under which ``fn``
+    changes no state (every row masked); the warm-up before the capture
+    runs on them, so the state is written once, by the replay."""
+    inputs, idle = tuple(inputs), tuple(idle)
+    dev = inputs[0].device
+    if _uncaptured(capture, dev):
+        return tuple(fn(*inputs))
+    tensors: list = []
+    wkey = _walk(writes, tensors)
+    rkey = _walk(reads, tensors)
+    key = (name, tuple(static),
+           tuple((tuple(x.shape), x.dtype) for x in inputs), wkey, rkey,
+           _globals())
+
+    def make(st):
+        static_in = tuple(x.clone() for x in idle)
+        return _capture(st, fn, static_in, tensors[0] if tensors else None)
+
+    return _replay(dev, key, make, inputs, inputs[0].shape[0], cut=False)

@@ -24,9 +24,13 @@ other engines (``index_api._make_engine``); ``build_shards`` is a branch of
 ``fit`` here, the raw graph built by ``parallel.build_sharded`` over a
 ("db",) mesh of ``utils.platforms.devices``.
 
-Inserts and rewires run on batches of any size, in slices that bound the
-temporaries: the JAX package pads them to buckets only so XLA does not
-recompile.
+The bsq8 and raw graph inserts run in slices of ``INSERT_CHUNK`` rows,
+each padded to the JAX engine's bucket (``captured.bucket``), fixed in
+shape and without a host sync: on the card a slice is the search's replay,
+the append, and one replay of the connect step's in-place graph (plus, on
+the raw path, one replay of the shadow's re-encode and ``extend_overlay``,
+host code in JAX too). The rabitq insert and the rewires run on batches of
+any size, in slices that bound the temporaries.
 
 Queries are searched in slices of min(4096, bucket) rows (1024 at dim ≥
 512 on the block path), the batch padded to the JAX package's buckets
@@ -52,6 +56,7 @@ from ..spaces.bqg import BQGSpace
 from ..spaces.rabitq import RaBitQSpace
 from ..spaces.raw import RawSpace
 from ..spaces.sq import SQSpace
+from .captured import bucket, pad_rows
 from .graph import Graph
 
 log = logging.getLogger("alayalite_tpu_torch")
@@ -118,8 +123,9 @@ class IndexEngine:
 
     # ------------------------------------------------------------------ fit
     def fit(self, vectors, ef_construction: Optional[int] = None,
-            num_threads: int = 1) -> None:
-        """Build the index over ``vectors`` [n, dim]."""
+            num_threads: int = 1, _capture: bool = True) -> None:
+        """Build the index over ``vectors`` [n, dim] (``_capture=False``:
+        every build phase uncaptured, for a comparison)."""
         del num_threads
         v = torch.as_tensor(np.asarray(vectors, dtype=np.float32)
                             if not isinstance(vectors, torch.Tensor)
@@ -146,8 +152,8 @@ class IndexEngine:
             builder = QGBuilder(r=block.degree,
                                 ef=max(p.ef_construction, 128),
                                 alpha=float(p.prune_alpha))
-            self.graph, self.search_space = builder.build_graph(self.space,
-                                                                block, n)
+            self.graph, self.search_space = builder.build_graph(
+                self.space, block, n, _capture=_capture)
             self.build_timings = dict(builder.timings)
         else:
             bits = {QuantizationType.SQ8: 8,
@@ -167,7 +173,8 @@ class IndexEngine:
                 self.graph = self._build_sharded(n)
             else:
                 builder = _make_builder(p)
-                self.graph = builder.build_graph(self.space, n)
+                self.graph = builder.build_graph(self.space, n,
+                                                 _capture=_capture)
                 self.build_timings = dict(builder.timings)
         self._fitted = True
         synchronize(self.device)
@@ -368,30 +375,33 @@ class IndexEngine:
         return arrays
 
     # --------------------------------------------------------------- update
-    def insert(self, vectors, ef: int = 100) -> np.ndarray:
+    def insert(self, vectors, ef: int = 100,
+               _capture: bool = True) -> np.ndarray:
         """Append rows. A flat index stores them in both spaces; a block
         index also links them into the graph (``fused_block_insert``), a
         raw graph index through ``_insert_raw_graph``. Returns the new ids,
-        −1 where capacity was exhausted (``Index.insert`` raises)."""
+        −1 where capacity was exhausted (``Index.insert`` raises).
+        ``_capture=False``: the slices uncaptured, for a comparison."""
         self._require_fitted()
         v = torch.atleast_2d(torch.as_tensor(
             np.asarray(vectors, dtype=np.float32), device=self.device))
         if self.params.quantization_type is QuantizationType.BSQ8:
-            ids = self._insert_block_fused(v, ef)
+            ids = self._insert_block_fused(v, ef, _capture)
         elif self._is_block:
             ids = self._insert_rabitq(v, ef)
         elif self.graph is not None:
-            ids = self._insert_raw_graph(v, ef)
+            ids = self._insert_raw_graph(v, ef, _capture)
         else:
             ids = self.space.insert(v)
             if self.search_space is not self.space:
                 self.search_space.insert(v)
         return ids.cpu().numpy().astype(self._id_dtype, copy=False)
 
-    def _insert_block_fused(self, v: torch.Tensor, ef: int) -> torch.Tensor:
-        """bsq8 insert in slices of ``INSERT_CHUNK`` rows; each slice is one
-        ``fused_block_insert`` step and sees the slices before it. The raw
-        space mirrors the same bump slots."""
+    def _insert_block_fused(self, v: torch.Tensor, ef: int,
+                            _capture: bool = True) -> torch.Tensor:
+        """bsq8 insert in slices of ``INSERT_CHUNK`` rows; each slice,
+        padded to its bucket, is one ``fused_block_insert`` step and sees
+        the slices before it. The raw space mirrors the same bump slots."""
         from .build_phases import make_generator
         from .fused_insert import fused_block_insert
 
@@ -401,11 +411,19 @@ class IndexEngine:
         out = []
         for lo in range(0, v.shape[0], INSERT_CHUNK):
             sub = v[lo:lo + INSERT_CHUNK]
-            out.append(fused_block_insert(
-                self.search_space, self.graph.nbrs, self.graph.eps, sub,
-                self._insert_gen, self._seed_scan_arrays(), r=r, w=16,
-                ef=max(int(ef), r), iters=0, m=self.params.beam_expand))
+            nq = sub.shape[0]
+            b = bucket(nq)
+            slots = torch.randint(0, RESERVOIR, (nq, r),
+                                  generator=self._insert_gen,
+                                  device=self.device)
+            ids = fused_block_insert(
+                self.search_space, self.graph.nbrs, self.graph.eps,
+                pad_rows(sub, b), nq, pad_rows(slots, b),
+                self._seed_scan_arrays(), r=r, w=RESERVOIR,
+                ef=max(int(ef), r), iters=0, m=self.params.beam_expand,
+                _capture=_capture)
             self.space.insert(sub)
+            out.append(ids[:nq])
         return torch.cat(out)
 
     def _insert_rabitq(self, v: torch.Tensor, ef: int) -> torch.Tensor:
@@ -446,14 +464,16 @@ class IndexEngine:
         self.graph.nbrs[all_ids] = ss.nbr_ids[all_ids]
         return new_ids
 
-    def _insert_raw_graph(self, v: torch.Tensor, ef: int) -> torch.Tensor:
+    def _insert_raw_graph(self, v: torch.Tensor, ef: int,
+                          _capture: bool = True) -> torch.Tensor:
         """Raw graph insert in slices of ``INSERT_CHUNK`` rows, each seeing
         the slices before it: the neighbor search (through the bsq8 shadow
         where ``_shadow_auto_on``, else the index's own search, at
         ``max(ef, max_nbrs)``), the append into both spaces,
-        ``fused_raw_connect`` at the row width (2·max_nbrs for fusion), the
-        shadow's re-encode of the rows the connect wrote, and the overlay
-        link of the new nodes that draw a level."""
+        ``fused_raw_connect`` at the row width (2·max_nbrs for fusion) over
+        the slice padded to its bucket, the shadow's re-encode of the rows
+        the connect wrote, and the overlay link of the new nodes that draw
+        a level."""
         from .build_phases import make_generator
         from .fused_insert import fused_raw_connect
         from .overlay_update import extend_overlay
@@ -470,10 +490,12 @@ class IndexEngine:
                 shadow = self._ensure_ins_shadow()
             if shadow is not None:
                 ids_nb = self._shadow_insert_search(shadow, sub, r,
-                                                    ef=max(int(ef), r))
+                                                    ef=max(int(ef), r),
+                                                    _capture=_capture)
             else:
                 ids_nb, _ = self._batch_search_impl(sub, r,
-                                                    ef=max(int(ef), r))
+                                                    ef=max(int(ef), r),
+                                                    _capture=_capture)
             new_ids = self.space.insert(sub)
             if self.search_space is not self.space:
                 self.search_space.insert(sub)
@@ -483,11 +505,15 @@ class IndexEngine:
             slots = torch.randint(0, RESERVOIR, (sub.shape[0], row_w),
                                   generator=self._insert_gen,
                                   device=self.device)
+            b = bucket(sub.shape[0])
+            nid = pad_rows(new_ids, b, -1)
             touched = fused_raw_connect(
-                self.space, self.graph.nbrs, new_ids, nrow, slots,
-                row_w=row_w, w=RESERVOIR)
+                self.space, self.graph.nbrs, nid, pad_rows(nrow, b, -1),
+                pad_rows(slots, b), row_w=row_w, w=RESERVOIR,
+                _capture=_capture)
             if shadow is not None:
-                self._shadow_sync(shadow, torch.cat([new_ids, touched]))
+                self._shadow_sync(shadow, torch.cat([nid, touched]),
+                                  _capture)
             extend_overlay(self.graph, self.space, new_ids.cpu().numpy(),
                            self._rng, r)
             out.append(new_ids)
@@ -519,7 +545,8 @@ class IndexEngine:
         return self._ins_shadow
 
     def _shadow_insert_search(self, shadow: BQGSpace, v: torch.Tensor,
-                              r: int, ef: int) -> torch.Tensor:
+                              r: int, ef: int,
+                              _capture: bool = True) -> torch.Tensor:
         """The insert's neighbor search through the shadow: the block
         search with the seed-scan sample, whose exact re-rank of the pool
         gives the f32 path's candidate order. Returns ids [B, r]."""
@@ -529,18 +556,27 @@ class IndexEngine:
             shadow, self.graph.eps, shadow.prep_query(v), k=r, ef=ef,
             valid=self.space.valid, max_iters=self.params.search_iters,
             n_expand=self.params.beam_expand, qchunk=INSERT_CHUNK,
-            seed_sample=self._seed_scan_arrays())
+            seed_sample=self._seed_scan_arrays(), _capture=_capture)
         return i
 
-    def _shadow_sync(self, shadow: BQGSpace, ids: torch.Tensor) -> None:
+    def _shadow_sync(self, shadow: BQGSpace, ids: torch.Tensor,
+                     _capture: bool = True) -> None:
         """After an append and a connect step: the shadow's bump counter
         (its rows, norms and valid mask are the raw space's own tensors)
-        and the blocks of ``ids`` (−1 dropped), re-encoded from the
-        adjacency."""
-        from ..spaces.bqg import shadow_blocks_update
+        and the blocks of ``ids`` (−1 dropped, repeats allowed), re-encoded
+        from the adjacency; on the card one replay of an in-place graph."""
+        from ..spaces import bqg
+        from . import captured
+
+        def sync(ids):
+            bqg.shadow_blocks_update(shadow, self.graph.nbrs, ids)
+            return ()
 
         shadow.num = self.space.num
-        shadow_blocks_update(shadow, self.graph.nbrs, ids)
+        captured.run_inplace("shadow_sync", sync, (ids,),
+                             (torch.full_like(ids, -1),), writes=(shadow,),
+                             reads=(self.graph.nbrs,),
+                             static=(bqg.ENCODE_CHUNK,), capture=_capture)
 
     def remove(self, ids) -> None:
         """Tombstone ``ids`` in both spaces; searches skip them. On a graph

@@ -9,18 +9,24 @@ One bsq8 batch runs the whole insert-and-update pipeline on the device:
      top-R of [searched edges ∪ up to 4 nearest batch mates]; encode their
      packed blocks;
   3. bounded reverse table ``[C, w]``: which new nodes point at each
-     touched node (random slot per edge; colliding writes keep an
-     unspecified one, a reservoir);
+     touched node (slot ``slot_rand[b, j]`` of the edge's row; where
+     proposals collide the last in (b, j) order stays);
   4. re-select and re-encode every touched node's block: candidates =
      its current edges ∪ the new sources pointing at it, top-R by exact
      distance.
 
 The JAX function is one jitted program over donated buffers, padded to a
-bucket size; here the steps are plain tensor code that updates the space
-and the adjacency in place, on batches of any size. Rows that do not fit
-the capacity are dropped before every scatter (the JAX program aims their
-masked writes at slot 0). Every candidate of step 4 is computed from the
-state after step 2, before any step-4 write.
+bucket size. Here the batch is padded the same way by the caller, every
+step is fixed in shape (no boolean-mask indexing, no ``torch.unique``, so
+no host sync), and the adjacency and the space are written in place: on
+the card step 1 is one replay of the search's captured graph, the append
+one eager copy, and steps 2-4 one replay of an in-place graph
+(``captured.run_inplace``). The touched set is the ``[B·R]`` list with
+repeats and −1, as JAX's: every repeat computes its row from the one
+snapshot after step 2, so repeats write identical rows. A masked entry (a
+padded row, a row past the capacity, a −1 edge) writes no real row: it
+repeats a kept entry's write (``raw.put_rows``), where JAX aims it at a
+dropped index. Random draws (``slot_rand``) are the caller's inputs.
 
 ``fused_raw_connect`` links a batch already searched and appended into a
 raw graph's adjacency; see its docstring.
@@ -31,8 +37,11 @@ from __future__ import annotations
 import torch
 
 from ..ops.topk import select_smallest
+from ..spaces import bqg
+from ..spaces.raw import put_rows
+from . import captured
 from .prune import _sort_dedup, occlusion_prune_chunk
-from .search import block_beam_search, scan_seeds
+from .search import block_search_device
 
 Tensor = torch.Tensor
 FINF = float("inf")
@@ -70,60 +79,103 @@ def _batch_mates(space, v: Tensor, new_ids: Tensor):
 
 
 def fused_block_insert(space, graph_nbrs: Tensor, eps: Tensor, vecs: Tensor,
-                       gen: torch.Generator, seed_sample, r: int, w: int,
-                       ef: int, iters: int, m: int) -> Tensor:
-    """Insert ``vecs`` [B, D] into the block space and the adjacency
-    ``graph_nbrs`` [C, R], both updated in place. ``gen`` draws the
-    reverse table's slots. Returns the new ids [B] i32, −1 where the
-    capacity was exhausted."""
+                       count: int, slot_rand: Tensor, seed_sample, r: int,
+                       w: int, ef: int, iters: int, m: int,
+                       _capture: bool = True) -> Tensor:
+    """Insert the first ``count`` rows of ``vecs`` [B, D] (the rest is the
+    bucket's padding) into the block space and the adjacency
+    ``graph_nbrs`` [C, R], both updated in place. ``slot_rand`` [B, r]
+    (ints in [0, w)) are the reverse table's slots, drawn by the caller.
+    Returns the new ids [B] i32, −1 for padding and where the capacity was
+    exhausted. ``_capture=False``: the same steps uncaptured, for a
+    comparison."""
     B = vecs.shape[0]
-    C = space.capacity
-    dev = vecs.device
     v = space.prep_query(vecs)
 
     # 1. edges for the new nodes, among the nodes that exist already
-    if seed_sample is not None:
-        seeds = scan_seeds(v, *seed_sample)
-    else:
-        seeds = eps[None, :].expand(B, -1).contiguous()
-    d_nb, ids_nb = block_beam_search(space, seeds, v, k=r, ef=max(ef, r),
-                                     max_iters=iters, valid=space.valid,
-                                     n_expand=m)
+    d_nb, ids_nb = block_search_device(
+        space, eps, v, k=r, ef=max(ef, r), max_iters=iters, valid=space.valid,
+        n_expand=m, qchunk=B, seed_sample=seed_sample, _capture=_capture)
 
-    # 2. append (insert_raw normalizes under cos itself)
-    new_ids = space.insert_raw(vecs)
+    # 2a. append at the bump pointer (insert_raw normalizes under cos)
+    new_ids = space.insert_raw(vecs[:count])
+    if count < B:
+        new_ids = torch.cat([new_ids, torch.full(
+            (B - count,), -1, dtype=torch.int32, device=vecs.device)])
+
+    # 2b-4 in place
+    def connect(v, new_ids, d_nb, ids_nb, slot_rand):
+        _block_connect(space, graph_nbrs, v, new_ids, d_nb, ids_nb,
+                       slot_rand, r, w)
+        return ()
+
+    inputs = (v, new_ids, d_nb, ids_nb, slot_rand)
+    captured.run_inplace(
+        "block_connect", connect, inputs,
+        (v, torch.full_like(new_ids, -1), d_nb, ids_nb, slot_rand),
+        writes=(space, graph_nbrs),
+        static=(r, w, MATES, TOUCHED_CHUNK, bqg.ENCODE_CHUNK),
+        capture=_capture)
+    return new_ids
+
+
+def _block_connect(space, graph_nbrs: Tensor, v: Tensor, new_ids: Tensor,
+                   d_nb: Tensor, ids_nb: Tensor, slot_rand: Tensor, r: int,
+                   w: int) -> None:
+    """Steps 2b-4 of ``fused_block_insert`` over the appended rows
+    ``new_ids`` (−1 masked), in place."""
+    B = v.shape[0]
+    C = space.capacity
+    dev = v.device
     ok = new_ids >= 0
     d_in, batch_ids = _batch_mates(space, v, new_ids)
     cand = torch.cat([ids_nb, batch_ids], dim=1)
     cand_d = torch.cat([torch.where(ids_nb >= 0, d_nb,
                                     torch.full_like(d_nb, FINF)), d_in], dim=1)
     _, sorted_ids = _sort_dedup(cand_d, cand)
-    rows_new = sorted_ids[ok][:, :r]
-    slots = new_ids[ok].long()
-    space.set_neighbor_rows(slots, rows_new)
-    graph_nbrs[slots] = space.nbr_ids[slots]
+    rows_new = torch.where(ok[:, None], sorted_ids[:, :r],
+                           torch.full_like(sorted_ids[:, :r], -1))
+    space.set_neighbor_rows(new_ids, rows_new)
+    put_rows(graph_nbrs, new_ids, rows_new, ok)
 
-    # 3. bounded reverse table
-    real = rows_new >= 0
-    dst = rows_new[real].long()
-    src = new_ids[ok][:, None].expand(-1, r)[real]
-    slot_rand = torch.randint(0, w, (B, r), generator=gen, device=dev)
-    rev = torch.full((C, w), -1, dtype=torch.int32, device=dev)
-    rev[dst, slot_rand[ok][real]] = src
+    # 3. bounded reverse table; the last proposal in (b, j) order wins
+    real = (rows_new >= 0).reshape(-1)
+    dst = rows_new.reshape(-1).long()
+    rev = _reverse_table(dst, real, slot_rand, new_ids, C, w)
 
     # 4. re-select every touched row from one snapshot, then write
-    touched = torch.unique(dst)
-    rows_t = torch.empty((touched.shape[0], r), dtype=torch.int32, device=dev)
-    for lo in range(0, touched.shape[0], TOUCHED_CHUNK):
-        t = touched[lo:lo + TOUCHED_CHUNK]
+    touched = torch.where(real, dst, torch.full_like(dst, -1))
+    t_safe = torch.where(real, dst, torch.zeros_like(dst))
+    rows_t = torch.empty((B * r, r), dtype=torch.int32, device=dev)
+    for lo in range(0, B * r, TOUCHED_CHUNK):
+        t = t_safe[lo:lo + TOUCHED_CHUNK]
         cand = torch.cat([space.nbr_ids[t], rev[t]], dim=1)
         cand = torch.where(cand == t[:, None], torch.full_like(cand, -1),
                            cand)                               # no self-loop
         cd = _bqg_exact_dists(space, space.data[t], cand)
         rows_t[lo:lo + TOUCHED_CHUNK] = _sort_dedup(cd, cand)[1][:, :r]
     space.set_neighbor_rows(touched, rows_t)
-    graph_nbrs[touched] = rows_t
-    return new_ids
+    put_rows(graph_nbrs, touched, rows_t, real)
+
+
+def _reverse_table(dst: Tensor, real: Tensor, slot_rand: Tensor,
+                   new_ids: Tensor, C: int, w: int) -> Tensor:
+    """The bounded reverse table [C, w]: entry e = (b, j) of the flat
+    edge list proposes new node b at slot ``slot_rand[b, j]`` of row
+    ``dst[e]``; where proposals collide the last in (b, j) order stays
+    (a scatter of the positions' maximum, so the result does not depend
+    on the order of the writes). Masked entries land in a scratch cell."""
+    n_e = dst.shape[0]
+    B = new_ids.shape[0]
+    cell = torch.where(real, dst * w + slot_rand.reshape(-1).long(),
+                       torch.full_like(dst, C * w))
+    pos = torch.arange(n_e, device=dst.device)
+    win = torch.full((C * w + 1,), -1, dtype=torch.int64, device=dst.device)
+    win.scatter_reduce_(0, cell, torch.where(real, pos, -1), reduce="amax")
+    win = win[:C * w]
+    src = new_ids[:, None].expand(B, n_e // B).reshape(-1)
+    return torch.where(win >= 0, src[win.clamp(min=0)],
+                       torch.full_like(win, -1, dtype=torch.int32)).view(C, w)
 
 
 def _reprune_rows(space, graph_nbrs: Tensor, rev: Tensor, t: Tensor,
@@ -187,14 +239,14 @@ def _reprune_rows(space, graph_nbrs: Tensor, rev: Tensor, t: Tensor,
 def fused_raw_connect(space, graph_nbrs: Tensor, new_ids: Tensor,
                       new_rows: Tensor, slot_rand: Tensor, row_w: int,
                       alpha: float = 1.0, chunk: int = TOUCHED_CHUNK,
-                      w: int = 16) -> Tensor:
+                      w: int = 16, _capture: bool = True) -> Tensor:
     """Link a batch into a raw graph's adjacency ``graph_nbrs`` [C, row_w],
     in place. ``space`` holds the batch's rows already (slots ``new_ids``
-    [B], −1 for rows that did not fit); ``new_rows`` [B, r] are the edges
-    the search found for them, among the nodes from before the batch;
-    ``slot_rand`` [B, row_w] (ints in [0, w)) are the reverse table's
-    slots, drawn by the caller. Returns the touched rows [B·row_w] i32,
-    with repeats, −1 where the new row had no edge.
+    [B], −1 for padding and rows that did not fit); ``new_rows`` [B, r] are
+    the edges the search found for them, among the nodes from before the
+    batch; ``slot_rand`` [B, row_w] (ints in [0, w)) are the reverse
+    table's slots, drawn by the caller. Returns the touched rows [B·row_w]
+    i32, with repeats, −1 where the new row had no edge.
 
       1. each new row = up to 4 batch mates (its r nearest batch mates,
          thinned by the occlusion rule, f32 pairs) ahead of the searched
@@ -212,9 +264,25 @@ def fused_raw_connect(space, graph_nbrs: Tensor, new_ids: Tensor,
     Every touched row is computed from the adjacency after step 1 before
     any of them is written, so repeated rows write identical rows. The
     touched rows go in slices of ``chunk`` to bound the [chunk, M, M] pair
-    tensor, M = row_w + w. The JAX package's sequential prune
-    (``ALAYA_CONNECT_PRUNE=seq``) is left out: the parallel rule is its
-    default."""
+    tensor, M = row_w + w. Fixed in shape, no host sync; on the card one
+    replay of an in-place graph (``captured.run_inplace``; ``_capture=
+    False``: uncaptured, for a comparison). The JAX package's sequential
+    prune (``ALAYA_CONNECT_PRUNE=seq``) is left out: the parallel rule is
+    its default."""
+    def connect(new_ids, new_rows, slot_rand):
+        return (_raw_connect(space, graph_nbrs, new_ids, new_rows, slot_rand,
+                             row_w, alpha, chunk, w),)
+
+    return captured.run_inplace(
+        "raw_connect", connect, (new_ids, new_rows, slot_rand),
+        (torch.full_like(new_ids, -1), new_rows, slot_rand),
+        writes=(graph_nbrs,), reads=(space,),
+        static=(row_w, float(alpha), chunk, w, MATES), capture=_capture)[0]
+
+
+def _raw_connect(space, graph_nbrs: Tensor, new_ids: Tensor,
+                 new_rows: Tensor, slot_rand: Tensor, row_w: int,
+                 alpha: float, chunk: int, w: int) -> Tensor:
     B = new_ids.shape[0]
     C = graph_nbrs.shape[0]
     dev = new_ids.device
@@ -244,30 +312,20 @@ def fused_raw_connect(space, graph_nbrs: Tensor, new_ids: Tensor,
     order = torch.sort((cat < 0).to(torch.int8), dim=1, stable=True).indices
     rows = torch.gather(cat, 1, order[:, :row_w])
     rows = torch.where(ok[:, None], rows, torch.full_like(rows, -1))
-    graph_nbrs[new_ids[ok].long()] = rows[ok]
+    put_rows(graph_nbrs, new_ids, rows, ok)
 
     # 2. reverse reservoir; the last proposal in (b, j) order wins a slot
     real = (rows >= 0).reshape(-1)
     dst = rows.reshape(-1).long()
-    cell = dst * w + slot_rand.reshape(-1).long()
-    pos = torch.arange(B * row_w, device=dev)
-    win = torch.full((C * w,), -1, dtype=torch.int64, device=dev)
-    win.scatter_reduce_(0, cell[real], pos[real], reduce="amax")
-    src = new_ids[:, None].expand(B, row_w).reshape(-1)
-    has = win >= 0
-    rev = torch.full((C * w,), -1, dtype=torch.int32, device=dev)
-    rev[has] = src[win[has]]
-    rev = rev.view(C, w)
-    del win, has
+    rev = _reverse_table(dst, real, slot_rand, new_ids, C, w)
 
     # 3. re-select every touched row from one snapshot, then write
     touched = torch.where(real, dst, torch.full_like(dst, -1))
-    t_all = dst[real]
-    out = torch.empty((t_all.shape[0], row_w), dtype=torch.int32,
-                      device=dev)
-    for lo in range(0, t_all.shape[0], chunk):
+    t_safe = torch.where(real, dst, torch.zeros_like(dst))
+    out = torch.empty((B * row_w, row_w), dtype=torch.int32, device=dev)
+    for lo in range(0, B * row_w, chunk):
         out[lo:lo + chunk] = _reprune_rows(space, graph_nbrs, rev,
-                                           t_all[lo:lo + chunk], row_w,
+                                           t_safe[lo:lo + chunk], row_w,
                                            alpha)
-    graph_nbrs[t_all] = out
+    put_rows(graph_nbrs, touched, out, real)
     return touched.to(torch.int32)

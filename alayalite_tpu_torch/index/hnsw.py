@@ -94,7 +94,10 @@ class HNSWBuilder:
     seed: int = 0
     timings: Dict[str, float] = dataclasses.field(default_factory=dict)
 
-    def build_graph(self, space, n: Optional[int] = None) -> Graph:
+    def build_graph(self, space, n: Optional[int] = None,
+                    _capture: bool = True) -> Graph:
+        """The graph over the first n rows of ``space``; ``_capture=False``
+        runs every phase uncaptured, for a comparison."""
         if n is None:
             n = space.num
         self.timings = {}
@@ -116,20 +119,22 @@ class HNSWBuilder:
         pchunk = min(self.chunk, 2048) if hidim else self.chunk
         pool_d, pool_i = search_pool_dev(
             bf16_pool_space(space), knn_i, np.array([ep]), ef=ef, n=n,
-            chunk=pchunk, seed=self.seed)
+            chunk=pchunk, seed=self.seed, _capture=_capture)
         cand_i = torch.cat([pool_i, knn_i], dim=1)
         cand_d = torch.cat([pool_d, knn_d], dim=1)
         del pool_d, pool_i, knn_d, knn_i
         phase("pools")
 
         nbrs = prune_all_dev(space, cand_d, cand_i, r=self.r,
-                             alpha=self.alpha, chunk=self.chunk)
+                             alpha=self.alpha, chunk=self.chunk,
+                             _capture=_capture)
         phase("prune")
         rev = reverse_edges_dev(nbrs, make_generator(space.device,
                                                      self.seed + 3),
                                 width=2 * self.r)
         nbrs = reprune_with_reverse_dev(space, nbrs, rev, r=self.r,
-                                        alpha=self.alpha, chunk=self.chunk)
+                                        alpha=self.alpha, chunk=self.chunk,
+                                        _capture=_capture)
         del rev
         if space.user_metric == "ip":
             # under IP the occlusion rule collapses rows toward high-norm
@@ -137,7 +142,7 @@ class HNSWBuilder:
             # with their nearest unused candidates. Under l2 / cos the
             # occluded rows are navigable as they are.
             nbrs = fill_degree_dev(nbrs, cand_d, cand_i, r=self.r,
-                                   chunk=self.chunk)
+                                   chunk=self.chunk, _capture=_capture)
         del cand_d, cand_i
         phase("reverse_reprune")
         nbrs = repair_connectivity(space, nbrs, ep)

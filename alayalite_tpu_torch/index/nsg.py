@@ -173,7 +173,10 @@ class NSGBuilder:
     seed: int = 0
     timings: Dict[str, float] = dataclasses.field(default_factory=dict)
 
-    def build_graph(self, space, n: Optional[int] = None) -> Graph:
+    def build_graph(self, space, n: Optional[int] = None,
+                    _capture: bool = True) -> Graph:
+        """The graph over the first n rows of ``space``; ``_capture=False``
+        runs every phase uncaptured, for a comparison."""
         from .build_phases import (PhaseTimer, make_generator, prune_all_dev,
                                    reprune_with_reverse_dev,
                                    reverse_edges_dev, search_pool_dev)
@@ -197,20 +200,23 @@ class NSGBuilder:
         ep = find_medoid(space, n)
         pool_d, pool_i = search_pool_dev(space, knn_i, np.array([ep]),
                                          ef=self.l, n=n, chunk=self.chunk,
-                                         seed=self.seed)
+                                         seed=self.seed,
+                                         _capture=_capture)
         cand_i = torch.cat([pool_i, knn_i], dim=1)[:, :self.c]
         cand_d = torch.cat([pool_d, knn_d], dim=1)[:, :self.c]
         del pool_d, pool_i, knn_d, knn_i
         phase("pools")
         nbrs = prune_all_dev(space, cand_d, cand_i, r=self.r,
-                             alpha=self.alpha, chunk=self.chunk)
+                             alpha=self.alpha, chunk=self.chunk,
+                             _capture=_capture)
         del cand_d, cand_i
         phase("prune")
         rev = reverse_edges_dev(nbrs, make_generator(space.device,
                                                      self.seed + 3),
                                 width=self.c - self.r)
         nbrs = reprune_with_reverse_dev(space, nbrs, rev, r=self.r,
-                                        alpha=self.alpha, chunk=self.chunk)
+                                        alpha=self.alpha, chunk=self.chunk,
+                                        _capture=_capture)
         del rev
         phase("reverse_reprune")
         nbrs = repair_connectivity(space, nbrs, ep)

@@ -54,9 +54,11 @@ class QGBuilder:
     pool_mode: str = ""     # "" = by size; "beam" | "block" | "twohop"
     timings: Dict[str, float] = dataclasses.field(default_factory=dict)
 
-    def build_graph(self, raw_space, bqg_space, n: Optional[int] = None):
+    def build_graph(self, raw_space, bqg_space, n: Optional[int] = None,
+                    _capture: bool = True):
         """Returns (Graph with eps, the block space with encoded blocks):
-        ``bqg_space`` is a BQGSpace or a RaBitQSpace."""
+        ``bqg_space`` is a BQGSpace or a RaBitQSpace. ``_capture=False``
+        runs every phase uncaptured, for a comparison."""
         if n is None:
             n = raw_space.num
         if self.r != bqg_space.degree:
@@ -92,7 +94,8 @@ class QGBuilder:
         pool_ef = min(self.ef, 128)
         if pool_mode == "twohop":
             pool_d, pool_i = twohop_pool_dev(raw_space, knn_i, ef=self.ef,
-                                             n=n, chunk=CHUNK)
+                                             n=n, chunk=CHUNK,
+                                             _capture=_capture)
         elif pool_mode == "block":
             # interim blocks from the kNN rows; the final encode below
             # rewrites them from the real adjacency in the same buffer
@@ -100,28 +103,30 @@ class QGBuilder:
             phase("interim_pack")
             pool_d, pool_i = block_pool_dev(
                 bqg_space, np.array([ep]), ef=pool_ef, n=n, chunk=CHUNK,
-                seed=SEED, max_iters=pool_iters, seed_sample=sample)
+                seed=SEED, max_iters=pool_iters, seed_sample=sample,
+                _capture=_capture)
         else:
             pool_d, pool_i = search_pool_dev(
                 bf16_pool_space(raw_space), knn_i, np.array([ep]),
                 ef=pool_ef, n=n, chunk=CHUNK, seed=SEED,
-                max_iters=pool_iters, seed_sample=sample)
+                max_iters=pool_iters, seed_sample=sample, _capture=_capture)
         cand_i = torch.cat([pool_i, knn_i], dim=1)
         cand_d = torch.cat([pool_d, knn_d], dim=1)
         del pool_d, pool_i, knn_d, knn_i, sample
         phase(f"pools_{pool_mode}")
 
         nbrs = prune_all_dev(raw_space, cand_d, cand_i, r=self.r,
-                             alpha=self.alpha, chunk=CHUNK)
+                             alpha=self.alpha, chunk=CHUNK, _capture=_capture)
         phase("prune")
         rev = reverse_edges_dev(nbrs, make_generator(dev, SEED + 3),
                                 width=2 * self.r)
         nbrs = reprune_with_reverse_dev(raw_space, nbrs, rev, r=self.r,
-                                        alpha=self.alpha, chunk=CHUNK)
+                                        alpha=self.alpha, chunk=CHUNK,
+                                        _capture=_capture)
         del rev
         phase("reverse_reprune")
         nbrs = fill_degree_dev(nbrs, cand_d, cand_i, r=self.r,
-                               chunk=CHUNK)
+                               chunk=CHUNK, _capture=_capture)
         del cand_d, cand_i
         phase("fill")
         nbrs = repair_connectivity(raw_space, nbrs, ep)

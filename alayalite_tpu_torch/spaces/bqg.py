@@ -32,7 +32,7 @@ import torch
 from ..ops.diagdot import block_diagdot
 from ..ops.distance import normalize_rows, row_dots
 from ..ops.gather_diagdot import gather_estimate
-from .raw import bump_slots, tombstone
+from .raw import bump_slots, put_rows, tombstone
 
 Tensor = torch.Tensor
 
@@ -179,8 +179,9 @@ class BQGSpace:
         """Set the adjacency rows of arbitrary nodes and re-encode their
         packed blocks, in place. ``rows`` [T, ≤R] is padded to R with −1.
         Negative node ids are dropped with their rows (the JAX package
-        scatters them to the last slot). Where an id repeats, the rows must
-        be equal: which write lands last is unspecified."""
+        scatters them to the last slot), without a host sync
+        (``raw.put_rows``). Where an id repeats, the rows must be equal:
+        which write lands last is unspecified."""
         ids = torch.as_tensor(node_ids, dtype=torch.int64,
                               device=self.device).reshape(-1)
         rows = torch.as_tensor(rows, device=self.device).to(torch.int32)
@@ -188,17 +189,17 @@ class BQGSpace:
         if rows.shape[1] < r:
             rows = torch.nn.functional.pad(rows, (0, r - rows.shape[1]),
                                            value=-1)
-        keep = ids >= 0
-        ids, rows = ids[keep], rows[keep][:, :r]
+        rows = rows[:, :r]
         self._blocks_alloc()
         for lo in range(0, ids.shape[0], ENCODE_CHUNK):
             sub = ids[lo:lo + ENCODE_CHUNK]
+            keep = sub >= 0
+            rows_c = rows[lo:lo + ENCODE_CHUNK]
             codes, xsq = _encode_block(self.data, self.dmin, self.scale,
-                                       rows[lo:lo + ENCODE_CHUNK],
-                                       store_sq=self.metric == "l2")
-            self.nbr_ids[sub] = rows[lo:lo + ENCODE_CHUNK]
-            self.nbr_codes[sub] = codes
-            self.nbr_xsq[sub] = xsq
+                                       rows_c, store_sq=self.metric == "l2")
+            put_rows(self.nbr_ids, sub, rows_c, keep)
+            put_rows(self.nbr_codes, sub, codes, keep)
+            put_rows(self.nbr_xsq, sub, xsq, keep)
         return self
 
     def remove(self, ids) -> None:
@@ -334,10 +335,12 @@ def shadow_blocks_update(space: BQGSpace, graph_nbrs: Tensor, ids) -> None:
     """Re-encode the neighbor blocks of the nodes ``ids`` (repeats allowed,
     −1 dropped) from the adjacency ``graph_nbrs``, in place: the upkeep of
     a raw graph's insert shadow after a connect step rewrote those rows.
-    Rows wider than the space's degree are cut to it."""
+    Rows wider than the space's degree are cut to it. Fixed in shape, no
+    host sync: a repeated id encodes and writes its one row again, as the
+    JAX package's chunks do."""
     ids = torch.as_tensor(ids, device=space.device).reshape(-1).long()
-    ids = torch.unique(ids[ids >= 0])
-    space.set_neighbor_rows(ids, graph_nbrs[ids][:, :space.degree])
+    space.set_neighbor_rows(ids, graph_nbrs[ids.clamp(min=0)]
+                            [:, :space.degree])
 
 
 def shadow_space(data: Tensor, sq_norms: Tensor, valid: Tensor, num: int,

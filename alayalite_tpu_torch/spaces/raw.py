@@ -47,6 +47,23 @@ def bump_slots(num: int, b: int, capacity: int, device: torch.device):
     return ids, take
 
 
+def put_rows(dst: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor,
+             keep: torch.Tensor) -> None:
+    """``dst[ids[keep]] = rows[keep]`` in place, fixed in shape (no boolean
+    indexing, so no host sync): an entry not kept repeats the write of the
+    first kept entry, and where none is kept every entry writes row 0's
+    own value back. Where an id repeats among the kept entries, their rows
+    must be equal: which write lands last is unspecified."""
+    n = ids.shape[0]
+    first = torch.argmax(keep.to(torch.int32))      # 0 where none is kept
+    src = torch.where(keep, torch.arange(n, device=ids.device), first)
+    ok = keep[src]                 # all True, or all False if none is kept
+    tgt = torch.where(ok, ids.long()[src], torch.zeros_like(src))
+    vals = torch.where(ok.view(-1, *[1] * (rows.dim() - 1)),
+                       rows.index_select(0, src), dst[:1])
+    dst.index_put_((tgt,), vals)
+
+
 def tombstone(valid: torch.Tensor, ids) -> None:
     """Clear ``valid`` at ``ids`` in place: ids past the end are clipped to
     the last slot, negative ids (−1) are ignored."""

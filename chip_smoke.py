@@ -266,6 +266,25 @@ engine's buckets, the hop loops free of host syncs.
                17's closed loop again over the captured index and an
                uncaptured one: QPS, p50 / p99, rows held to one direct call
                as in phase 17.
+The build's prune phases and the bsq8 / raw inserts run captured too: a
+prune, re-prune, fill or two-hop chunk is one replay (the chunk's row ids
+an input), an insert slice (padded to its bucket) the search's replay, the
+append and one replay of the connect step's in-place graph.
+ 26. captured  (after phase 25's bsq8 cases, and inside phase 6c) phase 4's
+     build     bsq8 fit again with every phase uncaptured (the private
+               _capture=False; its build_timings beside phase 4's, graphs
+               captured 0), its prune, re-prune and fill inputs recorded;
+               one chunk of each and the whole prune_all_dev on them,
+               captured against uncaptured: bit for bit (the whole prune
+               also equal to the fit's), the same launch counts in a
+               replay, wall ms median [min, max] of 7 calls, host syncs
+               (fails on any), graphs, capture seconds and reserved memory;
+               then one 4096-row insert slice into the 1M bsq8 index and
+               one into the 1M raw hnsw through its shadow, from the same
+               index state restored before every call: ids and every
+               written tensor bit for bit, the same counts, wall ms, host
+               syncs outside extend_overlay (fails on any but the raw
+               path's copy of the new ids to the host) and inside it.
 A summary line (the end-to-end numbers of every phase), the kernels line
 and the card line come before the last line, which is
 {"ok": true, "device": {...}}. A copy of the numbers goes to
@@ -310,6 +329,11 @@ TILE_SHAPES = {"l2_tile": (L2_MAIN, SQ8_MAIN, (1000, 3000, 96),
                             (97, 1000, 100), (130, 333, 960))}
 N_REMOVE, N_INSERT = 10_000, 1_000
 SPARE = 16_384                       # bsq8 capacity past the fitted rows
+# phase 4's index (bench.py's headline bsq8 config), fitted again
+# uncaptured in phase 26
+BSQ8_PARAMS = dict(index_type="hnsw", quantization_type="bsq8", max_nbrs=32,
+                   ef_construction=200, prune_alpha=1.2, seed_sample=16384,
+                   beam_expand=8, capacity=N + SPARE)
 CHURN_INSERT, CHURN_BATCH = 8_192, 4_096
 CHURN_FLOOR = 0.95                   # own top-1 share and recall@10 at ef 64
 # gather_diagdot: (nodes C, R, Dp, B, M); the main shape is the hop's, over
@@ -443,6 +467,15 @@ MH_SHARDS = 4                        # phase 24: ranged reads and file fit
 # early stop the loops made before would have ended each slice; then
 # phase 17's closed loop again, captured and uncaptured
 CAPTURE_EFS, CAPTURE_REPS = (32, 64, 96), 7
+# phase 26: the build's prune phases and the bsq8 / raw inserts captured.
+# Phase 4's bsq8 fit again with every phase uncaptured (its build_timings
+# beside phase 4's), one prune, re-prune and fill chunk of its own inputs
+# and its whole prune_all_dev, captured against uncaptured; one insert
+# slice of INSERT_ROWS rows at ef INSERT_EF into the 1M bsq8 index (after
+# phase 25) and into the 1M raw hnsw through its shadow (inside phase 6c,
+# before its churn), each from the same index state restored before every
+# call
+INSERT_ROWS, INSERT_EF = 4_096, 100
 POOL_CHUNK, POOL_EF, POOL_RAND = 4096, 128, 16
 SLICE11_PHASES = ("serving", "service", "flat_sq4", "native_rag")
 SLICE12_PHASES = ("db_shards", "build_shards", "serve_shards", "multihost")
@@ -1904,7 +1937,7 @@ def save_and_load(torch, idx, name):
 
 
 def raw_churn(torch, dev, idx, name, data, queries, shape, shadow: bool,
-              save_load: bool = False) -> dict:
+              save_load: bool = False, before_insert=None) -> dict:
     """Raw graph churn through Index: remove random ids (seed 11; none may
     come back), insert rows from the data's own clusters in batches (rows/s
     and launches a batch; with ``shadow`` the neighbor search goes through
@@ -1912,7 +1945,9 @@ def raw_churn(torch, dev, idx, name, data, queries, shape, shadow: bool,
     gather_estimate), own top-1 at ef 64, compact (timed; then no removed
     id in a live row or an overlay level, every entry point live), recall@10
     at ef 64 over the live rows; with ``save_load`` the same ids after a
-    save and load. ``shape``: a RAW_CHURN entry."""
+    save and load; ``before_insert(idx)``, run after the shadow's pack, goes
+    into "captured_insert" (its launches are not the churn's). ``shape``: a
+    RAW_CHURN entry."""
     from alayalite_tpu_torch.ops.gather_diagdot import gather_estimate
     from alayalite_tpu_torch.utils.evaluate import calc_recall
 
@@ -1953,6 +1988,10 @@ def raw_churn(torch, dev, idx, name, data, queries, shape, shadow: bool,
         rep["shadow_pack_s"] = time.time() - t
         log(f"{name} churn: shadow packed {n} blocks of "
             f"{eng.graph.nbrs.shape[1]} in {rep['shadow_pack_s']:.3f}s")
+    if before_insert is not None:
+        rep["captured_insert"] = before_insert(idx)
+        for c in counters:
+            c.launches = 0
     new_ids, batches = [], []
     for lo in range(0, n_insert, batch):
         tally()
@@ -2055,9 +2094,13 @@ def raw_graph_phases(torch, dev, ds, gt) -> dict:
     rep = {"hnsw_1m": graph_index_phase(
         torch, dev, "raw_hnsw", ds.data, ds.queries, gt,
         RAW_FLOORS["hnsw_1m"], True,
-        churn=lambda idx: raw_churn(torch, dev, idx, "raw_hnsw", ds.data,
-                                    ds.queries, RAW_CHURN["hnsw_1m"],
-                                    shadow=True),
+        churn=lambda idx: raw_churn(
+            torch, dev, idx, "raw_hnsw", ds.data, ds.queries,
+            RAW_CHURN["hnsw_1m"], shadow=True,
+            before_insert=lambda idx: insert_case(
+                torch, f"raw hnsw insert slice through the shadow "
+                f"({INSERT_ROWS} rows)", idx._engine,
+                insert_rows(N, INSERT_ROWS, 27), card)),
         captured=captured, index_type="hnsw", capacity=N + SPARE)}
     gc.collect()
     torch.cuda.empty_cache()
@@ -3055,6 +3098,289 @@ def closed_loop_case(torch, idx, queries, gt, card) -> dict:
     return rep
 
 
+# ---- the captured build phases and inserts (phase 26) ----
+def replay_case(torch, what: str, call, card: str, restore=lambda: None,
+                state=lambda: {}) -> dict:
+    """One call of phase 26: ``call(capture)`` -> a tuple of tensors, run
+    after ``restore()`` (an insert: the index state it started from) and
+    captured against uncaptured. The results and ``state()`` (the tensors
+    the call wrote) bit for bit, the launch counts of a replay against an
+    uncaptured call, CAPTURE_REPS synchronised calls of each, host syncs a
+    call, graphs and capture seconds, reserved memory of each with no
+    other graph held."""
+    from alayalite_tpu_torch.index import captured
+
+    launches = Launches(new_counters())
+    restore()
+    launches.zero()
+    want, peak_u, held_u = reserved_of(torch, lambda: call(False))
+    launches.read("uncaptured")
+    want_state = state()
+    s0 = dict(captured.stats)
+    restore()
+    t = time.perf_counter()
+    _, peak_c, held_c = reserved_of(torch, lambda: call(True))
+    first_ms = (time.perf_counter() - t) * 1e3
+    graphs = captured.stats["captures"] - s0["captures"]
+    capture_s = captured.stats["capture_s"] - s0["capture_s"]
+    restore()
+    launches.zero()
+    got = call(True)
+    launches.read("replay")
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    got_state = state()
+    differ = [k for k, v in want_state.items()
+              if not torch.equal(got_state[k], v)]
+    del got_state, want_state
+    if not same or differ:
+        raise AssertionError(f"captured {what}: a replay differs from the "
+                             f"uncaptured call (results equal {same}, "
+                             f"written tensors that differ {differ})")
+    if launches.steps["replay"] != launches.steps["uncaptured"]:
+        raise AssertionError(f"captured {what}: a replay's launch counts "
+                             f"{launches.steps} differ from the uncaptured")
+    times = {True: [], False: []}
+    for _ in range(CAPTURE_REPS):
+        for mode in (True, False):
+            restore()
+            _, wall = synced(torch, lambda: call(mode))
+            times[mode].append(wall * 1e3)
+    syncs = {}
+    for mode in (True, False):
+        restore()
+        torch.cuda.synchronize()
+        _, syncs[mode] = host_syncs(torch, lambda: call(mode))
+    restore()
+    rep = {"bit_equal": True, "captured": spread(times[True]),
+           "uncaptured": spread(times[False]), "first_call_ms": first_ms,
+           "graphs_captured": graphs, "capture_s": capture_s,
+           "host_syncs_per_call": syncs[True],
+           "host_syncs_per_call_uncaptured": syncs[False],
+           "peak_reserved_gib": peak_c, "held_reserved_gib": held_c,
+           "peak_reserved_gib_uncaptured": peak_u,
+           "held_reserved_gib_uncaptured": held_u,
+           "launches_per_call": launches.steps["replay"], "card": card}
+    log(f"captured {what}: bit-equal True; wall ms median "
+        f"{rep['captured']['median_ms']:.3f} [{rep['captured']['min_ms']:.3f}"
+        f", {rep['captured']['max_ms']:.3f}] captured against "
+        f"{rep['uncaptured']['median_ms']:.3f} "
+        f"[{rep['uncaptured']['min_ms']:.3f}, "
+        f"{rep['uncaptured']['max_ms']:.3f}] uncaptured ({CAPTURE_REPS} "
+        f"calls each); first call {first_ms:.1f} ms with {graphs} graph(s) "
+        f"captured in {capture_s:.3f} s; host syncs a call {syncs[True]} "
+        f"(uncaptured {syncs[False]}); reserved GiB peak {peak_c:.3f} held "
+        f"{held_c:.3f} captured, peak {peak_u:.3f} held {held_u:.3f} "
+        f"uncaptured; launches a call {launches.steps['replay']}; {card}")
+    return rep
+
+
+def build_capture_phase(torch, ds, card) -> dict:
+    """Phase 26, the build: phase 4's bsq8 fit again with every phase
+    uncaptured (the fit before this slice), its prune, re-prune and fill
+    inputs recorded; then one chunk of each and the whole prune_all_dev on
+    them, captured against uncaptured."""
+    from alayalite_tpu_torch import Client
+    from alayalite_tpu_torch.index import build_phases as bp
+    from alayalite_tpu_torch.index import captured, qg
+
+    names = ("prune_all_dev", "reprune_with_reverse_dev", "fill_degree_dev")
+    real = {name: getattr(qg, name) for name in names}
+    rec = {}
+
+    def recorder(name):
+        def call(*a, **kw):
+            out = real[name](*a, **kw)
+            rec[name] = (a, kw, out)
+            return out
+        return call
+
+    idx = Client().create_index("uncaptured", **BSQ8_PARAMS)
+    for name in names:
+        setattr(qg, name, recorder(name))
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        s0 = dict(captured.stats)
+        _, fit_s = synced(torch, lambda: idx._engine.fit(
+            ds.data, ef_construction=100, _capture=False))
+    finally:
+        for name in names:
+            setattr(qg, name, real[name])
+    rep = {"uncaptured_fit": {
+        "seconds": fit_s, "phases": dict(idx._engine.build_timings),
+        "peak_reserved_gib": (torch.cuda.max_memory_reserved() - base) / 2**30,
+        "graphs_captured": captured.stats["captures"] - s0["captures"]},
+        "card": card}
+    log(f"uncaptured bsq8 fit: {fit_s:.2f}s, phases "
+        + ", ".join(f"{k}={v:.2f}s" for k, v in rep["uncaptured_fit"][
+            "phases"].items())
+        + f", peak reserved {rep['uncaptured_fit']['peak_reserved_gib']:.2f}"
+        f" GiB, graphs captured {rep['uncaptured_fit']['graphs_captured']}")
+    if rep["uncaptured_fit"]["graphs_captured"]:
+        raise AssertionError("the uncaptured fit captured a graph")
+    del idx
+    gc.collect()
+    torch.cuda.empty_cache()
+    (sp, cd, ci), kw, pruned = rec["prune_all_dev"]
+    (_, nbrs, rev), rkw, repruned = rec["reprune_with_reverse_dev"]
+    (fnb, fcd, fci), fkw, _ = rec["fill_degree_dev"]
+    r, alpha, chunk = kw["r"], kw["alpha"], kw["chunk"]
+    c = min(chunk, ci.shape[0])
+    rep["prune_chunk"] = replay_case(
+        torch, f"prune chunk ({c} x {ci.shape[1]}, alpha {alpha})",
+        lambda m: (bp.prune_all_dev(sp, cd[:c], ci[:c], r=r, alpha=alpha,
+                                    chunk=chunk, _capture=m),), card)
+    rep["reprune_chunk"] = replay_case(
+        torch, f"re-prune chunk ({c} x {nbrs.shape[1] + rev.shape[1]})",
+        lambda m: (bp.reprune_with_reverse_dev(
+            sp, nbrs[:c], rev[:c], r=r, alpha=alpha, chunk=chunk,
+            _capture=m),), card)
+    rep["fill_chunk"] = replay_case(
+        torch, f"fill chunk ({c} x {fnb.shape[1] + fci.shape[1]})",
+        lambda m: (bp.fill_degree_dev(fnb[:c], fcd[:c], fci[:c], r=r,
+                                      chunk=chunk, _capture=m),), card)
+    whole = {}
+    for mode in (True, False):
+        s0 = dict(captured.stats)
+        ((out, wall), syncs), peak, held = reserved_of(
+            torch, lambda: host_syncs(torch, lambda: synced(
+                torch, lambda: bp.prune_all_dev(sp, cd, ci, r=r, alpha=alpha,
+                                                chunk=chunk, _capture=mode))))
+        same = bool(torch.equal(out, pruned))
+        whole["captured" if mode else "uncaptured"] = {
+            "wall_s": wall, "host_syncs": syncs, "peak_reserved_gib": peak,
+            "held_reserved_gib": held, "equal_to_the_fit": same,
+            "graphs_captured": captured.stats["captures"] - s0["captures"],
+            "capture_s": captured.stats["capture_s"] - s0["capture_s"]}
+        del out
+        if not same:
+            raise AssertionError(f"prune_all_dev (capture {mode}) differs "
+                                 "from the uncaptured fit's")
+    whole["chunks"] = len(captured.chunk_starts(ci.shape[0], chunk)[0])
+    rep["prune_all"] = whole
+    log(f"prune_all_dev over {ci.shape[0]} rows ({whole['chunks']} chunks): "
+        f"captured {whole['captured']['wall_s']:.3f}s "
+        f"({whole['captured']['graphs_captured']} graph, "
+        f"{whole['captured']['capture_s']:.3f}s to capture, host syncs "
+        f"{whole['captured']['host_syncs']}, peak reserved "
+        f"{whole['captured']['peak_reserved_gib']:.3f} GiB held "
+        f"{whole['captured']['held_reserved_gib']:.3f}) against uncaptured "
+        f"{whole['uncaptured']['wall_s']:.3f}s (host syncs "
+        f"{whole['uncaptured']['host_syncs']}, peak reserved "
+        f"{whole['uncaptured']['peak_reserved_gib']:.3f} GiB); both equal "
+        f"to the uncaptured fit's; {card}")
+    syncs = {k: rep[k]["host_syncs_per_call"] for k in (
+        "prune_chunk", "reprune_chunk", "fill_chunk")}
+    if any(syncs.values()) or whole["captured"]["host_syncs"]:
+        raise AssertionError(f"a host sync inside a prune phase: {syncs}, "
+                             f"whole {whole['captured']['host_syncs']}")
+    del rec, sp, cd, ci, nbrs, rev, fnb, fcd, fci, pruned, repruned
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep
+
+
+def insert_case(torch, what: str, eng, rows: np.ndarray, card: str) -> dict:
+    """Phase 26, an insert: one slice of ``rows`` through the engine's
+    slice method (device rows in, device ids out), captured against
+    uncaptured from the same index state, restored before every call and
+    at the end. Host syncs a call are counted outside ``extend_overlay``
+    (host code in JAX too), whose own syncs are counted apart; the raw
+    path may make one, the new ids' copy to the host."""
+    import copy
+    import warnings
+
+    from alayalite_tpu_torch.index import overlay_update
+
+    raw = eng.search_space is eng.space
+    shadow = eng._ins_shadow
+
+    def live() -> dict:
+        out = {"nbrs": eng.graph.nbrs, "data": eng.space.data,
+               "sq": eng.space.sq_norms, "valid": eng.space.valid}
+        for name, sp in (("search", None if raw else eng.search_space),
+                         ("shadow", shadow)):
+            if sp is not None:
+                for f in ("data", "sq_norms", "valid", "nbr_ids",
+                          "nbr_codes", "nbr_xsq"):
+                    t = getattr(sp, f)
+                    if all(t is not v for v in out.values()):
+                        out[f"{name}.{f}"] = t
+        for li, lvl in enumerate(eng.graph.overlay):
+            for f in ("ids", "nbrs", "down"):
+                out[f"overlay{li}.{f}"] = getattr(lvl, f)
+        return out
+
+    saved = {k: v.clone() for k, v in live().items()}
+    nums = (eng.space.num, eng.search_space.num,
+            shadow.num if shadow is not None else None)
+    rng = copy.deepcopy(eng._rng)
+
+    def restore():
+        for k, v in live().items():
+            v.copy_(saved[k])
+        eng.space.num, eng.search_space.num = nums[:2]
+        if shadow is not None:
+            shadow.num = nums[2]
+        eng._rng = copy.deepcopy(rng)
+        eng._insert_gen = None
+
+    def state():
+        return {k: v.clone() for k, v in live().items()}
+
+    v = torch.as_tensor(rows, device=eng.device)
+    slice_fn = eng._insert_raw_graph if raw else eng._insert_block_fused
+    overlay_syncs = []
+    real = overlay_update.extend_overlay
+
+    def counted(*a, **kw):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = real(*a, **kw)
+        overlay_syncs.append(sum("called a synchronizing CUDA operation"
+                                 in str(w.message) for w in caught))
+        return out
+
+    overlay_update.extend_overlay = counted
+    try:
+        rep = replay_case(torch, what,
+                          lambda m: (slice_fn(v, INSERT_EF, _capture=m),),
+                          card, restore, state)
+    finally:
+        overlay_update.extend_overlay = real
+        restore()
+        del saved
+        gc.collect()
+        torch.cuda.empty_cache()
+    rep["extend_overlay_syncs_per_call"] = (overlay_syncs[-1] if overlay_syncs
+                                            else 0)
+    # the raw path copies the new ids to the host for extend_overlay, as
+    # the JAX engine's raw insert does (alayalite_tpu/index/engine.py:482)
+    rep["ids_copy_syncs"] = 1 if raw else 0
+    log(f"captured {what}: host syncs in extend_overlay a call "
+        f"{rep['extend_overlay_syncs_per_call']} (counted apart), the ids' "
+        f"copy to the host {rep['ids_copy_syncs']}")
+    if rep["host_syncs_per_call"] > rep["ids_copy_syncs"]:
+        raise AssertionError(f"captured {what}: {rep['host_syncs_per_call']} "
+                             "host syncs outside extend_overlay and the ids' "
+                             "copy")
+    return rep
+
+
+def insert_rows(n_base: int, count: int, seed: int) -> np.ndarray:
+    """``count`` rows from the data's own clusters (random_dataset draws
+    its centers first from seed 42)."""
+    clusters = max(32, n_base // 2000)
+    centers = (np.random.default_rng(42).normal(size=(clusters, DIM))
+               .astype(np.float32) * 4.0)
+    rng = np.random.default_rng(seed)
+    return (centers[rng.integers(0, clusters, size=count)]
+            + rng.normal(size=(count, DIM)).astype(np.float32))
+
+
 def http_connect(port: int):
     """A client connection to the service on 127.0.0.1, kept open across
     requests (HTTP/1.1)."""
@@ -3932,18 +4258,23 @@ def main() -> int:
                         clusters=max(32, N // 2000))
     log(f"data: {N}x{DIM}, {NQ} queries in {time.time() - t:.1f}s")
     client = Client()
-    idx = client.create_index("smoke", index_type="hnsw",
-                              quantization_type="bsq8", max_nbrs=32,
-                              ef_construction=200, prune_alpha=1.2,
-                              seed_sample=16384, beam_expand=8,
-                              capacity=N + SPARE)
+    idx = client.create_index("smoke", **BSQ8_PARAMS)
     for c in (block_diagdot, l2_tile, sq8_tile, *hop, *pool):
         c.launches = 0
+    from alayalite_tpu_torch.index import captured
+
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s0 = dict(captured.stats)
     t = time.time()
     idx.fit(ds.data)
     torch.cuda.synchronize()
     fit_s = time.time() - t
+    fit_graphs = {"graphs_captured": captured.stats["captures"]
+                  - s0["captures"],
+                  "capture_s": captured.stats["capture_s"] - s0["capture_s"],
+                  "peak_reserved_gib": torch.cuda.max_memory_reserved()
+                  / 2**30}
     fit_launches = {c.__name__: c.launches for c in hop}
     # the pool kernels' launches on the bsq8 path, summed phase by phase
     bsq8_pool = {c.__name__: c.launches for c in pool}
@@ -3952,10 +4283,13 @@ def main() -> int:
         + ", ".join(f"{k}={v:.2f}s" for k, v in timings.items())
         + f", launches {fit_launches}, l2_tile launches "
         f"{l2_tile.launches} (find_medoid), peak mem "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, peak reserved "
+        f"{fit_graphs['peak_reserved_gib']:.2f} GiB, "
+        f"{fit_graphs['graphs_captured']} graphs captured in "
+        f"{fit_graphs['capture_s']:.3f} s")
     if min(fit_launches.values()) <= 0:
         raise AssertionError("the fit launched a hop kernel no time")
-    report["fit"] = {"seconds": fit_s, "phases": timings,
+    report["fit"] = {"seconds": fit_s, "phases": timings, **fit_graphs,
                      "launches": {**fit_launches, **bsq8_pool},
                      "l2_tile_launches": l2_tile.launches}
 
@@ -4009,6 +4343,11 @@ def main() -> int:
     report["serving"] = serving_phase(torch, idx, ds.queries, gt)
     report["captured"]["serving"] = closed_loop_case(torch, idx, ds.queries,
                                                      gt, card)
+    # phase 26 on the fitted index, before the churn of phase 6b
+    report["captured_build"] = build_capture_phase(torch, ds, card)
+    report["captured"]["bsq8_insert"] = insert_case(
+        torch, f"bsq8 insert slice ({INSERT_ROWS} rows)", idx._engine,
+        insert_rows(N, INSERT_ROWS, 26), card)
 
     report["small"] = small_agreement(torch)
     for c in pool:
@@ -4023,6 +4362,8 @@ def main() -> int:
 
     report["raw"] = raw_graph_phases(torch, dev, ds, gt)
     report["captured"]["raw_hnsw"] = report["raw"]["hnsw_1m"]["captured"]
+    report["captured"]["raw_insert"] = report["raw"]["hnsw_1m"]["churn"][
+        "captured_insert"]
 
     report["tiles"] = check_tiles(torch, dev)
     report["flat"] = flat_phases(torch, dev, ds, gt)
@@ -4359,6 +4700,7 @@ def main() -> int:
         "flat": {k: report["flat"][k] for k in ("fit_s", "exact", "fast")},
         **{ph: report[ph] for ph in NEW_PHASES},
         "captured": report["captured"],
+        "captured_build": report["captured_build"],
         "total_s": report["total_s"]}}))
     print(json.dumps(kernels))
     print(card)

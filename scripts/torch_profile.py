@@ -9,9 +9,13 @@ then traces with ``torch.profiler``:
     12 hops, seeded like the build's pools (scan seeds, the entry point,
     16 random nodes; the scan uses the search's sample),
   - one occlusion-prune chunk: 4096 rows x 160 candidates, alpha 1.2,
+    through prune_all_dev as the build runs it (one replay of the chunk's
+    captured graph), and the same chunk uncaptured (``_capture=False``);
   - one insert batch: 4096 new rows drawn from the data's clusters through
     IndexEngine.insert (the search for their edges, the append, the
-    re-selection and re-encoding of every touched row);
+    re-selection and re-encoding of every touched row: the search's replay,
+    the append and the connect step's replay), and one more batch
+    uncaptured;
 then, on a raw hnsw index with the default parameters (no quantization;
 the bsq8 index freed first) fitted on the same rows:
   - one batch_search of the 8192 queries at ef = 64 (overlay descent, beam
@@ -19,8 +23,8 @@ the bsq8 index freed first) fitted on the same rows:
     beam_search of 4096 rows at ef = 128 over the bf16 copy of the rows;
   - one raw insert batch: 4096 rows from the data's clusters through
     IndexEngine.insert (the neighbor search through the bsq8 shadow, packed
-    by the warm-up batch; the append; fused_raw_connect; the shadow's
-    re-encode; the overlay link);
+    by the warm-up batch; the append; fused_raw_connect's replay; the
+    shadow's re-encode; the overlay link), and one more uncaptured;
 then, on the 1-bit rabitq index of results/sift1m_frontier.json
 (hnsw_rabitq_R32_efc200: max_nbrs 32, ef_construction 200, seed_sample
 4096, rabitq_ef_boost 4, beam_expand 8) fitted on the same rows:
@@ -37,10 +41,10 @@ then, on a flat index over the same rows:
     selection (torch.topk and the merge sorts) and the rest; beside it the
     time to write one [4096, 16384] f32 tile alone (``fill_``), times the
     number of tiles, as a measure of the tile write inside the kernel.
-Every search runs as its entry point runs it: on the card each query slice
-is one replay of a captured CUDA graph (``index/captured.py``), so the
-warm-up call of a window captures and the traced call replays; the
-kernels inside a replay are listed as any other.
+Every search, prune chunk and bsq8 / raw insert slice runs as its entry
+point runs it: on the card one replay of a captured CUDA graph
+(``index/captured.py``), so the warm-up call of a window captures and the
+traced call replays; the kernels inside a replay are listed as any other.
 For each window it prints the wall time, the summed device-kernel time and
 its share of the wall (the rest is the device idle, waiting on the host),
 the kernels with the most device time, and every launch of the port's own
@@ -163,7 +167,7 @@ def raw_windows(torch, ds, dev) -> dict:
     from alayalite_tpu_torch.index.build_phases import bf16_pool_space
     from alayalite_tpu_torch.index.search import beam_search
 
-    idx = Index("raw", IndexParams(index_type="hnsw", capacity=N + 2 * 4096))
+    idx = Index("raw", IndexParams(index_type="hnsw", capacity=N + 4 * 4096))
     idx.fit(ds.data)
     eng = idx._engine
     out = {"fit_phases": eng.build_timings}
@@ -181,9 +185,12 @@ def raw_windows(torch, ds, dev) -> dict:
         lambda: beam_search(pool_space, eng.graph.nbrs, seeds, rows, k=128,
                             ef=128, n_expand=8))
     del pool_space
-    batches = churn_batches(N, 2)                      # warm-up, traced
+    batches = churn_batches(N, 4)                      # warm-up, traced
     out["insert_batch"] = trace(torch, "raw insert batch (4096 rows)",
                                 lambda: eng.insert(next(batches)), top=16)
+    out["insert_batch_uncaptured"] = trace(
+        torch, "raw insert batch (4096 rows), uncaptured",
+        lambda: eng.insert(next(batches), _capture=False), top=16)
     del idx, eng
     torch.cuda.empty_cache()
     return out
@@ -220,8 +227,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from alayalite_tpu_torch import Index, IndexParams
-    from alayalite_tpu_torch.index.build_phases import make_generator
-    from alayalite_tpu_torch.index.prune import occlusion_prune_chunk
+    from alayalite_tpu_torch.index.build_phases import (make_generator,
+                                                        prune_all_dev)
     from alayalite_tpu_torch.index.search import (block_beam_search,
                                                   scan_seeds)
     from alayalite_tpu_torch.utils.datasets import random_dataset
@@ -234,7 +241,7 @@ def main() -> int:
     idx = Index("prof", IndexParams(
         index_type="hnsw", quantization_type="bsq8", max_nbrs=32,
         ef_construction=200, prune_alpha=1.2, seed_sample=16384,
-        beam_expand=8, capacity=N + 3 * 4096))
+        beam_expand=8, capacity=N + 5 * 4096))
     idx.fit(ds.data)
     eng = idx._engine
     out = {"card": card, "fit_phases": eng.build_timings}
@@ -264,10 +271,17 @@ def main() -> int:
         rows, eng.graph.nbrs[:4096].clamp(min=0))], 1)
     out["prune_chunk"] = trace(
         torch, "prune chunk",
-        lambda: occlusion_prune_chunk(raw, cand_d, cand_i, r=32, alpha=1.2))
-    batches = churn_batches(N, 2)                      # warm-up, traced
+        lambda: prune_all_dev(raw, cand_d, cand_i, r=32, alpha=1.2))
+    out["prune_chunk_uncaptured"] = trace(
+        torch, "prune chunk, uncaptured",
+        lambda: prune_all_dev(raw, cand_d, cand_i, r=32, alpha=1.2,
+                              _capture=False))
+    batches = churn_batches(N, 4)                      # warm-up, traced
     out["insert_batch"] = trace(torch, "insert batch (4096 rows)",
                                 lambda: eng.insert(next(batches)), top=16)
+    out["insert_batch_uncaptured"] = trace(
+        torch, "insert batch (4096 rows), uncaptured",
+        lambda: eng.insert(next(batches), _capture=False), top=16)
     dev = eng.device
     del idx, eng, bq, raw, rows, cand_d, cand_i, q
     torch.cuda.empty_cache()
