@@ -6,7 +6,9 @@ chunk's rows into a preallocated output in place. The prune phases and the
 two-hop pools run their chunks through ``captured.run_chunks``: one shape a
 phase (the tail chunk overlaps), the chunk's row ids an input, no host
 sync, and on the card each chunk one replay of a captured graph. The
-private ``_capture=False`` runs them uncaptured, for a comparison.
+private ``_capture=False`` runs them uncaptured, for a comparison. A
+builder's ``PhaseTimer`` runs each phase in a ``captured.scope()``, so no
+graph of a fit, nor its memory pool, outlives its phase.
 
   search_pool_dev          beam-search pools over a raw (bf16) space
   block_pool_dev           the same beams over an interim block space
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from ..device import synchronize
-from .captured import chunk_starts, run_chunks
+from .captured import chunk_starts, run_chunks, scope
 from .prune import occlusion_prune_chunk
 from .search import beam_search, block_beam_search, scan_seeds
 
@@ -42,13 +44,27 @@ log = logging.getLogger("alayalite_tpu_torch")
 
 class PhaseTimer:
     """Seconds per build phase into ``timings``: calling it with a name
-    closes that phase with a device sync."""
+    closes that phase with a device sync. Used as a context manager, it
+    also runs each phase in a ``captured.scope()`` of its own, so the
+    graphs a phase captures, and their memory pool, go when it closes."""
 
     def __init__(self, device, prefix: str, timings: Dict[str, float]):
         self.device, self.prefix, self.timings = device, prefix, timings
         self.t = time.time()
+        self._scope = None
+
+    def __enter__(self) -> "PhaseTimer":
+        self._scope = scope().__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        sc, self._scope = self._scope, None
+        sc.__exit__(*exc)
 
     def __call__(self, name: str) -> None:
+        if self._scope is not None:          # the next phase, a new scope
+            self._scope.__exit__(None, None, None)
+            self._scope = scope().__enter__()
         synchronize(self.device)
         now = time.time()
         self.timings[name] = now - self.t
@@ -174,19 +190,45 @@ def prune_all_dev(space, cand_d: Tensor, cand_i: Tensor, r: int,
                       static=(r, float(alpha)), capture=_capture)[0]
 
 
+_SCRAMBLE = 0x9E3779B1     # odd: position -> priority is a bijection mod 2^32
+
+
+def pick_proposals(cell: Tensor, ok: Tensor, n_cells: int) -> Tensor:
+    """[n_cells] i32: for each cell, the row i of the one proposal (i, j)
+    with ``cell[i, j]`` = that cell and ``ok[i, j]`` that stays, −1 where
+    none. Where proposals collide, the one whose position maps to the
+    largest priority (``position · _SCRAMBLE mod 2^32``: a fixed
+    pseudo-random order) stays, so the choice is reproducible and does not
+    lean to high ids as "the last in (i, j) order" would (JAX's scatter
+    leaves it open). A scatter of the priorities' maximum, masked
+    proposals landing in a scratch cell: fixed in shape, no host sync, and
+    the result does not depend on the order in which the writes land."""
+    rows, s = cell.shape
+    dev = cell.device
+    flat = torch.where(ok, cell, n_cells).reshape(-1)
+    pos = torch.arange(rows * s, dtype=torch.int64, device=dev)
+    prio = (pos * _SCRAMBLE) & 0xFFFFFFFF
+    best = torch.full((n_cells + 1,), -1, dtype=torch.int64, device=dev)
+    best.scatter_reduce_(0, flat, torch.where(ok.reshape(-1), prio, -1),
+                         reduce="amax")
+    # the winners, one a cell, write their rows (the rest the scratch cell)
+    won = ok.reshape(-1) & (prio == best[flat])
+    out = torch.full((n_cells + 1,), -1, dtype=torch.int32, device=dev)
+    out.scatter_(0, torch.where(won, flat, n_cells),
+                 torch.where(won, pos // s, -1).to(torch.int32))
+    return out[:n_cells]
+
+
 def reverse_edges_dev(nbrs: Tensor, gen: torch.Generator,
                       width: int) -> Tensor:
-    """Bounded reverse-edge table [n, width] by random-slot scatter.
-    Colliding writes drop all but one entry (reservoir semantics); which
-    one survives is unspecified, as ``index_put_`` with duplicate indices
-    on CUDA is nondeterministic, like the JAX scatter it replaces."""
+    """Bounded reverse-edge table [n, width] by random-slot scatter: edge
+    (i, j) proposes i at a random slot of row ``nbrs[i, j]``. Colliding
+    proposals keep one entry (reservoir semantics), chosen by
+    ``pick_proposals``."""
     n, r = nbrs.shape
-    src = torch.arange(n, dtype=torch.int32, device=nbrs.device)[:, None]
     slot = torch.randint(0, width, (n, r), generator=gen, device=nbrs.device)
-    ok = nbrs >= 0
-    rev = torch.full((n, width), -1, dtype=torch.int32, device=nbrs.device)
-    rev[nbrs[ok].long(), slot[ok]] = src.expand(n, r)[ok]
-    return rev
+    rev = pick_proposals(nbrs.long() * width + slot, nbrs >= 0, n * width)
+    return rev.view(n, width)
 
 
 def reprune_with_reverse_dev(space, nbrs: Tensor, rev: Tensor, r: int,

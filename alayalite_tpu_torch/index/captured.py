@@ -34,7 +34,12 @@ inserts' connect steps, which write the space's slabs and the adjacency in
 place and whose rows are not independent: nothing is padded (the caller
 pads to its bucket), and the warm-up runs ``fn`` on ``idle``, inputs of the
 same shapes under which it writes nothing (every row masked), so the state
-is written once, by the replay.
+is written once, by the replay. It also serves the build's loops whose
+steps are not independent (NN-Descent's rounds, the repair's loops): their
+state goes in as inputs, which ``fn`` updates in place in the graph's own
+buffers and returns (JAX's donated buffers), and ``warm``, a cheaper call
+that launches every kind of kernel ``fn`` does (part of one chunk of a
+round, on scratch state), takes the warm-up's place.
 
 On a CPU tensor, with ``capture=False`` (a private argument of the search,
 build and insert functions that only comparisons pass), inside another
@@ -66,6 +71,10 @@ code reads, audited:
   prune.py            r, alpha (its ``passes``), bf16 (``static``; bf16 is
                       the default in every phase); ``space.metric``;
   build_phases.py     r, alpha, ef (``static``), the chunk (a shape);
+  nndescent.py        s_rev, chunk, n, k (``static``); s1, s2, n_rand,
+                      the chunks and the anchors (shapes);
+  repair_dev.py       ``LOOP_CHUNK``, tile, metric (``static``); n, r and
+                      the representatives (shapes);
   fused_insert.py     r, w, row_w, alpha, chunk, ``MATES``,
                       ``TOUCHED_CHUNK`` (``static``); B and the capacity
                       (shapes); ``space.metric``; the bsq8 space's
@@ -94,6 +103,26 @@ tensor (the space's slab) has been freed. The graphs of a device share
 one memory pool (``torch.cuda.graph_pool_handle()``), which is safe
 because replays never overlap and outputs are cloned before the lock is
 released; the pool holds the largest slice's temporaries, not their sum.
+
+``scope()`` is a context manager for the build: graphs captured inside it
+(on its thread) are kept in the scope, not on the device, in a memory
+pool of the scope's own (one a device), and when it closes it drops them,
+and with them their pool, whose memory it hands back to the card
+(``torch.cuda.empty_cache()``, after a device sync; only where the scope
+captured a graph). A builder's ``PhaseTimer`` runs each phase in a scope
+of its own, so a fit's graphs (every phase of ``build_phases``, the
+build's beam searches, NN-Descent, the repair) live as long as their
+phase, as JAX frees a jitted phase's temporaries when the call returns;
+searches outside any scope keep the device's pool and its LRU. Scopes
+nest: a graph goes to the innermost.
+
+Each capture enters ``torch.cuda.graph``, which syncs the device and
+empties the allocator's cache, so the warm-up's temporaries (cached on
+the side stream) are freed before the graph's pool grows, and each phase
+frees its pool when it ends. On an H100, a 1M-row fit whose captures
+skipped the sync and the emptying peaked 7.8-9.3 GiB higher in reserved
+memory, and one whose phases shared one pool, freed when the fit ended,
+4.1-5.1 GiB higher (PERF.md).
 """
 
 from __future__ import annotations
@@ -226,33 +255,88 @@ def _state(dev: torch.device) -> _DeviceState:
     return st
 
 
+class _Scope:
+    """The graphs captured inside one ``scope()`` and a memory pool for
+    each device: a context manager."""
+
+    def __init__(self):
+        self.entries: Dict[torch.device, Dict[tuple, _Entry]] = {}
+        self.pools: Dict[torch.device, tuple] = {}
+
+    def where(self, dev: torch.device) -> Tuple[dict, tuple]:
+        if dev not in self.pools:
+            self.pools[dev] = torch.cuda.graph_pool_handle()
+            self.entries[dev] = {}
+        return self.entries[dev], self.pools[dev]
+
+    def __enter__(self) -> "_Scope":
+        _scopes().append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _scopes().remove(self)
+        if not any(self.entries.values()):
+            return
+        for dev in self.entries:
+            torch.cuda.synchronize(dev)      # no replay of these in flight
+        with _lock:
+            self.entries.clear()
+            self.pools.clear()
+        torch.cuda.empty_cache()             # the pools' memory to the card
+
+
+def _scopes() -> list:
+    if not hasattr(_tls, "scopes"):
+        _tls.scopes = []
+    return _tls.scopes
+
+
+def scope() -> _Scope:
+    """Graphs captured inside go, with their memory pool, when it closes
+    (see the module's docstring)."""
+    return _Scope()
+
+
 def clear() -> None:
-    """Drop every captured graph (their pool goes with the last one)."""
+    """Drop every captured graph held on a device (their pool goes with
+    the last one); the graphs of an open scope stay."""
     with _lock:
         for st in _devices.values():
             st.entries.clear()
 
 
+def held() -> list:
+    """The names of the graphs held: on the devices, then in open scopes."""
+    names = [k[0] for st in _devices.values() for k in st.entries]
+    for sc in _scopes():
+        names += [k[0] for ents in sc.entries.values() for k in ents]
+    return names
+
+
 def cached() -> int:
-    """Graphs held, over all devices."""
-    return sum(len(st.entries) for st in _devices.values())
+    """Graphs held, over all devices and this thread's open scopes."""
+    return len(held())
 
 
-def _capture(st: _DeviceState, fn, static_in: Tuple[Tensor, ...],
-             owner) -> _Entry:
-    """Warm ``fn`` up on ``static_in`` on the side stream (these launches
-    run and count), then capture it on the same buffers."""
+def _capture(st: _DeviceState, pool, fn, static_in: Tuple[Tensor, ...],
+             owner, warm=None) -> _Entry:
+    """Warm ``fn`` up on ``static_in`` (or call ``warm``) on the side
+    stream (these launches run and count), then capture it on the same
+    buffers into ``pool``."""
     dev = static_in[0].device
     cur = torch.cuda.current_stream(dev)
     st.side.wait_stream(cur)
     with torch.cuda.stream(st.side):
-        fn(*static_in)                        # warm-up: these launches ran
+        if warm is None:
+            fn(*static_in)                    # warm-up: these launches ran
+        else:
+            warm()
     cur.wait_stream(st.side)
     graph = torch.cuda.CUDAGraph()
     before = counts()
     t0 = time.perf_counter()
     try:
-        with torch.cuda.graph(graph, pool=st.pool, stream=st.side,
+        with torch.cuda.graph(graph, pool=pool, stream=st.side,
                               capture_error_mode="thread_local"):
             outs = fn(*static_in)
     finally:
@@ -273,22 +357,28 @@ def _uncaptured(capture: bool, dev: torch.device) -> bool:
 
 def _replay(dev, key, make, inputs: Tuple[Tensor, ...], B: int,
             cut: bool = True) -> Tuple[Tensor, ...]:
-    """Under the lock: the entry of ``key`` (``make(st)`` captures it on a
-    miss), the inputs copied into its buffers (rows past B zeroed), one
+    """Under the lock: the entry of ``key`` (``make(st, pool)`` captures
+    it on a miss; in the innermost open scope if there is one), the inputs
+    copied into its buffers (where ``cut``, rows past B zeroed), one
     replay, and every output cloned (its first B rows where ``cut``)."""
     with _lock, torch.cuda.device(dev):
         _tls.busy = True
         try:
             st = _state(dev)
-            ent = st.entries.pop(key, None)
+            entries, pool = (_scopes()[-1].where(dev) if _scopes()
+                             else (st.entries, st.pool))
+            ent = entries.pop(key, None)
             if ent is None:
-                ent = make(st)
-            st.entries[key] = ent                     # most recent last
-            while len(st.entries) > MAX_GRAPHS:
-                del st.entries[next(iter(st.entries))]
+                ent = make(st, pool)
+            entries[key] = ent                        # most recent last
+            while entries is st.entries and len(entries) > MAX_GRAPHS:
+                del entries[next(iter(entries))]
             stream = torch.cuda.current_stream(dev)
             stream.wait_event(st.done)
             for buf, x in zip(ent.static_in, inputs):
+                if not cut:
+                    buf.copy_(x)
+                    continue
                 buf[:B].copy_(x)
                 if B < buf.shape[0]:
                     buf[B:].zero_()
@@ -321,9 +411,10 @@ def run(name: str, fn, inputs: Sequence[Tensor], reads=(), static=(),
            tuple((tuple(x.shape[1:]), x.dtype) for x in inputs), rkey,
            _globals())
 
-    def make(st):
+    def make(st, pool):
         static_in = tuple(pad_rows(x, Bp).clone() for x in inputs)
-        return _capture(st, fn, static_in, tensors[0] if tensors else None)
+        return _capture(st, pool, fn, static_in,
+                        tensors[0] if tensors else None)
 
     return _replay(dev, key, make, inputs, B)
 
@@ -364,7 +455,7 @@ def run_chunks(name: str, fn, n: int, chunk: int, inputs, reads=(),
 
 def run_inplace(name: str, fn, inputs: Sequence[Tensor],
                 idle: Sequence[Tensor], writes=(), reads=(), static=(),
-                capture: bool = True) -> Tuple[Tensor, ...]:
+                capture: bool = True, warm=None) -> Tuple[Tensor, ...]:
     """``fn(*inputs)`` where ``fn`` writes the tensors in ``writes`` in
     place (an insert's connect step: the adjacency and the block space),
     replayed from a captured graph on the card; a tuple of tensors.
@@ -376,7 +467,10 @@ def run_inplace(name: str, fn, inputs: Sequence[Tensor],
     strides, dtypes and every scalar field but ``num``) and every input's
     full shape. ``idle``: inputs of the same shapes under which ``fn``
     changes no state (every row masked); the warm-up before the capture
-    runs on them, so the state is written once, by the replay."""
+    runs on them, so the state is written once, by the replay. ``warm``:
+    a call that launches every kind of kernel ``fn`` launches and changes
+    no state, run in the warm-up's place (where ``fn`` on ``idle`` would
+    cost a whole round of the work)."""
     inputs, idle = tuple(inputs), tuple(idle)
     dev = inputs[0].device
     if _uncaptured(capture, dev):
@@ -388,8 +482,9 @@ def run_inplace(name: str, fn, inputs: Sequence[Tensor],
            tuple((tuple(x.shape), x.dtype) for x in inputs), wkey, rkey,
            _globals())
 
-    def make(st):
+    def make(st, pool):
         static_in = tuple(x.clone() for x in idle)
-        return _capture(st, fn, static_in, tensors[0] if tensors else None)
+        return _capture(st, pool, fn, static_in,
+                        tensors[0] if tensors else None, warm)
 
-    return _replay(dev, key, make, inputs, inputs[0].shape[0], cut=False)
+    return _replay(dev, key, make, inputs, 0, cut=False)

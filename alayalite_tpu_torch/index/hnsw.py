@@ -101,52 +101,51 @@ class HNSWBuilder:
         if n is None:
             n = space.num
         self.timings = {}
-        phase = PhaseTimer(space.device, "hnsw", self.timings)
         rng = np.random.default_rng(self.seed)
+        with PhaseTimer(space.device, "hnsw", self.timings) as phase:
+            knn_d, knn_i = build_knn_graph(space, n, self.knn_k,
+                                           max_iters=self.nnd_iters,
+                                           seed=self.seed, _capture=_capture)
+            phase("knn")
+            overlay, top_global = _build_overlay(space, n, self.r, rng)
+            ep = top_global if top_global is not None else 0
+            phase("overlay")
 
-        knn_d, knn_i = build_knn_graph(space, n, self.knn_k,
-                                       max_iters=self.nnd_iters,
-                                       seed=self.seed)
-        phase("knn")
-        overlay, top_global = _build_overlay(space, n, self.r, rng)
-        ep = top_global if top_global is not None else 0
-        phase("overlay")
+            # at dim >= 512 ef-64 pools in chunks of 2048 keep the beam's
+            # gathered rows near 1 GB beside the f32 rows and their bf16 copy
+            hidim = space.dim >= 512
+            ef = min(self.l, 64 if hidim else 128)
+            pchunk = min(self.chunk, 2048) if hidim else self.chunk
+            pool_d, pool_i = search_pool_dev(
+                bf16_pool_space(space), knn_i, np.array([ep]), ef=ef, n=n,
+                chunk=pchunk, seed=self.seed, _capture=_capture)
+            cand_i = torch.cat([pool_i, knn_i], dim=1)
+            cand_d = torch.cat([pool_d, knn_d], dim=1)
+            del pool_d, pool_i, knn_d, knn_i
+            phase("pools")
 
-        # at dim >= 512 ef-64 pools in chunks of 2048 keep the beam's
-        # gathered rows near 1 GB beside the f32 rows and their bf16 copy
-        hidim = space.dim >= 512
-        ef = min(self.l, 64 if hidim else 128)
-        pchunk = min(self.chunk, 2048) if hidim else self.chunk
-        pool_d, pool_i = search_pool_dev(
-            bf16_pool_space(space), knn_i, np.array([ep]), ef=ef, n=n,
-            chunk=pchunk, seed=self.seed, _capture=_capture)
-        cand_i = torch.cat([pool_i, knn_i], dim=1)
-        cand_d = torch.cat([pool_d, knn_d], dim=1)
-        del pool_d, pool_i, knn_d, knn_i
-        phase("pools")
-
-        nbrs = prune_all_dev(space, cand_d, cand_i, r=self.r,
-                             alpha=self.alpha, chunk=self.chunk,
-                             _capture=_capture)
-        phase("prune")
-        rev = reverse_edges_dev(nbrs, make_generator(space.device,
-                                                     self.seed + 3),
-                                width=2 * self.r)
-        nbrs = reprune_with_reverse_dev(space, nbrs, rev, r=self.r,
-                                        alpha=self.alpha, chunk=self.chunk,
-                                        _capture=_capture)
-        del rev
-        if space.user_metric == "ip":
-            # under IP the occlusion rule collapses rows toward high-norm
-            # hubs and leaves nodes without in-edges; pad rows back to r
-            # with their nearest unused candidates. Under l2 / cos the
-            # occluded rows are navigable as they are.
-            nbrs = fill_degree_dev(nbrs, cand_d, cand_i, r=self.r,
-                                   chunk=self.chunk, _capture=_capture)
-        del cand_d, cand_i
-        phase("reverse_reprune")
-        nbrs = repair_connectivity(space, nbrs, ep)
-        phase("repair")
+            nbrs = prune_all_dev(space, cand_d, cand_i, r=self.r,
+                                 alpha=self.alpha, chunk=self.chunk,
+                                 _capture=_capture)
+            phase("prune")
+            rev = reverse_edges_dev(nbrs, make_generator(space.device,
+                                                         self.seed + 3),
+                                    width=2 * self.r)
+            nbrs = reprune_with_reverse_dev(space, nbrs, rev, r=self.r,
+                                            alpha=self.alpha, chunk=self.chunk,
+                                            _capture=_capture)
+            del rev
+            if space.user_metric == "ip":
+                # under IP the occlusion rule collapses rows toward high-norm
+                # hubs and leaves nodes without in-edges; pad rows back to r
+                # with their nearest unused candidates. Under l2 / cos the
+                # occluded rows are navigable as they are.
+                nbrs = fill_degree_dev(nbrs, cand_d, cand_i, r=self.r,
+                                       chunk=self.chunk, _capture=_capture)
+            del cand_d, cand_i
+            phase("reverse_reprune")
+            nbrs = repair_connectivity(space, nbrs, ep, _capture=_capture)
+            phase("repair")
         extra = rng.integers(0, n, size=7).astype(np.int32)
         log.info("hnsw build: n=%d r=%d l=%d levels=%d", n, self.r, self.l,
                  len(overlay))

@@ -192,35 +192,35 @@ class NSGBuilder:
         if n is None:
             n = space.num
         self.timings = {}
-        phase = PhaseTimer(space.device, "nsg", self.timings)
-        knn_d, knn_i = build_knn_graph(space, n, self.knn_k,
-                                       max_iters=self.nnd_iters,
-                                       seed=self.seed)
-        phase("knn")
-        ep = find_medoid(space, n)
-        pool_d, pool_i = search_pool_dev(space, knn_i, np.array([ep]),
-                                         ef=self.l, n=n, chunk=self.chunk,
-                                         seed=self.seed,
-                                         _capture=_capture)
-        cand_i = torch.cat([pool_i, knn_i], dim=1)[:, :self.c]
-        cand_d = torch.cat([pool_d, knn_d], dim=1)[:, :self.c]
-        del pool_d, pool_i, knn_d, knn_i
-        phase("pools")
-        nbrs = prune_all_dev(space, cand_d, cand_i, r=self.r,
-                             alpha=self.alpha, chunk=self.chunk,
-                             _capture=_capture)
-        del cand_d, cand_i
-        phase("prune")
-        rev = reverse_edges_dev(nbrs, make_generator(space.device,
-                                                     self.seed + 3),
-                                width=self.c - self.r)
-        nbrs = reprune_with_reverse_dev(space, nbrs, rev, r=self.r,
-                                        alpha=self.alpha, chunk=self.chunk,
-                                        _capture=_capture)
-        del rev
-        phase("reverse_reprune")
-        nbrs = repair_connectivity(space, nbrs, ep)
-        phase("repair")
+        with PhaseTimer(space.device, "nsg", self.timings) as phase:
+            knn_d, knn_i = build_knn_graph(space, n, self.knn_k,
+                                           max_iters=self.nnd_iters,
+                                           seed=self.seed, _capture=_capture)
+            phase("knn")
+            ep = find_medoid(space, n)
+            pool_d, pool_i = search_pool_dev(space, knn_i, np.array([ep]),
+                                             ef=self.l, n=n, chunk=self.chunk,
+                                             seed=self.seed,
+                                             _capture=_capture)
+            cand_i = torch.cat([pool_i, knn_i], dim=1)[:, :self.c]
+            cand_d = torch.cat([pool_d, knn_d], dim=1)[:, :self.c]
+            del pool_d, pool_i, knn_d, knn_i
+            phase("pools")
+            nbrs = prune_all_dev(space, cand_d, cand_i, r=self.r,
+                                 alpha=self.alpha, chunk=self.chunk,
+                                 _capture=_capture)
+            del cand_d, cand_i
+            phase("prune")
+            rev = reverse_edges_dev(nbrs, make_generator(space.device,
+                                                         self.seed + 3),
+                                    width=self.c - self.r)
+            nbrs = reprune_with_reverse_dev(space, nbrs, rev, r=self.r,
+                                            alpha=self.alpha, chunk=self.chunk,
+                                            _capture=_capture)
+            del rev
+            phase("reverse_reprune")
+            nbrs = repair_connectivity(space, nbrs, ep, _capture=_capture)
+            phase("repair")
         # the medoid first (NSG semantics), then spread extras, so queries
         # that land in a part linked only by thin repair chains converge
         rng = np.random.default_rng(self.seed + 17)

@@ -67,74 +67,76 @@ class QGBuilder:
             raise ValueError(f"unknown pool_mode {self.pool_mode!r}")
         dev = raw_space.device
         self.timings = {}
-        phase = PhaseTimer(dev, "qg", self.timings)
+        with PhaseTimer(dev, "qg", self.timings) as phase:
+            # above 100k rows, 8 rounds: scan-seeded pools clean up the
+            # residual kNN noise
+            knn_d, knn_i = build_knn_graph(raw_space, n, KNN_K,
+                                           max_iters=8 if n > 100_000 else 0,
+                                           seed=SEED, _capture=_capture)
+            phase("knn")
+            ep = find_medoid(raw_space, n)
+            pool_mode = self.pool_mode or (
+                "block" if n >= BLOCK_POOL_MIN_ROWS
+                and isinstance(bqg_space, BQGSpace) else "beam")
 
-        # above 100k rows, 8 rounds: scan-seeded pools clean up the
-        # residual kNN noise
-        knn_d, knn_i = build_knn_graph(raw_space, n, KNN_K,
-                                       max_iters=8 if n > 100_000 else 0,
-                                       seed=SEED)
-        phase("knn")
-        ep = find_medoid(raw_space, n)
-        pool_mode = self.pool_mode or (
-            "block" if n >= BLOCK_POOL_MIN_ROWS
-            and isinstance(bqg_space, BQGSpace) else "beam")
+            sample, pool_iters = None, 0
+            if n >= 4 * 128:
+                pool_iters = POOL_ITERS
+                s = min(POOL_SCAN, (n // 128) * 128)
+                rng = np.random.default_rng(SEED + 5)
+                sids = torch.as_tensor(np.sort(rng.choice(n, size=s,
+                                                          replace=False))
+                                       .astype(np.int32), device=dev)
+                sample = seed_sample_arrays(raw_space.data, sids,
+                                            raw_space.user_metric)
+            # pool width caps at 128: wider pools only pad the per-hop sort
+            pool_ef = min(self.ef, 128)
+            if pool_mode == "twohop":
+                pool_d, pool_i = twohop_pool_dev(raw_space, knn_i, ef=self.ef,
+                                                 n=n, chunk=CHUNK,
+                                                 _capture=_capture)
+            elif pool_mode == "block":
+                # interim blocks from the kNN rows; the final encode below
+                # rewrites them from the real adjacency in the same buffer
+                bqg_space.update_neighbors(knn_i, chunk=CHUNK)
+                phase("interim_pack")
+                pool_d, pool_i = block_pool_dev(
+                    bqg_space, np.array([ep]), ef=pool_ef, n=n, chunk=CHUNK,
+                    seed=SEED, max_iters=pool_iters, seed_sample=sample,
+                    _capture=_capture)
+            else:
+                pool_d, pool_i = search_pool_dev(
+                    bf16_pool_space(raw_space), knn_i, np.array([ep]),
+                    ef=pool_ef, n=n, chunk=CHUNK, seed=SEED,
+                    max_iters=pool_iters, seed_sample=sample,
+                    _capture=_capture)
+            cand_i = torch.cat([pool_i, knn_i], dim=1)
+            cand_d = torch.cat([pool_d, knn_d], dim=1)
+            del pool_d, pool_i, knn_d, knn_i, sample
+            phase(f"pools_{pool_mode}")
 
-        sample, pool_iters = None, 0
-        if n >= 4 * 128:
-            pool_iters = POOL_ITERS
-            s = min(POOL_SCAN, (n // 128) * 128)
-            rng = np.random.default_rng(SEED + 5)
-            sids = torch.as_tensor(np.sort(rng.choice(n, size=s,
-                                                      replace=False))
-                                   .astype(np.int32), device=dev)
-            sample = seed_sample_arrays(raw_space.data, sids,
-                                        raw_space.user_metric)
-        # pool width caps at 128: wider pools only pad the per-hop sort
-        pool_ef = min(self.ef, 128)
-        if pool_mode == "twohop":
-            pool_d, pool_i = twohop_pool_dev(raw_space, knn_i, ef=self.ef,
-                                             n=n, chunk=CHUNK,
-                                             _capture=_capture)
-        elif pool_mode == "block":
-            # interim blocks from the kNN rows; the final encode below
-            # rewrites them from the real adjacency in the same buffer
-            bqg_space.update_neighbors(knn_i, chunk=CHUNK)
-            phase("interim_pack")
-            pool_d, pool_i = block_pool_dev(
-                bqg_space, np.array([ep]), ef=pool_ef, n=n, chunk=CHUNK,
-                seed=SEED, max_iters=pool_iters, seed_sample=sample,
-                _capture=_capture)
-        else:
-            pool_d, pool_i = search_pool_dev(
-                bf16_pool_space(raw_space), knn_i, np.array([ep]),
-                ef=pool_ef, n=n, chunk=CHUNK, seed=SEED,
-                max_iters=pool_iters, seed_sample=sample, _capture=_capture)
-        cand_i = torch.cat([pool_i, knn_i], dim=1)
-        cand_d = torch.cat([pool_d, knn_d], dim=1)
-        del pool_d, pool_i, knn_d, knn_i, sample
-        phase(f"pools_{pool_mode}")
-
-        nbrs = prune_all_dev(raw_space, cand_d, cand_i, r=self.r,
-                             alpha=self.alpha, chunk=CHUNK, _capture=_capture)
-        phase("prune")
-        rev = reverse_edges_dev(nbrs, make_generator(dev, SEED + 3),
-                                width=2 * self.r)
-        nbrs = reprune_with_reverse_dev(raw_space, nbrs, rev, r=self.r,
-                                        alpha=self.alpha, chunk=CHUNK,
-                                        _capture=_capture)
-        del rev
-        phase("reverse_reprune")
-        nbrs = fill_degree_dev(nbrs, cand_d, cand_i, r=self.r,
-                               chunk=CHUNK, _capture=_capture)
-        del cand_d, cand_i
-        phase("fill")
-        nbrs = repair_connectivity(raw_space, nbrs, ep)
-        phase("repair")
-        bqg_space.update_neighbors(nbrs, chunk=CHUNK)
-        rng = np.random.default_rng(SEED + 17)
-        extra = rng.integers(0, n, size=7).astype(np.int32)
-        graph = Graph.from_rows(nbrs, eps=np.concatenate([[ep], extra]),
-                                capacity=raw_space.capacity)
-        phase("encode")
-        return graph, bqg_space
+            nbrs = prune_all_dev(raw_space, cand_d, cand_i, r=self.r,
+                                 alpha=self.alpha, chunk=CHUNK,
+                                 _capture=_capture)
+            phase("prune")
+            rev = reverse_edges_dev(nbrs, make_generator(dev, SEED + 3),
+                                    width=2 * self.r)
+            nbrs = reprune_with_reverse_dev(raw_space, nbrs, rev, r=self.r,
+                                            alpha=self.alpha, chunk=CHUNK,
+                                            _capture=_capture)
+            del rev
+            phase("reverse_reprune")
+            nbrs = fill_degree_dev(nbrs, cand_d, cand_i, r=self.r,
+                                   chunk=CHUNK, _capture=_capture)
+            del cand_d, cand_i
+            phase("fill")
+            nbrs = repair_connectivity(raw_space, nbrs, ep,
+                                       _capture=_capture)
+            phase("repair")
+            bqg_space.update_neighbors(nbrs, chunk=CHUNK)
+            rng = np.random.default_rng(SEED + 17)
+            extra = rng.integers(0, n, size=7).astype(np.int32)
+            graph = Graph.from_rows(nbrs, eps=np.concatenate([[ep], extra]),
+                                    capacity=raw_space.capacity)
+            phase("encode")
+            return graph, bqg_space

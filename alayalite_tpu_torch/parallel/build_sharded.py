@@ -466,6 +466,7 @@ def build_graph_sharded(space, n: int, r: int, params, mesh=None,
     connectivity repair and the entry points, as the single-device HNSW
     pipeline finishes. Returns a Graph on the space's device; ``timings``
     (if given) gets the seconds of each phase."""
+    from ..index.captured import scope
     from ..index.graph import Graph
     from ..index.hnsw import _build_overlay
     from ..index.repair_dev import repair_connectivity
@@ -479,8 +480,9 @@ def build_graph_sharded(space, n: int, r: int, params, mesh=None,
     overlay, top_global = _build_overlay(space, n, r, rng)
     if top_global is not None:
         ep = top_global
-    nbrs = repair_connectivity(space, torch.as_tensor(nbrs,
-                                                      device=space.device), ep)
+    with scope():                    # the repair's graphs go with it
+        nbrs = repair_connectivity(
+            space, torch.as_tensor(nbrs, device=space.device), ep)
     extra = rng.integers(0, n, size=7).astype(np.int32)
     graph = Graph.from_rows(nbrs, eps=np.concatenate([[ep], extra]),
                             capacity=space.capacity, overlay=overlay)

@@ -285,6 +285,37 @@ append and one replay of the connect step's in-place graph.
                written tensor bit for bit, the same counts, wall ms, host
                syncs outside extend_overlay (fails on any but the raw
                path's copy of the new ids to the host) and inside it.
+A fit's graphs live only as long as their phase (index/captured.py's
+scope), and NN-Descent and the connectivity repair run captured too: a
+round of NN-Descent, the cluster init's assign and score loops, each
+LOOP_CHUNK block of the repair's BFS and label propagation, its attach and
+its nearest-reached scan are one replay each.
+ 26.           (continued) after phase 4's captured fit and phase 26's
+               uncaptured one: no graph of the fit held
+               (captured.held()), memory allocated, memory reserved after
+               torch.cuda.empty_cache() and peak reserved of each, above
+               the reserved memory before it; fails unless the captured
+               fit's reserved memory after empty_cache is within
+               MEM_HELD_SLACK GiB of the uncaptured fit's and its peak
+               within MEM_PEAK_SLACK GiB; the two fits' final adjacency and
+               entry points bit for bit;
+ 27. captured  on phase 4's data, with phase 26's uncaptured fit's inputs:
+     knn and   sort_kv at NN-Descent's chunk shape (its merge, [32992,
+     repair    180] -> 32) against its plain version, bit for bit, timed;
+               the kNN phase (build_knn_graph: the cluster init and 8
+               rounds in two blocks of 4) and the repair of the fit's
+               adjacency (from a copy of its input written into one
+               buffer), each captured (inside one captured.scope(), as a
+               fit phase runs it) against uncaptured from the same inputs
+               and seeds: kNN ids and distances and the repaired adjacency
+               bit for bit, a replay's launch counts equal to the
+               uncaptured call's, wall ms median [min, max] of
+               PHASE27_REPS calls each after the capturing one, graphs
+               captured and capture seconds, host syncs a call counted by
+               torch.cuda.set_sync_debug_mode (fails on any beyond the
+               stated reads: one a block of rounds and the init's
+               INIT_SYNCS; one a LOOP_CHUNK test and two a round of the
+               repair), reserved memory.
 A summary line (the end-to-end numbers of every phase), the kernels line
 and the card line come before the last line, which is
 {"ok": true, "device": {...}}. A copy of the numbers goes to
@@ -476,6 +507,13 @@ CAPTURE_EFS, CAPTURE_REPS = (32, 64, 96), 7
 # before its churn), each from the same index state restored before every
 # call
 INSERT_ROWS, INSERT_EF = 4_096, 100
+# phase 26 (continued): a captured fit's memory against an uncaptured one:
+# reserved after empty_cache (GiB) and peak reserved (GiB) slack
+MEM_HELD_SLACK, MEM_PEAK_SLACK = 0.25, 2.0
+# phase 27: NN-Descent as the bsq8 fit runs it (QGBuilder: k 32, 8 rounds
+# above 100k rows, seed 0) and the repair of that fit, PHASE27_REPS
+# synchronised calls of each mode after the capturing one
+NND_K, NND_ITERS, PHASE27_REPS = 32, 8, 3
 POOL_CHUNK, POOL_EF, POOL_RAND = 4096, 128, 16
 SLICE11_PHASES = ("serving", "service", "flat_sq4", "native_rag")
 SLICE12_PHASES = ("db_shards", "build_shards", "serve_shards", "multihost")
@@ -3174,54 +3212,144 @@ def replay_case(torch, what: str, call, card: str, restore=lambda: None,
     return rep
 
 
-def build_capture_phase(torch, ds, card) -> dict:
+def fit_memory_base(torch) -> int:
+    """The reserved bytes before a fit, the cache emptied and the peak
+    reset."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_reserved()
+
+
+def fit_memory(torch, base: int, what: str) -> dict:
+    """Just after a fit: the graphs held (none may be new), memory
+    allocated, the peak reserved and the reserved after an empty_cache,
+    each above ``base``, GiB."""
+    from alayalite_tpu_torch.index import captured
+
+    torch.cuda.synchronize()
+    rep = {"peak_reserved_gib": (torch.cuda.max_memory_reserved() - base)
+           / 2**30, "graphs_held": captured.held()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep.update(allocated_gib=torch.cuda.memory_allocated() / 2**30,
+               held_reserved_gib=(torch.cuda.memory_reserved() - base)
+               / 2**30)
+    log(f"{what}: graphs held {rep['graphs_held']}, allocated "
+        f"{rep['allocated_gib']:.3f} GiB, reserved after empty_cache "
+        f"{rep['held_reserved_gib']:.3f} GiB, peak reserved "
+        f"{rep['peak_reserved_gib']:.3f} GiB (above the reserved before it)")
+    return rep
+
+
+def moved(torch, x, dev, keep):
+    """``x`` (tensors in tuples, lists and dicts) with every tensor on
+    ``dev``, but the dataclass ``keep`` (the index's own space) as it
+    is."""
+    if x is keep:
+        return x
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, (tuple, list)):
+        return type(x)(moved(torch, v, dev, keep) for v in x)
+    if isinstance(x, dict):
+        return {k: moved(torch, v, dev, keep) for k, v in x.items()}
+    return x
+
+
+def build_capture_phase(torch, ds, card, fitted, fitted_memory) -> tuple:
     """Phase 26, the build: phase 4's bsq8 fit again with every phase
-    uncaptured (the fit before this slice), its prune, re-prune and fill
-    inputs recorded; then one chunk of each and the whole prune_all_dev on
-    them, captured against uncaptured."""
+    uncaptured, its prune, re-prune, fill and repair inputs recorded; its
+    memory and final adjacency against phase 4's captured fit (``fitted``,
+    ``fitted_memory``); then one chunk of each prune phase and the whole
+    prune_all_dev on them, captured against uncaptured. Returns (the
+    report, phase 27's inputs: the raw space, the adjacency before the
+    repair and the entry point)."""
     from alayalite_tpu_torch import Client
     from alayalite_tpu_torch.index import build_phases as bp
     from alayalite_tpu_torch.index import captured, qg
 
-    names = ("prune_all_dev", "reprune_with_reverse_dev", "fill_degree_dev")
+    names = ("prune_all_dev", "reprune_with_reverse_dev", "fill_degree_dev",
+             "repair_connectivity")
     real = {name: getattr(qg, name) for name in names}
     rec = {}
 
     def recorder(name):
         def call(*a, **kw):
+            if name == "repair_connectivity":    # it writes in place
+                rec[name] = (a[0], a[1].clone(), a[2])
+                return real[name](*a, **kw)
             out = real[name](*a, **kw)
             rec[name] = (a, kw, out)
             return out
         return call
 
     idx = Client().create_index("uncaptured", **BSQ8_PARAMS)
+    held_before = captured.held()
     for name in names:
         setattr(qg, name, recorder(name))
     try:
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_reserved()
-        torch.cuda.reset_peak_memory_stats()
+        base = fit_memory_base(torch)
         s0 = dict(captured.stats)
         _, fit_s = synced(torch, lambda: idx._engine.fit(
             ds.data, ef_construction=100, _capture=False))
     finally:
         for name in names:
             setattr(qg, name, real[name])
+    graphs = captured.stats["captures"] - s0["captures"]
+    # the recorded inputs are not the fit's: on the host while its memory
+    # is read
+    rec = moved(torch, rec, torch.device("cpu"), idx._engine.space)
+    memory = fit_memory(torch, base, "uncaptured bsq8 fit")
+    rec = moved(torch, rec, idx._engine.device, idx._engine.space)
     rep = {"uncaptured_fit": {
         "seconds": fit_s, "phases": dict(idx._engine.build_timings),
-        "peak_reserved_gib": (torch.cuda.max_memory_reserved() - base) / 2**30,
-        "graphs_captured": captured.stats["captures"] - s0["captures"]},
-        "card": card}
+        "peak_reserved_gib": memory["peak_reserved_gib"],
+        "graphs_captured": graphs, "memory": memory}, "card": card}
     log(f"uncaptured bsq8 fit: {fit_s:.2f}s, phases "
         + ", ".join(f"{k}={v:.2f}s" for k, v in rep["uncaptured_fit"][
             "phases"].items())
         + f", peak reserved {rep['uncaptured_fit']['peak_reserved_gib']:.2f}"
         f" GiB, graphs captured {rep['uncaptured_fit']['graphs_captured']}")
-    if rep["uncaptured_fit"]["graphs_captured"]:
+    if graphs:
         raise AssertionError("the uncaptured fit captured a graph")
-    del idx
+    if fitted_memory["graphs_held"] or memory["graphs_held"] != held_before:
+        raise AssertionError(
+            f"a fit left graphs held: captured fit "
+            f"{fitted_memory['graphs_held']}, uncaptured fit "
+            f"{memory['graphs_held']} (before it {held_before})")
+    rep["memory"] = {
+        "held_reserved_gib": [fitted_memory["held_reserved_gib"],
+                              memory["held_reserved_gib"]],
+        "peak_reserved_gib": [fitted_memory["peak_reserved_gib"],
+                              memory["peak_reserved_gib"]],
+        "allocated_gib": [fitted_memory["allocated_gib"],
+                          memory["allocated_gib"]],
+        "is": "[captured fit (phase 4), uncaptured fit]"}
+    held_gap = (fitted_memory["held_reserved_gib"]
+                - memory["held_reserved_gib"])
+    peak_gap = (fitted_memory["peak_reserved_gib"]
+                - memory["peak_reserved_gib"])
+    log(f"fit memory, captured against uncaptured: reserved after "
+        f"empty_cache {held_gap:+.3f} GiB (slack {MEM_HELD_SLACK}), peak "
+        f"reserved {peak_gap:+.3f} GiB (slack {MEM_PEAK_SLACK}); {card}")
+    if held_gap > MEM_HELD_SLACK or peak_gap > MEM_PEAK_SLACK:
+        raise AssertionError(f"the captured fit holds {held_gap:.3f} GiB "
+                             f"more after empty_cache, or peaks "
+                             f"{peak_gap:.3f} GiB higher, than the "
+                             f"uncaptured fit")
+    ga, gb = fitted._engine.graph, idx._engine.graph
+    same = (bool(torch.equal(ga.nbrs, gb.nbrs))
+            and bool(torch.equal(ga.eps, gb.eps)))
+    rep["final_adjacency_equal"] = same
+    log(f"the captured fit's final adjacency and entry points equal the "
+        f"uncaptured fit's: {same}")
+    if not same:
+        diff = int((ga.nbrs != gb.nbrs).any(1).sum())
+        raise AssertionError(f"the captured fit's adjacency differs from "
+                             f"the uncaptured fit's in {diff} rows")
+    del idx, ga, gb
     gc.collect()
     torch.cuda.empty_cache()
     (sp, cd, ci), kw, pruned = rec["prune_all_dev"]
@@ -3277,9 +3405,175 @@ def build_capture_phase(torch, ds, card) -> dict:
     if any(syncs.values()) or whole["captured"]["host_syncs"]:
         raise AssertionError(f"a host sync inside a prune phase: {syncs}, "
                              f"whole {whole['captured']['host_syncs']}")
+    handoff = rec["repair_connectivity"]
     del rec, sp, cd, ci, nbrs, rev, fnb, fcd, fci, pruned, repruned
     gc.collect()
     torch.cuda.empty_cache()
+    return rep, handoff
+
+
+# ---- NN-Descent and the repair captured (phase 27) ----
+def sort_at_nnd_chunk(torch, dev, chunk: int, k: int) -> dict:
+    """sort_kv's warp route at NN-Descent's merge shape ([chunk, k + 148]
+    -> k, positions out: a sorted pool row, then the candidates with the
+    dropped ones at +inf) against its plain version, bit for bit, timed
+    beside the library's sort."""
+    from alayalite_tpu_torch.ops.pool_sort import (sort_kv_on, sort_kv_ref,
+                                                   sort_kv_route)
+    from alayalite_tpu_torch.utils.timing import bound, cuda_ms
+
+    rng = np.random.default_rng(27)
+    width = k + 148
+    pool = np.sort(rng.random((chunk, k)).astype(np.float32), axis=1)
+    cand = rng.random((chunk, width - k)).astype(np.float32)
+    cand[rng.random(cand.shape) < 0.3] = np.inf
+    keys = torch.as_tensor(np.concatenate([pool, cand], 1), device=dev)
+    if sort_kv_route(width) != "warp":
+        raise AssertionError(f"sort_kv at {(chunk, width)} is not routed to "
+                             "the warp kernel")
+
+    def warp():
+        return sort_kv_on("warp", keys, None, k, 1, True, counted=False)
+
+    def plain():
+        return sort_kv_ref(keys, None, k, 1, True)
+
+    def library():
+        sk, order = torch.sort(keys, dim=1, stable=True)
+        return sk[:, :k], order[:, :k]
+
+    if not all(_same_bits(g, w) for g, w in zip(warp(), plain())):
+        raise AssertionError(f"sort_kv[warp] differs from its plain version "
+                             f"at {(chunk, width, k)}")
+    p = 1 << max(0, int(width - 1).bit_length())
+    lg = p.bit_length() - 1
+    rep = {"shape": [chunk, width, k], "route": "warp",
+           **bound(chunk * width * 4 + chunk * k * 12,
+                   2 * chunk * (p // 2) * lg * (lg + 1) // 2, "f32"),
+           "ms": cuda_ms(warp), "ms_spin": cuda_ms(warp, spin=True),
+           "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library)}
+    log(f"kernel sort_kv at NN-Descent's merge {(chunk, width)} -> {k}: "
+        f"warp {rep['ms']:.4f} ms ({rep['ms_spin']:.4f} device alone), "
+        f"equal to the plain version bit for bit; plain "
+        f"{rep['plain_ms']:.4f} ms, library sort {rep['library_ms']:.4f} ms, "
+        f"bound {rep['bound_ms']:.4f} ms ({rep['bound_by']})")
+    return rep
+
+
+def scoped_case(torch, what: str, call, reads, card: str,
+                restore=lambda: None) -> dict:
+    """One case of phase 27: ``call(capture)`` -> a tuple of tensors, after
+    ``restore()``, captured inside one captured.scope() (the first call
+    captures, as a fit phase does; later calls replay) against uncaptured:
+    results bit for bit, a replay's launch counts against the uncaptured
+    call's, wall ms of PHASE27_REPS calls each, host syncs of a call
+    against the host reads the module states (``reads()``: its counter),
+    graphs, capture seconds, peak and held reserved memory."""
+    from alayalite_tpu_torch.index import captured
+
+    def counted(mode):
+        r0 = reads()
+        out, syncs = host_syncs(torch, lambda: call(mode))
+        return out, syncs, reads() - r0
+
+    launches = Launches(new_counters())
+    restore()
+    launches.zero()
+    (want, syncs_u, reads_u), peak_u, held_u = reserved_of(
+        torch, lambda: counted(False))
+    launches.read("uncaptured")
+    base = fit_memory_base(torch)
+    s0 = dict(captured.stats)
+    times = {True: [], False: []}
+    with captured.scope():
+        restore()
+        (first, syncs_first, reads_first), first_s = synced(
+            torch, lambda: counted(True))
+        peak_c = (torch.cuda.max_memory_reserved() - base) / 2**30
+        graphs = captured.stats["captures"] - s0["captures"]
+        capture_s = captured.stats["capture_s"] - s0["capture_s"]
+        restore()
+        launches.zero()
+        got, syncs_c, reads_c = counted(True)
+        launches.read("replay")
+        for _ in range(PHASE27_REPS):
+            for mode in (True, False):
+                restore()
+                _, wall = synced(torch, lambda: call(mode))
+                times[mode].append(wall * 1e3)
+        restore()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_c = (torch.cuda.memory_reserved() - base) / 2**30
+    same = [all(bool(torch.equal(a, b)) for a, b in zip(x, want))
+            for x in (first, got)]
+    del first, got, want
+    if not all(same):
+        raise AssertionError(f"captured {what} differs from the uncaptured "
+                             f"call (first call, replay: {same})")
+    if launches.steps["replay"] != launches.steps["uncaptured"]:
+        raise AssertionError(f"captured {what}: a replay's launch counts "
+                             f"{launches.steps} differ from the uncaptured")
+    syncs = {"first_call": [syncs_first, reads_first],
+             "replay": [syncs_c, reads_c], "uncaptured": [syncs_u, reads_u]}
+    if any(got > stated for got, stated in syncs.values()):
+        raise AssertionError(f"captured {what}: host syncs beyond the "
+                             f"stated reads ([syncs, stated]): {syncs}")
+    rep = {"bit_equal": True, "captured": spread(times[True]),
+           "uncaptured": spread(times[False]),
+           "first_call_ms": first_s * 1e3, "graphs_captured": graphs,
+           "capture_s": capture_s, "host_syncs_and_stated_reads": syncs,
+           "peak_reserved_gib": peak_c, "held_reserved_gib": held_c,
+           "peak_reserved_gib_uncaptured": peak_u,
+           "held_reserved_gib_uncaptured": held_u,
+           "launches_per_call": launches.steps["replay"], "card": card}
+    log(f"captured {what}: bit-equal True; wall ms median "
+        f"{rep['captured']['median_ms']:.2f} [{rep['captured']['min_ms']:.2f}"
+        f", {rep['captured']['max_ms']:.2f}] captured (replays) against "
+        f"{rep['uncaptured']['median_ms']:.2f} "
+        f"[{rep['uncaptured']['min_ms']:.2f}, "
+        f"{rep['uncaptured']['max_ms']:.2f}] uncaptured ({PHASE27_REPS} "
+        f"calls each); first call {rep['first_call_ms']:.1f} ms with "
+        f"{graphs} graph(s) captured in {capture_s:.3f} s; host syncs "
+        f"[measured, stated] {syncs}; reserved GiB peak {peak_c:.3f} held "
+        f"after the scope {held_c:.3f} captured, peak {peak_u:.3f} held "
+        f"{held_u:.3f} uncaptured; launches a call "
+        f"{launches.steps['replay']}; {card}")
+    return rep
+
+
+def knn_repair_phase(torch, sp, nbrs0, ep: int, card: str) -> dict:
+    """Phase 27: sort_kv at NN-Descent's merge shape, then NN-Descent and
+    the repair captured against uncaptured on phase 26's recorded inputs
+    (``sp`` the 1M raw space, ``nbrs0`` the fit's adjacency before its
+    repair, ``ep`` its entry point)."""
+    from alayalite_tpu_torch.index import nndescent, repair_dev
+
+    t = time.time()
+    n = nbrs0.shape[0]
+    shape = nndescent.round_shape(n, NND_K, sp.dim)
+    rep = {"sort_kv_at_nnd_chunk": sort_at_nnd_chunk(
+        torch, sp.device, shape["chunk"], NND_K), "round_shape": shape}
+    knn_reads = nndescent.build_knn_graph
+
+    rep["knn"] = scoped_case(
+        torch, f"kNN phase (n {n}, k {NND_K}, {NND_ITERS} rounds, "
+        f"{-(-n // shape['chunk'])} chunks of {shape['chunk']})",
+        lambda m: nndescent.build_knn_graph(sp, n, NND_K,
+                                            max_iters=NND_ITERS, seed=0,
+                                            _capture=m),
+        lambda: knn_reads.syncs, card)
+    buf = torch.empty_like(nbrs0)
+    repair = repair_dev.repair_connectivity
+
+    def call(m):
+        return (repair(sp, buf, ep, _capture=m).clone(),)
+
+    rep["repair"] = scoped_case(
+        torch, f"repair ({n} x {nbrs0.shape[1]})", call,
+        lambda: repair.syncs, card, restore=lambda: buf.copy_(nbrs0))
+    del buf
+    rep["phase_s"] = time.time() - t
     return rep
 
 
@@ -4263,8 +4557,7 @@ def main() -> int:
         c.launches = 0
     from alayalite_tpu_torch.index import captured
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    base = fit_memory_base(torch)
     s0 = dict(captured.stats)
     t = time.time()
     idx.fit(ds.data)
@@ -4274,7 +4567,8 @@ def main() -> int:
                   - s0["captures"],
                   "capture_s": captured.stats["capture_s"] - s0["capture_s"],
                   "peak_reserved_gib": torch.cuda.max_memory_reserved()
-                  / 2**30}
+                  / 2**30,
+                  "memory": fit_memory(torch, base, "captured bsq8 fit")}
     fit_launches = {c.__name__: c.launches for c in hop}
     # the pool kernels' launches on the bsq8 path, summed phase by phase
     bsq8_pool = {c.__name__: c.launches for c in pool}
@@ -4344,7 +4638,11 @@ def main() -> int:
     report["captured"]["serving"] = closed_loop_case(torch, idx, ds.queries,
                                                      gt, card)
     # phase 26 on the fitted index, before the churn of phase 6b
-    report["captured_build"] = build_capture_phase(torch, ds, card)
+    report["captured_build"], handoff = build_capture_phase(
+        torch, ds, card, idx, report["fit"]["memory"])
+    # phase 27 on phase 26's recorded inputs
+    report["captured_knn_repair"] = knn_repair_phase(torch, *handoff, card)
+    del handoff
     report["captured"]["bsq8_insert"] = insert_case(
         torch, f"bsq8 insert slice ({INSERT_ROWS} rows)", idx._engine,
         insert_rows(N, INSERT_ROWS, 26), card)
@@ -4618,7 +4916,11 @@ def main() -> int:
                  at={shape: {k: rep[k] for k in (
                      "warp_ms", "warp_ms_spin", "network_ms",
                      "network_ms_spin", "plain_ms", "library_ms", "bound_ms")}
-                     for shape, rep in report["sort_kv"]["at"].items()}),
+                     for shape, rep in report["sort_kv"]["at"].items()},
+                 at_nnd_chunk={k: report["captured_knn_repair"][
+                     "sort_kv_at_nnd_chunk"][k] for k in (
+                     "shape", "ms", "ms_spin", "plain_ms", "library_ms",
+                     "bound_ms", "bound_by")}),
         pool_row("merge_kv", "scripts/proto_pallas_sort.py:154",
                  "ops/distance.exact_topk: the per-tile [Q, k] + [Q, k] merge "
                  "of find_medoid, the overlay's exact kNN and the flat scans",
@@ -4701,6 +5003,7 @@ def main() -> int:
         **{ph: report[ph] for ph in NEW_PHASES},
         "captured": report["captured"],
         "captured_build": report["captured_build"],
+        "captured_knn_repair": report["captured_knn_repair"],
         "total_s": report["total_s"]}}))
     print(json.dumps(kernels))
     print(card)

@@ -16,6 +16,15 @@ then traces with ``torch.profiler``:
     re-selection and re-encoding of every touched row: the search's replay,
     the append and the connect step's replay), and one more batch
     uncaptured;
+then, on the same fit:
+  - one NN-Descent round of its kNN phase (k 32, 31 chunks of 32,991 rows,
+    the [chunk, 148, 128] candidate gather a chunk) from the cluster init's
+    rows, with the host's read of the round's change count;
+  - the connectivity repair of the fit's adjacency as the fit left it
+    before the repair (recorded during the fit), from a copy each call;
+    both inside one ``captured.scope()`` (the warm-up call captures, the
+    traced call replays). For a before / after reading, run each tree's
+    own copy of this script;
 then, on a raw hnsw index with the default parameters (no quantization;
 the bsq8 index freed first) fitted on the same rows:
   - one batch_search of the 8192 queries at ef = 64 (overlay descent, beam
@@ -50,10 +59,14 @@ its share of the wall (the rest is the device idle, waiting on the host),
 the kernels with the most device time, and every launch of the port's own
 kernels and of the concatenation kernel with its per-launch time. Writes
 the tables to build/torch_profile.json. Needs a CUDA device.
+
+``--windows`` picks groups of windows (default all): bsq8 (the search,
+pool, prune and insert windows), knn_round, repair, raw, rabitq, flat.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -219,18 +232,62 @@ def rabitq_windows(torch, ds, dev) -> dict:
     return out
 
 
+def knn_round_window(torch, space, n: int) -> dict:
+    """One NN-Descent round of the fit's kNN phase, from the cluster
+    init's rows (a copy each call), as build_knn_graph runs it, with the
+    host's read of the round's change count."""
+    from alayalite_tpu_torch.index import captured
+    from alayalite_tpu_torch.index import nndescent as nnd
+    from alayalite_tpu_torch.index.build_phases import make_generator
+
+    k = 32
+    shape = nnd.round_shape(n, k, space.dim)
+    n_chunks = -(-n // shape["chunk"])
+    kd0, ki0 = nnd._init_cluster_knn(space, n, k, seed=0,
+                                     chunk=shape["chunk"])
+    gen = make_generator(space.device, 1)
+
+    def one():
+        _, _, changes = nnd.nnd_block(space, kd0.clone(), ki0.clone(), gen,
+                                      rounds=1, **shape)
+        return changes.tolist()
+
+    with captured.scope():                  # the warm-up call captures
+        res = trace(torch, f"NN-Descent round ({n_chunks} chunks of "
+                    f"{shape['chunk']})", one, top=16)
+    res["chunks"], res["chunk"] = n_chunks, shape["chunk"]
+    return res
+
+
+def repair_window(torch, space, nbrs0, ep: int) -> dict:
+    """The fit's connectivity repair, from a copy of its input adjacency
+    written into one buffer before each call (the captured loops key on
+    it)."""
+    from alayalite_tpu_torch.index import captured, repair_dev
+
+    buf = torch.empty_like(nbrs0)
+
+    def one():
+        return repair_dev.repair_connectivity(space, buf.copy_(nbrs0), ep)
+
+    with captured.scope():                  # the warm-up call captures
+        return trace(torch, "connectivity repair", one, top=16)
+
+
 def main() -> int:
     import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--windows", nargs="*",
+                    default=["bsq8", "knn_round", "repair", "raw", "rabitq",
+                             "flat"])
+    windows = set(ap.parse_args().windows)
 
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     from alayalite_tpu_torch import Index, IndexParams
-    from alayalite_tpu_torch.index.build_phases import (make_generator,
-                                                        prune_all_dev)
-    from alayalite_tpu_torch.index.search import (block_beam_search,
-                                                  scan_seeds)
     from alayalite_tpu_torch.utils.datasets import random_dataset
     from alayalite_tpu_torch.utils.timing import card_line
 
@@ -242,9 +299,54 @@ def main() -> int:
         index_type="hnsw", quantization_type="bsq8", max_nbrs=32,
         ef_construction=200, prune_alpha=1.2, seed_sample=16384,
         beam_expand=8, capacity=N + 5 * 4096))
-    idx.fit(ds.data)
+    from alayalite_tpu_torch.index import qg
+
+    real_repair, rec = qg.repair_connectivity, {}
+
+    def recorder(space, nbrs, ep, **kw):
+        rec["repair"] = (space, nbrs.clone(), ep)
+        return real_repair(space, nbrs, ep, **kw)
+
+    qg.repair_connectivity = recorder
+    try:
+        idx.fit(ds.data)
+    finally:
+        qg.repair_connectivity = real_repair
     eng = idx._engine
     out = {"card": card, "fit_phases": eng.build_timings}
+    if "knn_round" in windows:
+        out["knn_round"] = knn_round_window(torch, eng.space, N)
+    if "repair" in windows:
+        out["repair"] = repair_window(torch, *rec["repair"])
+    del rec
+    torch.cuda.empty_cache()
+    if "bsq8" in windows:
+        bsq8_windows(torch, idx, ds, out)
+    dev = eng.device
+    del idx, eng
+    torch.cuda.empty_cache()
+    if "raw" in windows:
+        out["raw"] = raw_windows(torch, ds, dev)
+    if "rabitq" in windows:
+        out["rabitq"] = rabitq_windows(torch, ds, dev)
+    if "flat" in windows:
+        out["flat"] = flat_windows(torch, ds, dev)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", "torch_profile.json"),
+              "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
+def bsq8_windows(torch, idx, ds, out: dict) -> None:
+    """The bsq8 index's windows: search, pool chunk, prune chunk (captured
+    and uncaptured), insert batch (captured and uncaptured)."""
+    from alayalite_tpu_torch.index.build_phases import (make_generator,
+                                                        prune_all_dev)
+    from alayalite_tpu_torch.index.search import (block_beam_search,
+                                                  scan_seeds)
+
+    eng = idx._engine
 
     q = torch.as_tensor(ds.queries, device=eng.device)
     out["search_ef64"] = trace(
@@ -282,17 +384,7 @@ def main() -> int:
     out["insert_batch_uncaptured"] = trace(
         torch, "insert batch (4096 rows), uncaptured",
         lambda: eng.insert(next(batches), _capture=False), top=16)
-    dev = eng.device
-    del idx, eng, bq, raw, rows, cand_d, cand_i, q
-    torch.cuda.empty_cache()
-    out["raw"] = raw_windows(torch, ds, dev)
-    out["rabitq"] = rabitq_windows(torch, ds, dev)
-    out["flat"] = flat_windows(torch, ds, dev)
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    with open(os.path.join(ROOT, "build", "torch_profile.json"),
-              "w") as f:
-        json.dump(out, f, indent=1)
-    return 0
+    del eng, bq, raw, rows, cand_d, cand_i, q
 
 
 if __name__ == "__main__":
