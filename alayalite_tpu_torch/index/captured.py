@@ -96,6 +96,10 @@ Python integers that a replay does not touch: the layer records each
 counter's change during a capture, takes it back (nothing ran), and adds it
 again on every replay, so a count read around a search stays the count of
 kernels that ran. ``stats`` counts captures, their seconds and replays.
+While spans are recorded (``trace``), each replay is a span
+``alaya.captured.replay`` (lock, copy-in, replay, clones) and a capture a
+span ``alaya.captured.capture`` inside it; both are host code outside any
+capture.
 
 A device keeps at most ``MAX_GRAPHS`` graphs, the least recently used
 dropped first; at its next search it drops every graph whose first read
@@ -134,6 +138,8 @@ import weakref
 from typing import Callable, Dict, Sequence, Tuple
 
 import torch
+
+from .. import trace
 
 Tensor = torch.Tensor
 BATCH_BUCKETS = (64, 256, 1024, 4096, 16384)   # the JAX engine's buckets
@@ -361,15 +367,20 @@ def _replay(dev, key, make, inputs: Tuple[Tensor, ...], B: int,
     it on a miss; in the innermost open scope if there is one), the inputs
     copied into its buffers (where ``cut``, rows past B zeroed), one
     replay, and every output cloned (its first B rows where ``cut``)."""
-    with _lock, torch.cuda.device(dev):
+    with trace.span("alaya.captured.replay", graph=key[0],
+                    rows=inputs[0].shape[0]) as replay, _lock, \
+            torch.cuda.device(dev):
         _tls.busy = True
         try:
             st = _state(dev)
             entries, pool = (_scopes()[-1].where(dev) if _scopes()
                              else (st.entries, st.pool))
             ent = entries.pop(key, None)
-            if ent is None:
-                ent = make(st, pool)
+            hit = ent is not None
+            if not hit:
+                with trace.span("alaya.captured.capture", graph=key[0]):
+                    ent = make(st, pool)
+            replay.set(hit=hit, bucket=ent.static_in[0].shape[0])
             entries[key] = ent                        # most recent last
             while entries is st.entries and len(entries) > MAX_GRAPHS:
                 del entries[next(iter(entries))]

@@ -49,6 +49,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import DeviceLike, resolve_device, synchronize
 from ..ops.distance import exact_topk, flat_search_device
 from ..params import IndexParams, IndexType, QuantizationType
@@ -233,9 +234,14 @@ class IndexEngine:
                                    num_threads: int = 1
                                    ) -> Tuple[np.ndarray, np.ndarray]:
         """(ids [Q, topk] in the id_type width with −1 pad, dists f32)."""
-        ids, d = self._batch_search_impl(queries, topk, ef, num_threads)
-        return (ids.cpu().numpy().astype(self._id_dtype, copy=False),
-                d.cpu().numpy())
+        with trace.span("alaya.engine.batch_search", topk=topk,
+                        ef=ef) as call:
+            ids, d = self._batch_search_impl(queries, topk, ef, num_threads)
+            rows = ids.shape[0]
+            call.set(rows=rows)
+            with trace.span("alaya.engine.answers_out", rows=rows):
+                return (ids.cpu().numpy().astype(self._id_dtype, copy=False),
+                        d.cpu().numpy())
 
     def _batch_search_impl(self, queries, topk: int, ef: int = 100,
                            num_threads: int = 1, _capture: bool = True):
@@ -246,12 +252,14 @@ class IndexEngine:
 
         del num_threads
         self._require_fitted()
-        if isinstance(queries, torch.Tensor):
-            q = queries.to(self.device, torch.float32)
-        else:
-            q = torch.as_tensor(np.asarray(queries, dtype=np.float32),
-                                device=self.device)
-        q = torch.atleast_2d(q)
+        with trace.span("alaya.engine.queries_in") as copy_in:
+            if isinstance(queries, torch.Tensor):
+                q = queries.to(self.device, torch.float32)
+            else:
+                q = torch.as_tensor(np.asarray(queries, dtype=np.float32),
+                                    device=self.device)
+            q = torch.atleast_2d(q)
+            copy_in.set(rows=q.shape[0])
         if self.params.index_type is IndexType.FLAT:
             return self._flat_search(q, topk)
         ef = max(int(ef), int(topk))
@@ -359,20 +367,24 @@ class IndexEngine:
         bucket = 1024 if n < 262_144 else 65_536
         version = (("exact", n) if n < 2048 else ("bucket", n // bucket),
                    self._mutations)
-        cached = self._sscan
-        if cached is not None and cached[0] == version:
-            return cached[1]
-        live = np.flatnonzero(self.space.valid[:n].cpu().numpy())
-        S = min(S, (live.size // 128) * 128)
-        if S < 128:
-            return None
-        rng = np.random.default_rng(0x5EED)
-        ids = torch.as_tensor(np.sort(rng.choice(live, size=S, replace=False))
-                              .astype(np.int32), device=self.device)
-        arrays = seed_sample_arrays(self.space.data, ids,
-                                    self.space.user_metric)
-        self._sscan = (version, arrays)
-        return arrays
+        with trace.span("alaya.search.seed_sample") as sample:
+            cached = self._sscan
+            hit = cached is not None and cached[0] == version
+            sample.set(hit=hit)
+            if hit:
+                return cached[1]
+            live = np.flatnonzero(self.space.valid[:n].cpu().numpy())
+            S = min(S, (live.size // 128) * 128)
+            if S < 128:
+                return None
+            rng = np.random.default_rng(0x5EED)
+            ids = torch.as_tensor(
+                np.sort(rng.choice(live, size=S, replace=False))
+                .astype(np.int32), device=self.device)
+            arrays = seed_sample_arrays(self.space.data, ids,
+                                        self.space.user_metric)
+            self._sscan = (version, arrays)
+            return arrays
 
     # --------------------------------------------------------------- update
     def insert(self, vectors, ef: int = 100,

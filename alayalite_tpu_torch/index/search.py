@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import trace
 from ..ops.distance import row_dots
 from ..ops.ring_probe import ring_probe
 from ..ops.topk import (merge_topk_dedup, merge_topk_with_flags,
@@ -491,7 +492,8 @@ def block_search_device(space, eps: Tensor, q_all: Tensor, k: int, ef: int,
     scan; None starts every query from the shared entry points ``eps``."""
     nq = q_all.shape[0]
     qchunk, b = slice_rows(nq, qchunk)
-    q_all = pad_rows(q_all, b)
+    with trace.span("alaya.search.pad", rows=b):
+        q_all = pad_rows(q_all, b)
 
     def one_slice(q):
         if seed_sample is not None:
@@ -508,4 +510,5 @@ def block_search_device(space, eps: Tensor, q_all: Tensor, k: int, ef: int,
                    (k, ef, max_iters, n_expand), _capture)
         outs_d.append(d)
         outs_i.append(i)
-    return torch.cat(outs_d)[:nq], torch.cat(outs_i)[:nq]
+    with trace.span("alaya.search.concat", rows=nq):
+        return torch.cat(outs_d)[:nq], torch.cat(outs_i)[:nq]

@@ -106,8 +106,8 @@ def trace(torch, name, fn, top=12) -> dict:
             rows.append((ev.key, dev_us / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
     dev_ms = sum(r[1] for r in rows)
-    print(f"[{name}] wall {wall_ms:.3f} ms, device kernels {dev_ms:.3f} ms "
-          f"({100 * dev_ms / wall_ms:.1f}% busy)", flush=True)
+    print(f"[{name}] wall {wall_ms:.3f} ms, device kernels {dev_ms:.3f} ms",
+          flush=True)
     for key, ms, count in rows[:top]:
         print(f"  {ms:9.3f} ms {100 * ms / max(dev_ms, 1e-9):5.1f}% "
               f"x{count:<6d} {key[:90]}", flush=True)
