@@ -51,6 +51,13 @@ from torch.autograd import profiler as _profiler
 PREFIX = "alaya."
 MAX_SPANS = 32768
 
+# the profiler's lean host event (a host range with no label on the
+# device's timeline; on an H100's host 4.7 us a span under the profiler
+# against record_function's 10.5); ``record_function`` on a torch without it
+_EVENT = (getattr(getattr(torch._C, "_profiler", None),
+                  "_RecordFunctionFast", None)
+          or _profiler.record_function)
+
 _enabled = False
 _spans: collections.deque = collections.deque(maxlen=MAX_SPANS)
 _ids = itertools.count(1)
@@ -113,10 +120,7 @@ class _Open:
         stack.append(self.id)
         self.event = None
         if _profiler._is_profiler_enabled:
-            # the profiler's lean event: a host range with no label on the
-            # device's timeline, and on an H100's host 4.7 us a span under
-            # the profiler against record_function's 10.5
-            self.event = torch._C._profiler._RecordFunctionFast(self.name)
+            self.event = _EVENT(self.name)
             self.event.__enter__()
         self.t0 = time.perf_counter_ns()
         return self

@@ -2,11 +2,9 @@
 ``alaya.*``) against the traced span's device trace: each stretch in which
 no device operation ran is charged to the innermost program span running
 on the host at its middle, or to no program span (the benchmark's own
-loop). The device operations, the window (the ``portbench.traced_span``
-mark) and the gaps are those of ``portbench/trace.py``; the rule that
-names a gap is its ``_name_gaps``, given the program's events alone, so
-an ``aten::`` operator or a runtime call inside a span does not take the
-gap from it.
+loop). It is ``portbench/trace.py``'s reduction of the profile given the
+program's host events alone, so an ``aten::`` operator or a runtime call
+inside a span does not take the gap from it.
 
 A program without spans (one older than the recorder) leaves the profile
 without ``alaya.`` events: the readers then return None, as they do
@@ -14,46 +12,29 @@ without a device trace (the CPU rehearsal)."""
 
 from __future__ import annotations
 
-from collections import defaultdict
 from typing import Dict, Optional
 
-from portbench import stats
-from portbench.trace import MARK, _name_gaps
+from portbench.trace import MARK, reduce_events
 
 PREFIX = "alaya."
-CAPTURED = "alaya.captured."
 
 
 def idle_from_events(events) -> Optional[Dict[Optional[str], float]]:
     """{innermost program span's name at a gap's middle, None for no
     program span: idle seconds} in the traced span of ``events``; None
-    without a device operation or without any program event there."""
+    without a device operation or without any program event."""
     from torch.autograd import DeviceType
 
-    lo = hi = None
-    dev, prog = [], []
-    for ev in events:
-        tr = ev.time_range
-        if ev.device_type == DeviceType.CUDA:
-            if not (getattr(ev, "is_user_annotation", False)
-                    or ev.name.startswith("portbench.")):
-                dev.append((tr.start, tr.end))
-        elif ev.device_type == DeviceType.CPU:
-            if ev.name == MARK:
-                lo, hi = tr.start, tr.end
-            elif ev.name.startswith(PREFIX):
-                prog.append((tr.start, tr.end, ev.name))
-    if lo is None:
+    kept = [ev for ev in events if ev.device_type != DeviceType.CPU
+            or ev.name == MARK or ev.name.startswith(PREFIX)]
+    if not any(ev.device_type == DeviceType.CPU
+               and ev.name.startswith(PREFIX) for ev in kept):
         return None
-    intervals = [(s, e) for s, e in dev if e > lo and s < hi]
-    prog = [p for p in prog if p[1] > lo and p[0] < hi]
-    if not intervals or not prog:
+    tr = reduce_events(kept, {})
+    if tr is None:
         return None
-    idle: Dict[Optional[str], float] = defaultdict(float)
-    for (s, e), name in zip(*_name_gaps(stats.gaps(intervals, lo, hi),
-                                        prog)):
-        idle[name if name.startswith(PREFIX) else None] += (e - s) * 1e-6
-    return dict(idle)
+    return {(name if name.startswith(PREFIX) else None): sec
+            for name, sec in tr.idle_gaps}
 
 
 def idle_by_span(run) -> Optional[Dict[Optional[str], float]]:
@@ -65,15 +46,3 @@ def idle_by_span(run) -> Optional[Dict[Optional[str], float]]:
             if span is not None and span.prof is not None
             and span.t1 is not None else None)
     return run.probes["program_idle_s"]
-
-
-def idle_ms_per_call(run, captured: bool) -> Optional[float]:
-    """Idle ms a call under the captured layer's spans (``captured``) or
-    under the other program spans."""
-    idle = idle_by_span(run)
-    tr = run.trace_result
-    if idle is None or tr is None or not tr.work.get("calls"):
-        return None
-    s = sum(sec for name, sec in idle.items()
-            if name is not None and name.startswith(CAPTURED) == captured)
-    return s * 1e3 / tr.work["calls"]

@@ -42,7 +42,7 @@ def _no_event(*a, **k):
 
 
 def test_off_records_nothing_and_opens_no_event(monkeypatch):
-    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", _no_event)
+    monkeypatch.setattr(trace, "_EVENT", _no_event)
     monkeypatch.setattr(torch.profiler, "record_function", _no_event)
     monkeypatch.setattr(torch.autograd.profiler, "record_function",
                         _no_event)
@@ -129,8 +129,19 @@ def test_summary_self_time_leaves_children_out():
         {"count": 2, "total_ms": 4.0, "self_ms": 4.0})
 
 
-def test_spans_land_on_the_profilers_clock():
+def test_profiler_event_is_the_lean_one_where_torch_has_it():
+    lean = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+    assert trace._EVENT is (lean or torch.autograd.profiler.record_function)
+
+
+@pytest.mark.parametrize("event", ["as resolved", "record_function"])
+def test_spans_land_on_the_profilers_clock(event, monkeypatch):
+    if event == "record_function":     # a torch without the lean event
+        monkeypatch.setattr(trace, "_EVENT",
+                            torch.autograd.profiler.record_function)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with trace.span("alaya.warm"):   # an event class's first use is slow
+            pass
         for i in range(20):
             with trace.span("alaya.outer"):
                 torch.ones(64).sum()
