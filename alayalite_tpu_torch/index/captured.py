@@ -210,10 +210,11 @@ def _counted() -> tuple:
     from ..ops.l2_tile import l2_tile
     from ..ops.pool_sort import merge_kv, pool_merge, roll_n, sort_kv
     from ..ops.ring_probe import ring_probe
+    from ..ops.seed_scan import seed_scan
     from ..ops.sq8_tile import sq8_tile
 
     return (block_diagdot, gather_diagdot, gather_estimate, l2_tile, merge_kv,
-            pool_merge, roll_n, sort_kv, ring_probe, sq8_tile)
+            pool_merge, roll_n, sort_kv, ring_probe, seed_scan, sq8_tile)
 
 
 def counts() -> dict:

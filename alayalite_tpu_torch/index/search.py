@@ -28,7 +28,11 @@ graph query: overlay descent, beam, exact re-score), ``block_beam_search``
 ``scan_seeds`` and ``block_search_device``.
 ``scan_seeds`` takes the exact top-k where the JAX package takes
 ``lax.approx_max_k``: a superset of what the approximation can return, and
-one reason result ids differ between the packages. Every pool merge is
+one reason result ids differ between the packages. On the card it is one
+call of the hand-written ``ops/seed_scan`` kernel (bf16 products summed in
+f32, ``sq − 2·dot`` and the exact top ``nseed`` in one pass that keeps the
+scores on the SM; among equal scores the lower sample index first, as
+``lax.top_k`` orders them). Every pool merge is
 ``ops/topk.merge_topk_dedup`` or ``merge_topk_with_flags``: on a CUDA tensor
 the hand-written ``pool_merge`` kernel.
 """
@@ -42,6 +46,7 @@ import torch
 from .. import trace
 from ..ops.distance import row_dots
 from ..ops.ring_probe import ring_probe
+from ..ops.seed_scan import seed_scan
 from ..ops.topk import (merge_topk_dedup, merge_topk_with_flags,
                         topk_smallest)
 from .captured import pad_rows, run, slice_rows
@@ -473,11 +478,12 @@ def seed_sample_arrays(data: Tensor, ids: Tensor, user_metric: str):
 def scan_seeds(q: Tensor, sample_ids: Tensor, sample_vecs: Tensor,
                sample_sq: Tensor, nseed: int = 8) -> Tensor:
     """Per-query entry points from one pass over a point sample: bf16
-    values multiplied and summed in f32, then the exact ``nseed`` best."""
-    dot = q.to(torch.bfloat16).float() @ sample_vecs.float().T    # [B, S]
-    d = sample_sq[None, :] - 2.0 * dot
-    _, sel = torch.topk(d, min(nseed, d.shape[1]), dim=1, largest=False)
-    return sample_ids[sel]
+    values multiplied and summed in f32, then the exact ``nseed`` best by
+    ``sq − 2·dot``, the lower sample index first among equal scores
+    (``lax.top_k``'s order). On the card one call of the hand-written
+    ``ops/seed_scan`` kernel, which never writes the [B, S] scores; on the
+    CPU its plain version."""
+    return seed_scan(q, sample_ids, sample_vecs, sample_sq, nseed)
 
 
 def block_search_device(space, eps: Tensor, q_all: Tensor, k: int, ef: int,

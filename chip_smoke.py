@@ -52,7 +52,11 @@ the script exits non-zero:
                version at the hop's shapes and at ragged ones; and an sq8
                space's gather_dists (gather_diagdot on one-row blocks)
                against index_select + bmm written out here, timed at the
-               hop's shape with the kernel's own time beside it;
+               hop's shape with the kernel's own time beside it; and
+               seed_scan (the block search's seed scan) against its plain
+               version at the slice's (4096, 16384, 128, 8), a served batch
+               and ragged shapes (D 100, 960; nseed 1, 16), timed beside
+               the library chain it replaced (library_ms);
   4. fit       Client().create_index(hnsw + bsq8, the repository's
                headline parameters, capacity 1M + 16,384) and fit on
                bench.py's data, random_dataset(1M x 128, seed 42, 500
@@ -517,6 +521,12 @@ NND_K, NND_ITERS, PHASE27_REPS = 32, 8, 3
 POOL_CHUNK, POOL_EF, POOL_RAND = 4096, 128, 16
 SLICE11_PHASES = ("serving", "service", "flat_sq4", "native_rag")
 SLICE12_PHASES = ("db_shards", "build_shards", "serve_shards", "multihost")
+# seed_scan: (B, S, D, nseed): the bsq8 search's slice over its 16,384-point
+# sample first, a served batch, ragged B and S, D 100 and 960, nseed 1 / 16
+SEED_SCAN_SHAPES = ((4096, 16384, 128, 8), (52, 16384, 128, 8),
+                    (333, 1000, 128, 8), (97, 1000, 100, 8),
+                    (130, 2048, 960, 8), (513, 4096, 128, 1),
+                    (515, 4096, 128, 16))
 NEW_PHASES = ("collection", "reindex", "calc_gt", "rabitq", "rabitq2",
               *SLICE11_PHASES, *SLICE12_PHASES)
 
@@ -1048,6 +1058,86 @@ def check_tiles(torch, dev) -> dict:
                 f"{times['plain_ms']:.4f} ms, library {times['library_ms']:.4f}"
                 f" ms{f32}, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
             torch.cuda.empty_cache()
+    return out
+
+
+def seed_scan_inputs(torch, rng, B, S, D, dev):
+    """Queries near points of a table and a sample of it as the engine
+    draws one (sorted int32 ids, bf16 rows, norms): (q, ids, vecs, sq)."""
+    from alayalite_tpu_torch.index.search import seed_sample_arrays
+
+    table = rng.normal(size=(4 * S, D)).astype(np.float32)
+    ids = torch.as_tensor(np.sort(rng.choice(4 * S, size=S, replace=False))
+                          .astype(np.int32), device=dev)
+    q = torch.as_tensor(table[rng.integers(0, 4 * S, size=B)]
+                        + 0.3 * rng.normal(size=(B, D)).astype(np.float32),
+                        device=dev)
+    return (q, *seed_sample_arrays(torch.as_tensor(table, device=dev), ids,
+                                   "l2"))
+
+
+def seed_scan_chain(torch, q, ids, vecs, sq, nseed):
+    """The library chain seed_scan replaced: an f32 product of the rounded
+    operands, sq - 2 dot, torch.topk, the id gather."""
+    dot = q.to(torch.bfloat16).float() @ vecs.float().T
+    _, sel = torch.topk(sq[None, :] - 2.0 * dot, nseed, dim=1, largest=False)
+    return ids[sel]
+
+
+def check_seed_scan(torch, dev) -> dict:
+    """seed_scan (csrc/seed_scan.cu) against its plain version at the
+    block search's slice and at ragged shapes: each version's picks
+    re-scored in float64 from the rounded values, the sorted scores within
+    the bound of two f32 sums of D terms in different orders; times of the
+    kernel, the plain version and the library chain it replaced at the
+    main shape."""
+    from alayalite_tpu_torch.ops.seed_scan import seed_scan, seed_scan_ref
+    from alayalite_tpu_torch.utils.timing import bound, cuda_ms
+
+    rng = np.random.default_rng(19)
+    out = {"errors": {}}
+    for B, S, D, nseed in SEED_SCAN_SHAPES:
+        q, ids, vecs, sq = seed_scan_inputs(torch, rng, B, S, D, dev)
+        args = (q, ids, vecs, sq, nseed)
+        got = seed_scan(*args)
+        torch.cuda.synchronize()
+        want = seed_scan_ref(*args)
+        q64 = q.to(torch.bfloat16).double()
+
+        def rescored(sel):
+            pos = torch.searchsorted(ids, sel).long()
+            return torch.sort(sq.double()[pos] - 2.0 * torch.einsum(
+                "bd,bkd->bk", q64, vecs.double()[pos]), 1).values
+
+        terms = (q64.abs() @ vecs.double().abs().T).max(1).values
+        tol = 4 * D * 2.0 ** -24 * (sq.double().abs().max() + 2 * terms)
+        err = (rescored(got) - rescored(want)).abs().max(1).values
+        same = float((got == want).all(1).float().mean())
+        log(f"kernel seed_scan {(B, S, D, nseed)}: max score gap "
+            f"{float(err.max()):.3e} (tol {float(tol.min()):.3e}), rows "
+            f"equal {same:.4f}")
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"seed_scan disagrees at {(B, S, D, nseed)}")
+        out["errors"][str((B, S, D, nseed))] = {"max_gap": float(err.max()),
+                                               "rows_equal": same}
+        if (B, S, D, nseed) != SEED_SCAN_SHAPES[0]:
+            continue
+
+        b = bound(B * D * 4 + S * D * 2 + S * 8 + B * nseed * 4,
+                  2 * B * S * D, "bf16")
+        times = {"ms": cuda_ms(lambda: seed_scan(*args)),
+                 "ms_spin": cuda_ms(lambda: seed_scan(*args), spin=True),
+                 "plain_ms": cuda_ms(lambda: seed_scan_ref(*args)),
+                 "library_ms": cuda_ms(lambda: seed_scan_chain(torch, *args)),
+                 "library_ms_spin": cuda_ms(
+                     lambda: seed_scan_chain(torch, *args), spin=True)}
+        out.update(shape=[B, S, D, nseed], **b, **times)
+        log(f"kernel seed_scan {(B, S, D, nseed)}: {times['ms']:.4f} ms "
+            f"({times['ms_spin']:.4f} device alone), plain "
+            f"{times['plain_ms']:.4f} ms, library chain "
+            f"{times['library_ms']:.4f} ms ({times['library_ms_spin']:.4f}), "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4539,6 +4629,7 @@ def main() -> int:
     report["ring_probe"] = check_ring_probe(torch, dev)
     report.update(check_pool_sort(torch, dev))
     report["sq8_gather"] = check_sq8_gather(torch, dev)
+    report["seed_scan"] = check_seed_scan(torch, dev)
     # the kernels of every block hop, and the hops (estimate_many calls)
     hop = (gather_estimate, ring_probe,
            CallCount(gather_estimate, "estimate_many_calls"))
@@ -4997,6 +5088,7 @@ def main() -> int:
                   "removed_returned": churn["removed_returned"],
                   "removed_in_live_rows": churn["removed_in_live_rows"]},
         "raw": report["raw"], "sq8_gather": report["sq8_gather"],
+        "seed_scan": report["seed_scan"],
         "estimate_many": report["estimate_many"],
         "bsq8_pool_launches": bsq8_pool,
         "flat": {k: report["flat"][k] for k in ("fit_s", "exact", "fast")},
