@@ -91,14 +91,15 @@ insert in place moves it, so the graph of a grown index is kept. A slab that is
 reallocated (fit, load, compact, a new ``valid`` or seed sample) changes a
 pointer and so the key.
 
-The kernels' counters (``.calls``, ``.launches``, ``.route_launches``) are
-Python integers that a replay does not touch: the layer records each
-counter's change during a capture, takes it back (nothing ran), and adds it
-again on every replay, so a count read around a search stays the count of
-kernels that ran. ``stats`` counts captures, their seconds and replays.
-While spans are recorded (``trace``), each replay is a span
-``alaya.captured.replay`` (lock, copy-in, replay, clones) and a capture a
-span ``alaya.captured.capture`` inside it; both are host code outside any
+The kernels' counters (``.calls``, ``.launches``, ``.route_launches``) and
+the RaBitQ hop's (``spaces/rabitq.counters``) are Python integers that a
+replay does not touch: the layer records each counter's change during a
+capture, takes it back (nothing ran), and adds it again on every replay, so
+a count read around a search stays the count of the work that ran.
+``stats`` counts captures, their seconds and replays. While spans are
+recorded (``trace``), each replay is a span ``alaya.captured.replay``
+(lock, copy-in, replay, clones) and a capture a span
+``alaya.captured.capture`` inside it; both are host code outside any
 capture.
 
 A device keeps at most ``MAX_GRAPHS`` graphs, the least recently used
@@ -218,13 +219,18 @@ def _counted() -> tuple:
 
 
 def counts() -> dict:
-    """Every kernel counter: {(wrapper, attribute, route or None): n}."""
+    """Every kernel counter: {(wrapper, attribute, route or None): n}; and
+    the RaBitQ hop's, {(rabitq.counters, field, None): n}."""
+    from ..spaces.rabitq import counters
+
     out = {}
     for fn in _counted():
         for attr in ("calls", "launches"):
             out[(fn, attr, None)] = getattr(fn, attr)
         for route, n in getattr(fn, "route_launches", {}).items():
             out[(fn, "route_launches", route)] = n
+    for attr in counters.FIELDS:
+        out[(counters, attr, None)] = getattr(counters, attr)
     return out
 
 

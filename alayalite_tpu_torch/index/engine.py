@@ -233,12 +233,16 @@ class IndexEngine:
     def batch_search_with_distance(self, queries, topk: int, ef: int = 100,
                                    num_threads: int = 1
                                    ) -> Tuple[np.ndarray, np.ndarray]:
-        """(ids [Q, topk] in the id_type width with −1 pad, dists f32)."""
+        """(ids [Q, topk] in the id_type width with −1 pad, dists f32).
+        The root span also records the space (the quantization type) and,
+        on a graph index, the pool width searched (``pool``)."""
         with trace.span("alaya.engine.batch_search", topk=topk,
                         ef=ef) as call:
             ids, d = self._batch_search_impl(queries, topk, ef, num_threads)
             rows = ids.shape[0]
-            call.set(rows=rows)
+            call.set(rows=rows, space=self.params.quantization_type.value)
+            if self.params.index_type is not IndexType.FLAT:
+                call.set(pool=self._pool(topk, ef))
             with trace.span("alaya.engine.answers_out", rows=rows):
                 return (ids.cpu().numpy().astype(self._id_dtype, copy=False),
                         d.cpu().numpy())
@@ -262,12 +266,9 @@ class IndexEngine:
             copy_in.set(rows=q.shape[0])
         if self.params.index_type is IndexType.FLAT:
             return self._flat_search(q, topk)
-        ef = max(int(ef), int(topk))
+        ef = self._pool(topk, ef)
         if not self._is_block:
             return self._graph_search(q, topk, ef, _capture)
-        if self.params.quantization_type is QuantizationType.RABITQ:
-            # 1-bit estimates need ~4x the pool width for equal recall
-            ef = max(ef, int(round(ef * self.params.rabitq_ef_boost)))
         qchunk = 1024 if self.space.dim >= 512 else 4096
         seed_arrays = self._seed_scan_arrays()
         if (seed_arrays is None and self.params.seed_sample <= 0
@@ -289,6 +290,15 @@ class IndexEngine:
             # return the −cos convention of every other path
             d = torch.where(torch.isfinite(d), d / 2.0 - 1.0, d)
         return i, d
+
+    def _pool(self, topk: int, ef: int) -> int:
+        """The pool width a graph search keeps: ef, at least topk, and on a
+        1-bit rabitq index ``rabitq_ef_boost`` times that (1-bit estimates
+        need ~4x the pool width for equal recall)."""
+        ef = max(int(ef), int(topk))
+        if self.params.quantization_type is QuantizationType.RABITQ:
+            ef = max(ef, int(round(ef * self.params.rabitq_ef_boost)))
+        return ef
 
     def batch_search(self, queries, topk: int, ef: int = 100,
                      num_threads: int = 1) -> np.ndarray:

@@ -19,6 +19,9 @@ tensor). Then ⟨P q, y⟩ is (2·dot − Σ P q)/√E or dot − 1.5·Σ P q. T
 package takes the same dot as an XLA einsum of the unpacked bits, the two
 planes apart (``binary_dot_ref`` here, the tests' plain version).
 
+``counters`` counts what the hops read (``Counters``), counted on captured
+replays as the kernels' launches are.
+
 The rotation is JAX's to the bit: ``make_rotation`` (QR of a Gaussian
 draw) and ``make_fht_kac_rotation`` (sign flips and normalized FWHTs,
 materialized as a matrix) are the same numpy code. l2 and cos only (cos is
@@ -44,6 +47,28 @@ from .raw import bump_slots, tombstone
 Tensor = torch.Tensor
 DEGREE = 32
 QUANT_CHUNK = 8192    # nodes per step of the block quantization
+
+
+class Counters:
+    """What the searches of every RaBitQ space read, as Python integers
+    that ``index/captured.py`` keeps as it keeps the kernels'
+    ``.launches``: a capture's change is taken back and added again on
+    each replay, so a count read around a search counts the work that ran.
+
+      estimated   neighbor estimates made: B · M · 32 a hop
+      code_bytes  the packed code bytes gathered and the u8 codes the
+                  unpack wrote: B · M · 32 · (bits · E / 8 + E) a hop
+      exact_rows  f32 rows that ``gather_dists`` read (the seeds, each
+                  hop's popped nodes, the final rerank)
+    """
+
+    FIELDS = ("estimated", "code_bytes", "exact_rows")
+
+    def __init__(self):
+        self.estimated = self.code_bytes = self.exact_rows = 0
+
+
+counters = Counters()
 
 
 def make_rotation(dim: int, seed: int = 0) -> np.ndarray:
@@ -345,6 +370,8 @@ class RaBitQSpace:
             d_center = self.gather_dists(q, safe)
         packed = self.nbr_bits.index_select(0, safe.reshape(-1))
         codes = unpack_codes(packed.view(B, M * DEGREE, -1), self.bits)
+        counters.estimated += B * M * DEGREE
+        counters.code_bytes += packed.numel() + codes.numel()
         dot = block_diagdot(codes, qs).view(B, M, DEGREE)
         est = self._epilogue(dot, qsum, d_center, safe)
         return est.reshape(B, -1), self.nbr_ids[safe].reshape(B, -1)
@@ -352,6 +379,7 @@ class RaBitQSpace:
     def gather_dists(self, q: Tensor, ids: Tensor) -> Tensor:
         """Exact f32 squared distances (seeds, result pool, rerank)."""
         B, K = ids.shape
+        counters.exact_rows += B * K
         safe = ids.clamp(0, self.capacity - 1).reshape(-1)
         vecs = self.data.index_select(0, safe).view(B, K, -1)
         dot = row_dots(vecs, q)

@@ -26,7 +26,8 @@ The spans of a batch search (the path of ``IndexEngine
 .batch_search_with_distance``; the raw graph and flat paths have the
 root, the two copies and the replays):
 
-  alaya.engine.batch_search   the call (topk, ef, rows)
+  alaya.engine.batch_search   the call (topk, ef, rows, the space's
+                              quantization, the pool width searched)
     alaya.engine.queries_in   the queries to float32 on the device
     alaya.search.seed_sample  the seed scan's sample (hit: cached)
     alaya.search.pad          the batch padded to its slices (rows)

@@ -184,7 +184,8 @@ def test_batch_search_spans_in_call_order():
         idx.batch_search(x[:50], 10, ef_search=32)
     spans = trace.spans()
     (root,) = [s for s in spans if s.name == "alaya.engine.batch_search"]
-    assert root.attrs == {"topk": 10, "ef": 32, "rows": 50}
+    assert root.attrs == {"topk": 10, "ef": 32, "rows": 50, "space": "bsq8",
+                          "pool": 32}
     kids = sorted((s for s in spans if s.parent == root.id),
                   key=lambda s: s.start_ns)
     assert [s.name for s in kids] == BATCH_SPANS
