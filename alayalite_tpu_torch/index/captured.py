@@ -213,9 +213,11 @@ def _counted() -> tuple:
     from ..ops.ring_probe import ring_probe
     from ..ops.seed_scan import seed_scan
     from ..ops.sq8_tile import sq8_tile
+    from ..ops.unique_topk import unique_topk
 
     return (block_diagdot, gather_diagdot, gather_estimate, l2_tile, merge_kv,
-            pool_merge, roll_n, sort_kv, ring_probe, seed_scan, sq8_tile)
+            pool_merge, roll_n, sort_kv, ring_probe, seed_scan, sq8_tile,
+            unique_topk)
 
 
 def counts() -> dict:

@@ -34,7 +34,11 @@ f32, ``sq − 2·dot`` and the exact top ``nseed`` in one pass that keeps the
 scores on the SM; among equal scores the lower sample index first, as
 ``lax.top_k`` orders them). Every pool merge is
 ``ops/topk.merge_topk_dedup`` or ``merge_topk_with_flags``: on a CUDA tensor
-the hand-written ``pool_merge`` kernel.
+the hand-written ``pool_merge`` kernel. The block search's final selection
+(the first copy of each live id of the re-scored pools, then the k best) is
+one call of the hand-written ``ops/unique_topk`` kernel, which reads each
+row once and never builds the [B, W, W] compare of the duplicate net it
+replaced; on the CPU its plain version, that net and ``topk_smallest``.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from ..ops.ring_probe import ring_probe
 from ..ops.seed_scan import seed_scan
 from ..ops.topk import (merge_topk_dedup, merge_topk_with_flags,
                         topk_smallest)
+from ..ops.unique_topk import unique_topk
 from .captured import pad_rows, run, slice_rows
 
 Tensor = torch.Tensor
@@ -409,11 +414,9 @@ def _block_start(space, seeds: Tensor, queries: Tensor, k: int, L: int,
 def _block_beam_search(space, seeds: Tensor, queries: Tensor, k: int,
                        ef: int, max_iters: int, valid: Optional[Tensor],
                        n_expand: int) -> Tuple[Tensor, Tensor]:
-    C = space.capacity
     L = max(int(ef), int(k))
     M = max(1, int(n_expand))
     max_iters = _default_iters(L, M, max_iters)
-    dev = queries.device
     res_pool = getattr(space, "bits", 0) == 1
     ctx, state = _block_start(space, seeds, queries, k, L, M, max_iters)
     for _ in range(max_iters):
@@ -427,17 +430,9 @@ def _block_beam_search(space, seeds: Tensor, queries: Tensor, k: int,
     if res_pool:
         pool_i = torch.cat([pool_i, res_i], 1)
         d_exact = torch.cat([d_exact, res_d], 1)
-    ok = pool_i >= 0
-    if valid is not None:
-        ok &= valid[pool_i.clamp(0, C - 1).long()]
-    # safety net against two live copies of one id in the pool (and a
-    # popped node in both pools)
-    W = pool_i.shape[1]
-    tril = torch.tril(torch.ones((W, W), dtype=torch.bool, device=dev), -1)
-    dup = ((pool_i[:, :, None] == pool_i[:, None, :]) & tril[None]).any(2)
-    out_d, sel = topk_smallest(_inf_where_not(ok & ~dup, d_exact), k)
-    ids = torch.gather(pool_i, 1, sel)
-    return out_d, _neg1_where_not(torch.isfinite(out_d), ids)
+    # the first copy of each live id (against two live copies of one id in
+    # the pool, and a popped node in both pools), then the k best
+    return unique_topk(d_exact.contiguous(), pool_i.contiguous(), k, valid)
 
 
 def block_beam_search(space, seeds: Tensor, queries: Tensor, k: int, ef: int,
@@ -449,8 +444,10 @@ def block_beam_search(space, seeds: Tensor, queries: Tensor, k: int, ef: int,
     ``gather_estimate`` launch a hop; rabitq: one ``block_diagdot``), which
     scores its neighbors with the block estimator, ``ring_probe`` drops the
     ones already expanded or pooled, and the final pool is re-ranked with
-    exact raw distances. On the card one replay of a captured graph
-    (``_capture=False``: the same function uncaptured, for a comparison).
+    exact raw distances: one ``unique_topk`` launch keeps the first copy
+    of each live id (``valid``) and the k best. On the card one replay of a
+    captured graph (``_capture=False``: the same function uncaptured, for a
+    comparison).
 
     A 1-bit space (``space.bits == 1``) also keeps the result pool: the
     exact distances of the popped nodes, which the estimator needs as its

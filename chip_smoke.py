@@ -56,7 +56,12 @@ the script exits non-zero:
                seed_scan (the block search's seed scan) against its plain
                version at the slice's (4096, 16384, 128, 8), a served batch
                and ragged shapes (D 100, 960; nseed 1, 16), timed beside
-               the library chain it replaced (library_ms);
+               the library chain it replaced (library_ms); and
+               unique_topk (the block search's final selection) bit for
+               bit against its plain version at the paths' (B, W, k), timed
+               at the 1-bit search's (4096, 522, 10) and bsq8's
+               (4096, 64, 10) beside the duplicate net and top k it
+               replaced (library_ms);
   4. fit       Client().create_index(hnsw + bsq8, the repository's
                headline parameters, capacity 1M + 16,384) and fit on
                bench.py's data, random_dataset(1M x 128, seed 42, 500
@@ -221,7 +226,7 @@ where its input stands:
                merge) and under force_devices(4, "cuda") (the mesh program
                db_sharded_block_search): recall@10 (floor 0.95 at ef 64 in
                both), QPS, launches of gather_estimate, ring_probe,
-               pool_merge and sort_kv (each > 0); 8,192 inserted rows (ids
+               pool_merge and unique_topk (each > 0); 8,192 inserted rows (ids
                past 1M, own top-1 ≥ 0.95, their blocks audited through
                block_diagdot), 10,000 removes (none may come back),
                compact, save / load (the same ids in both modes); then flat
@@ -527,6 +532,13 @@ SEED_SCAN_SHAPES = ((4096, 16384, 128, 8), (52, 16384, 128, 8),
                     (333, 1000, 128, 8), (97, 1000, 100, 8),
                     (130, 2048, 960, 8), (513, 4096, 128, 1),
                     (515, 4096, 128, 16))
+# unique_topk: (B, W, k, valid): the 1-bit search's slice (pool 512 + the
+# result pool's 10) and bsq8's first, the timed two; the fit's pools (k = W
+# = ef), the inserts' (k = r = 32), a served batch
+UNIQUE_TOPK_SHAPES = ((4096, 522, 10, True), (4096, 64, 10, True),
+                      (4096, 100, 100, False), (4096, 64, 32, True),
+                      (52, 64, 10, True))
+UNIQUE_TOPK_CAPACITY = 1_016_384
 NEW_PHASES = ("collection", "reindex", "calc_gt", "rabitq", "rabitq2",
               *SLICE11_PHASES, *SLICE12_PHASES)
 
@@ -1135,6 +1147,105 @@ def check_seed_scan(torch, dev) -> dict:
         log(f"kernel seed_scan {(B, S, D, nseed)}: {times['ms']:.4f} ms "
             f"({times['ms_spin']:.4f} device alone), plain "
             f"{times['plain_ms']:.4f} ms, library chain "
+            f"{times['library_ms']:.4f} ms ({times['library_ms_spin']:.4f}), "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        torch.cuda.empty_cache()
+    return out
+
+
+def unique_topk_inputs(torch, rng, B, W, k, with_valid, dev):
+    """A block search's final rows: a pool of ids of a 1M-row index with
+    holes (-1) and a few live copies; where W > k, its last k columns a
+    result pool of popped nodes, half of them also in the pool at the same
+    distance; distances the exact re-score's, ties at one value in some
+    rows; valid with 1% of the rows removed. (d, ids, valid or None)."""
+    C = UNIQUE_TOPK_CAPACITY
+    d = (rng.random((B, W)) * 4e4).astype(np.float32)
+    ids = rng.integers(0, C, size=(B, W)).astype(np.int32)
+    r = np.arange(B)
+    P = W - k if W > k else W
+    for _ in range(4):
+        i, j = rng.integers(0, P, size=(2, B))
+        ids[r, j], d[r, j] = ids[r, i], d[r, i]
+    if W > k:
+        src = rng.integers(0, P, size=(B, k))
+        take = rng.random((B, k)) < 0.5
+        ids[:, P:] = np.where(take, ids[r[:, None], src], ids[:, P:])
+        d[:, P:] = np.where(take, d[r[:, None], src], d[:, P:])
+    ids[rng.random((B, W)) < 0.05] = -1
+    tie = rng.random(B) < 0.1
+    d[tie, :3 * k] = 1000.0
+    valid = None
+    if with_valid:
+        valid = torch.as_tensor(rng.random(C) > 0.01, device=dev)
+    return (torch.as_tensor(d, device=dev), torch.as_tensor(ids, device=dev),
+            valid)
+
+
+def unique_topk_chain(torch, d, ids, k, valid):
+    """The duplicate net and top k unique_topk replaced in the block
+    search: the [B, W, W] compare, & the lower triangle, any; the mask,
+    topk_smallest (sort_kv), the id gather."""
+    from alayalite_tpu_torch.ops.topk import topk_smallest
+
+    ok = ids >= 0
+    if valid is not None:
+        ok &= valid[ids.clamp(0, valid.shape[0] - 1).long()]
+    W = ids.shape[1]
+    tril = torch.tril(torch.ones((W, W), dtype=torch.bool, device=d.device),
+                      -1)
+    dup = ((ids[:, :, None] == ids[:, None, :]) & tril[None]).any(2)
+    out_d, sel = topk_smallest(torch.where(ok & ~dup, d,
+                                           torch.full_like(d, np.inf)), k)
+    out_i = torch.gather(ids, 1, sel)
+    return out_d, torch.where(torch.isfinite(out_d), out_i,
+                              torch.full_like(out_i, -1))
+
+
+def unique_topk_bytes(B, W, k, valid) -> int:
+    """The bytes unique_topk must move: d and ids read once, a valid byte
+    for each entry (at most the whole mask), the outputs written."""
+    return B * W * 8 + B * k * 8 + (0 if valid is None
+                                    else min(B * W, valid.shape[0]))
+
+
+def check_unique_topk(torch, dev) -> dict:
+    """unique_topk (csrc/unique_topk.cu) against its plain version on the
+    CPU, bit for bit, at the paths' shapes; times of the kernel, the plain
+    version and the chain it replaced at the two search slices."""
+    from alayalite_tpu_torch.ops.unique_topk import (unique_topk,
+                                                     unique_topk_ref)
+    from alayalite_tpu_torch.utils.timing import bound, cuda_ms
+
+    rng = np.random.default_rng(21)
+    out = {"checked": [], "at": {}}
+    for B, W, k, with_valid in UNIQUE_TOPK_SHAPES:
+        d, ids, valid = unique_topk_inputs(torch, rng, B, W, k, with_valid,
+                                           dev)
+        got = unique_topk(d, ids, k, valid)
+        torch.cuda.synchronize()
+        want = unique_topk_ref(d.cpu(), ids.cpu(), k,
+                               None if valid is None else valid.cpu())
+        if not (_same_bits(got[0].cpu(), want[0])
+                and _same_bits(got[1].cpu(), want[1])):
+            raise AssertionError(f"unique_topk differs from its plain "
+                                 f"version at {(B, W, k)}")
+        out["checked"].append([B, W, k, with_valid])
+        if (B, W, k, with_valid) not in UNIQUE_TOPK_SHAPES[:2]:
+            continue
+        args = (d, ids, k, valid)
+        b = bound(unique_topk_bytes(B, W, k, valid), 0, "f32")
+        times = {"ms": cuda_ms(lambda: unique_topk(*args)),
+                 "ms_spin": cuda_ms(lambda: unique_topk(*args), spin=True),
+                 "plain_ms": cuda_ms(lambda: unique_topk_ref(*args)),
+                 "library_ms": cuda_ms(lambda: unique_topk_chain(torch,
+                                                                 *args)),
+                 "library_ms_spin": cuda_ms(
+                     lambda: unique_topk_chain(torch, *args), spin=True)}
+        out["at"][str((B, W, k))] = {**b, **times}
+        log(f"kernel unique_topk {(B, W, k)}: {times['ms']:.4f} ms "
+            f"({times['ms_spin']:.4f} device alone), plain "
+            f"{times['plain_ms']:.4f} ms, the net + top k "
             f"{times['library_ms']:.4f} ms ({times['library_ms_spin']:.4f}), "
             f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
         torch.cuda.empty_cache()
@@ -2410,12 +2521,16 @@ def new_counters():
     """The kernels the SDK and rabitq phases can launch: the pool's three,
     the stale check, gather_diagdot, their launches by kernel, and the hop
     estimates (gather_estimate through a raw insert's shadow,
-    block_diagdot on the rabitq hop), the distance tile."""
+    block_diagdot on the rabitq hop), the distance tile, the block
+    search's final selection (unique_topk)."""
     from alayalite_tpu_torch.ops.diagdot import block_diagdot
     from alayalite_tpu_torch.ops.gather_diagdot import gather_estimate
     from alayalite_tpu_torch.ops.l2_tile import l2_tile
 
-    return (*pool_counters(), gather_estimate, block_diagdot, l2_tile)
+    from alayalite_tpu_torch.ops.unique_topk import unique_topk
+
+    return (*pool_counters(), gather_estimate, block_diagdot, l2_tile,
+            unique_topk)
 
 
 class Launches:
@@ -4185,7 +4300,7 @@ def distance_mismatches(torch, dev, data, queries, ids, dist):
 
 def sharded_searches(torch, dev, idx, queries, gt, efs, launches, step: str,
                      need=("gather_estimate", "ring_probe", "pool_merge",
-                           "sort_kv")) -> tuple:
+                           "unique_topk")) -> tuple:
     """Each ef searched in both device modes (a warm-up call, then the
     counts set to 0 and one synchronised call): ({mode: {ef: numbers}},
     {mode: ids at the last ef}). Fails where a mode took the other path or
@@ -4630,12 +4745,14 @@ def main() -> int:
     report.update(check_pool_sort(torch, dev))
     report["sq8_gather"] = check_sq8_gather(torch, dev)
     report["seed_scan"] = check_seed_scan(torch, dev)
+    report["unique_topk"] = check_unique_topk(torch, dev)
     # the kernels of every block hop, and the hops (estimate_many calls)
     hop = (gather_estimate, ring_probe,
            CallCount(gather_estimate, "estimate_many_calls"))
     # pool_merge, sort_kv, merge_kv, and the launches by kernel of
     # pool_merge, sort_kv and ring_probe
     pool = (*pool_counters()[:3], *pool_counters()[5:])
+    from alayalite_tpu_torch.ops.unique_topk import unique_topk
 
     t = time.time()
     # bench.py's synthetic SIFT1M stand-in: one cluster per 2000 rows
@@ -4695,7 +4812,8 @@ def main() -> int:
     search_launches = {c.__name__: 0 for c in hop}
     for ef in EFS:
         ids, dist, wall, launches = timed_search(
-            torch, idx, ds.queries, K, (*hop, *pool), ef_search=ef)
+            torch, idx, ds.queries, K, (*hop, *pool, unique_topk),
+            ef_search=ef)
         for c in pool:
             bsq8_pool[c.__name__] += launches[c.__name__]
         for kernel in search_launches:
@@ -4704,8 +4822,10 @@ def main() -> int:
         rec = calc_recall(ids, gt)
         log(f"search ef={ef}: recall@10 {rec:.4f}, {NQ / wall:.1f} QPS "
             f"(wall {wall:.3f}s), launches {launches}")
+        # the final selection is unique_topk's: a block search sorts no
+        # list with sort_kv
         if min(launches[k] for k in (*search_launches, "pool_merge",
-                                     "sort_kv")) <= 0:
+                                     "unique_topk")) <= 0:
             raise AssertionError("the search launched a hop kernel no time")
         if launches["gather_estimate"] != launches["estimate_many_calls"]:
             raise AssertionError("a hop's estimate_many did not launch "
@@ -5089,6 +5209,7 @@ def main() -> int:
                   "removed_in_live_rows": churn["removed_in_live_rows"]},
         "raw": report["raw"], "sq8_gather": report["sq8_gather"],
         "seed_scan": report["seed_scan"],
+        "unique_topk": report["unique_topk"],
         "estimate_many": report["estimate_many"],
         "bsq8_pool_launches": bsq8_pool,
         "flat": {k: report["flat"][k] for k in ("fit_s", "exact", "fast")},
