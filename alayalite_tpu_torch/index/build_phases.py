@@ -5,8 +5,7 @@ Every heavy intermediate stays on the device; the JAX package's
 chunk's rows into a preallocated output in place. The prune phases and the
 two-hop pools run their chunks through ``captured.run_chunks``: one shape a
 phase (the tail chunk overlaps), the chunk's row ids an input, no host
-sync, and on the card each chunk one replay of a captured graph. The
-private ``_capture=False`` runs them uncaptured, for a comparison. A
+sync, and on the card each chunk one replay of a captured graph. A
 builder's ``PhaseTimer`` runs each phase in a ``captured.scope()``, so no
 graph of a fit, nor its memory pool, outlives its phase.
 
@@ -98,8 +97,8 @@ def _pool_seeds(eps_dev, qj, n, n_rand_seeds, gen, seed_sample):
 
 def search_pool_dev(space, nbrs_dev: Tensor, eps: np.ndarray, ef: int,
                     n: int, chunk: int = 4096, n_rand_seeds: int = 16,
-                    seed: int = 0, max_iters: int = 0, seed_sample=None,
-                    _capture: bool = True) -> Tuple[Tensor, Tensor]:
+                    seed: int = 0, max_iters: int = 0,
+                    seed_sample=None) -> Tuple[Tensor, Tensor]:
     """Beam-search pool for each of the first n nodes' own vectors over
     the adjacency ``nbrs_dev``. Returns (pool_d [n, ef], pool_i [n, ef])."""
     dev = space.device
@@ -112,8 +111,7 @@ def search_pool_dev(space, nbrs_dev: Tensor, eps: np.ndarray, ef: int,
         qj = space.data[lo:lo + chunk].float()
         seeds = _pool_seeds(eps_dev, qj, n, n_rand_seeds, gen, seed_sample)
         d, i = beam_search(space, nbrs_dev, seeds, qj, k=ef, ef=ef,
-                           n_expand=8, max_iters=max_iters,
-                           _capture=_capture)
+                           n_expand=8, max_iters=max_iters)
         pool_d[lo:lo + chunk] = d
         pool_i[lo:lo + chunk] = i
     return pool_d, pool_i
@@ -121,8 +119,8 @@ def search_pool_dev(space, nbrs_dev: Tensor, eps: np.ndarray, ef: int,
 
 def block_pool_dev(bspace, eps: np.ndarray, ef: int, n: int,
                    chunk: int = 4096, n_rand_seeds: int = 16, seed: int = 0,
-                   max_iters: int = 0, seed_sample=None, n_expand: int = 8,
-                   _capture: bool = True) -> Tuple[Tensor, Tensor]:
+                   max_iters: int = 0, seed_sample=None,
+                   n_expand: int = 8) -> Tuple[Tensor, Tensor]:
     """Beam-search pools over a block space whose neighbor blocks were
     packed from the kNN graph: one ``gather_estimate`` and one ``ring_probe``
     per hop. The in-search exact rerank makes the returned pool_d exact f32."""
@@ -136,16 +134,14 @@ def block_pool_dev(bspace, eps: np.ndarray, ef: int, n: int,
         qj = bspace.data[lo:lo + chunk]
         seeds = _pool_seeds(eps_dev, qj, n, n_rand_seeds, gen, seed_sample)
         d, i = block_beam_search(bspace, seeds, qj, k=ef, ef=ef,
-                                 n_expand=n_expand, max_iters=max_iters,
-                                 _capture=_capture)
+                                 n_expand=n_expand, max_iters=max_iters)
         pool_d[lo:lo + chunk] = d
         pool_i[lo:lo + chunk] = i
     return pool_d, pool_i
 
 
 def twohop_pool_dev(space, knn_i: Tensor, ef: int, n: int,
-                    chunk: int = 4096,
-                    _capture: bool = True) -> Tuple[Tensor, Tensor]:
+                    chunk: int = 4096) -> Tuple[Tensor, Tensor]:
     """Pools from the kNN graph alone: each node's kNN row ∪ its
     neighbors' kNN rows (a [C, K + K²] gather a chunk), itself dropped,
     scored exactly, duplicates dropped, the ``ef`` best kept. Returns
@@ -167,7 +163,7 @@ def twohop_pool_dev(space, knn_i: Tensor, ef: int, n: int,
         return sd[:, :ef], si[:, :ef]
 
     return run_chunks("twohop_pool", one_chunk, n, chunk, (knn_i[:n],),
-                      reads=(space, knn_i), static=(ef,), capture=_capture)
+                      reads=(space, knn_i), static=(ef,))
 
 
 def _drop_self(cd: Tensor, ci: Tensor, rows: Tensor):
@@ -177,8 +173,7 @@ def _drop_self(cd: Tensor, ci: Tensor, rows: Tensor):
 
 
 def prune_all_dev(space, cand_d: Tensor, cand_i: Tensor, r: int,
-                  alpha: float = 1.0, chunk: int = 4096,
-                  _capture: bool = True) -> Tensor:
+                  alpha: float = 1.0, chunk: int = 4096) -> Tensor:
     """Occlusion-prune every node's candidate row (self-edges dropped). On
     the card each chunk is one replay (``captured.run_chunks``)."""
     def one_chunk(rows, cd, ci):
@@ -187,7 +182,7 @@ def prune_all_dev(space, cand_d: Tensor, cand_i: Tensor, r: int,
 
     return run_chunks("prune", one_chunk, cand_i.shape[0], chunk,
                       (cand_d, cand_i), reads=(space,),
-                      static=(r, float(alpha)), capture=_capture)[0]
+                      static=(r, float(alpha)))[0]
 
 
 _SCRAMBLE = 0x9E3779B1     # odd: position -> priority is a bijection mod 2^32
@@ -232,8 +227,7 @@ def reverse_edges_dev(nbrs: Tensor, gen: torch.Generator,
 
 
 def reprune_with_reverse_dev(space, nbrs: Tensor, rev: Tensor, r: int,
-                             alpha: float = 1.0, chunk: int = 4096,
-                             _capture: bool = True) -> Tensor:
+                             alpha: float = 1.0, chunk: int = 4096) -> Tensor:
     """Re-prune every node over [current edges ∪ reverse candidates]. On
     the card each chunk is one replay (``captured.run_chunks``)."""
     def one_chunk(rows, nb, rv):
@@ -248,11 +242,11 @@ def reprune_with_reverse_dev(space, nbrs: Tensor, rev: Tensor, r: int,
 
     return run_chunks("reprune", one_chunk, nbrs.shape[0], chunk,
                       (nbrs, rev), reads=(space,),
-                      static=(r, float(alpha)), capture=_capture)[0]
+                      static=(r, float(alpha)))[0]
 
 
 def fill_degree_dev(nbrs: Tensor, cand_d: Tensor, cand_i: Tensor, r: int,
-                    chunk: int = 4096, _capture: bool = True) -> Tensor:
+                    chunk: int = 4096) -> Tensor:
     """Pad every row to exactly r edges with its nearest unused candidates
     (keep-first dedup of [row ‖ candidates by distance], compacted left).
     On the card each chunk is one replay (``captured.run_chunks``)."""
@@ -275,5 +269,4 @@ def fill_degree_dev(nbrs: Tensor, cand_d: Tensor, cand_i: Tensor, r: int,
         return (vals,)
 
     return run_chunks("fill", one_chunk, nbrs.shape[0], chunk,
-                      (nbrs, cand_d, cand_i), static=(r,),
-                      capture=_capture)[0]
+                      (nbrs, cand_d, cand_i), static=(r,))[0]

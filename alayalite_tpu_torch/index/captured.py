@@ -41,31 +41,31 @@ buffers and returns (JAX's donated buffers), and ``warm``, a cheaper call
 that launches every kind of kernel ``fn`` does (part of one chunk of a
 round, on scratch state), takes the warm-up's place.
 
-On a CPU tensor, with ``capture=False`` (a private argument of the search,
-build and insert functions that only comparisons pass), inside another
-capture, or where a
-tensor that ``fn`` reads lies on another device than the inputs (the
-distributed beam of ``parallel/dist_graph`` across cards), ``fn`` is called
-as it is.
+On a CPU tensor, inside ``eager()``, inside another capture or replay, or
+where a tensor that ``fn`` reads lies on another device than the inputs
+(the distributed beam of ``parallel/dist_graph`` across cards), ``fn`` is
+called as it is. ``eager()`` is how a comparison runs a search, a fit or an
+insert uncaptured: ``with captured.eager(): eng.fit(x)`` runs every slice
+of the fit as plain launches, on this thread only (a ``SearchServer``'s
+dispatcher thread keeps replaying), and the kernels' counters count them
+as launched.
 
 The key of a graph holds ``name``, ``static`` (the Python values the caller
 fixes: k, ef, M, max_iters, ...), the padded B, each input's trailing shape
-(``run_inplace``: its whole shape) and dtype, TF32's switch and the two
-gather variants, and the state of ``reads`` (and ``writes``): each tensor's
-``data_ptr()``, shape, strides and dtype, and each scalar field of a
-dataclass in it. Capture freezes scalars into the graph,
-so a key that missed one would replay stale work. The scalars the captured
-code reads, audited:
+(``run_inplace``: its whole shape) and dtype, TF32's switch, and the state
+of ``reads`` (and ``writes``): each tensor's ``data_ptr()``, shape, strides
+and dtype, and each scalar field of a dataclass in it. Capture freezes
+scalars into the graph, so a key that missed one would replay stale work.
+The scalars the captured code reads, audited:
 
   search.py           B, k, ef, M, max_iters, visited_mode, exact_rerank
                       (``static``); ``space.capacity`` (a shape);
                       ``space.metric`` (``exact_rescore``); ``nseed``;
   spaces/raw.py       ``capacity``, ``bf16``, ``metric``;
   spaces/sq.py        ``capacity``, ``bits`` (``levels``), ``dim``,
-                      ``metric``, ``GATHER_VARIANT``;
+                      ``metric``;
   spaces/bqg.py       ``capacity``, ``dim`` / ``code_dim`` (shapes),
-                      ``metric`` (the estimate's coefficient and clamp),
-                      ``ESTIMATE_VARIANT``;
+                      ``metric`` (the estimate's coefficient and clamp);
   spaces/rabitq.py    ``capacity``, ``bits``, ``code_dim`` (shapes);
   parallel/dist_graph ``DistSlab.n_total``, ``metric``;
   prune.py            r, alpha (its ``passes``), bf16 (``static``; bf16 is
@@ -132,6 +132,7 @@ memory, and one whose phases shared one pool, freed when the fit ended,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -196,13 +197,6 @@ def _walk(x, tensors: list):
                       for f in dataclasses.fields(x)
                       if f.name not in _NOT_READ))
     raise TypeError(f"cannot key a captured search on {type(x).__name__}")
-
-
-def _globals() -> tuple:
-    from ..spaces import bqg, sq
-
-    return (torch.backends.cuda.matmul.allow_tf32, bqg.ESTIMATE_VARIANT,
-            sq.GATHER_VARIANT)
 
 
 def _counted() -> tuple:
@@ -365,8 +359,20 @@ def _capture(st: _DeviceState, pool, fn, static_in: Tuple[Tensor, ...],
                   weakref.ref(static_in[0] if owner is None else owner))
 
 
-def _uncaptured(capture: bool, dev: torch.device) -> bool:
-    return (not capture or dev.type != "cuda" or getattr(_tls, "busy", False)
+@contextlib.contextmanager
+def eager():
+    """Inside (on this thread), ``run``, ``run_chunks`` and ``run_inplace``
+    call ``fn`` as it is: no key, no capture, no replay (see the module's
+    docstring). Scopes nest."""
+    _tls.eager = getattr(_tls, "eager", 0) + 1
+    try:
+        yield
+    finally:
+        _tls.eager -= 1
+
+
+def _uncaptured(dev: torch.device) -> bool:
+    return (dev.type != "cuda" or getattr(_tls, "eager", 0) > 0
             or torch.cuda.is_current_stream_capturing())
 
 
@@ -378,48 +384,44 @@ def _replay(dev, key, make, inputs: Tuple[Tensor, ...], B: int,
     replay, and every output cloned (its first B rows where ``cut``)."""
     with trace.span("alaya.captured.replay", graph=key[0],
                     rows=inputs[0].shape[0]) as replay, _lock, \
-            torch.cuda.device(dev):
-        _tls.busy = True
-        try:
-            st = _state(dev)
-            entries, pool = (_scopes()[-1].where(dev) if _scopes()
-                             else (st.entries, st.pool))
-            ent = entries.pop(key, None)
-            hit = ent is not None
-            if not hit:
-                with trace.span("alaya.captured.capture", graph=key[0]):
-                    ent = make(st, pool)
-            replay.set(hit=hit, bucket=ent.static_in[0].shape[0])
-            entries[key] = ent                        # most recent last
-            while entries is st.entries and len(entries) > MAX_GRAPHS:
-                del entries[next(iter(entries))]
-            stream = torch.cuda.current_stream(dev)
-            stream.wait_event(st.done)
-            for buf, x in zip(ent.static_in, inputs):
-                if not cut:
-                    buf.copy_(x)
-                    continue
-                buf[:B].copy_(x)
-                if B < buf.shape[0]:
-                    buf[B:].zero_()
-            ent.graph.replay()
-            out = tuple((o[:B] if cut else o).clone()
-                        for o in ent.static_out)
-            st.done.record(stream)
-            _add(ent.delta, +1)
-            stats["replays"] += 1
-            return out
-        finally:
-            _tls.busy = False
+            torch.cuda.device(dev), eager():       # fn's own runs: as they are
+        st = _state(dev)
+        entries, pool = (_scopes()[-1].where(dev) if _scopes()
+                         else (st.entries, st.pool))
+        ent = entries.pop(key, None)
+        hit = ent is not None
+        if not hit:
+            with trace.span("alaya.captured.capture", graph=key[0]):
+                ent = make(st, pool)
+        replay.set(hit=hit, bucket=ent.static_in[0].shape[0])
+        entries[key] = ent                        # most recent last
+        while entries is st.entries and len(entries) > MAX_GRAPHS:
+            del entries[next(iter(entries))]
+        stream = torch.cuda.current_stream(dev)
+        stream.wait_event(st.done)
+        for buf, x in zip(ent.static_in, inputs):
+            if not cut:
+                buf.copy_(x)
+                continue
+            buf[:B].copy_(x)
+            if B < buf.shape[0]:
+                buf[B:].zero_()
+        ent.graph.replay()
+        out = tuple((o[:B] if cut else o).clone()
+                    for o in ent.static_out)
+        st.done.record(stream)
+        _add(ent.delta, +1)
+        stats["replays"] += 1
+        return out
 
 
-def run(name: str, fn, inputs: Sequence[Tensor], reads=(), static=(),
-        capture: bool = True) -> Tuple[Tensor, ...]:
+def run(name: str, fn, inputs: Sequence[Tensor], reads=(),
+        static=()) -> Tuple[Tensor, ...]:
     """``fn(*inputs)``, replayed from a captured graph on the card (see the
     module's docstring); a tuple of tensors."""
     inputs = tuple(inputs)
     dev = inputs[0].device
-    if _uncaptured(capture, dev):
+    if _uncaptured(dev):
         return tuple(fn(*inputs))
     tensors: list = []
     rkey = _walk(reads, tensors)
@@ -429,7 +431,7 @@ def run(name: str, fn, inputs: Sequence[Tensor], reads=(), static=(),
     Bp = bucket(B)
     key = (name, tuple(static), Bp,
            tuple((tuple(x.shape[1:]), x.dtype) for x in inputs), rkey,
-           _globals())
+           torch.backends.cuda.matmul.allow_tf32)
 
     def make(st, pool):
         static_in = tuple(pad_rows(x, Bp).clone() for x in inputs)
@@ -450,7 +452,7 @@ def chunk_starts(n: int, chunk: int) -> Tuple[list, int]:
 
 
 def run_chunks(name: str, fn, n: int, chunk: int, inputs, reads=(),
-               static=(), capture: bool = True) -> Tuple[Tensor, ...]:
+               static=()) -> Tuple[Tensor, ...]:
     """A build phase's chunk loop: ``fn(rows, *[x[rows] for x in
     inputs])`` for every chunk of [0, n) (``chunk_starts``), where ``rows``
     [C] i32 are the chunk's row ids, an input like the others, so that one
@@ -464,7 +466,7 @@ def run_chunks(name: str, fn, n: int, chunk: int, inputs, reads=(),
     for lo in starts:
         got = run(name, fn, (ids[lo:lo + chunk],
                              *(x[lo:lo + chunk] for x in inputs)),
-                  reads, static, capture)
+                  reads, static)
         if outs is None:
             outs = tuple(torch.empty((n, *g.shape[1:]), dtype=g.dtype,
                                      device=g.device) for g in got)
@@ -475,7 +477,7 @@ def run_chunks(name: str, fn, n: int, chunk: int, inputs, reads=(),
 
 def run_inplace(name: str, fn, inputs: Sequence[Tensor],
                 idle: Sequence[Tensor], writes=(), reads=(), static=(),
-                capture: bool = True, warm=None) -> Tuple[Tensor, ...]:
+                warm=None) -> Tuple[Tensor, ...]:
     """``fn(*inputs)`` where ``fn`` writes the tensors in ``writes`` in
     place (an insert's connect step: the adjacency and the block space),
     replayed from a captured graph on the card; a tuple of tensors.
@@ -493,14 +495,14 @@ def run_inplace(name: str, fn, inputs: Sequence[Tensor],
     cost a whole round of the work)."""
     inputs, idle = tuple(inputs), tuple(idle)
     dev = inputs[0].device
-    if _uncaptured(capture, dev):
+    if _uncaptured(dev):
         return tuple(fn(*inputs))
     tensors: list = []
     wkey = _walk(writes, tensors)
     rkey = _walk(reads, tensors)
     key = (name, tuple(static),
            tuple((tuple(x.shape), x.dtype) for x in inputs), wkey, rkey,
-           _globals())
+           torch.backends.cuda.matmul.allow_tf32)
 
     def make(st, pool):
         static_in = tuple(x.clone() for x in idle)

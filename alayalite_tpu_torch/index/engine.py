@@ -57,7 +57,7 @@ from ..spaces.bqg import BQGSpace
 from ..spaces.rabitq import RaBitQSpace
 from ..spaces.raw import RawSpace
 from ..spaces.sq import SQSpace
-from .captured import bucket, pad_rows
+from .captured import bucket, eager, pad_rows
 from .graph import Graph
 
 log = logging.getLogger("alayalite_tpu_torch")
@@ -124,9 +124,8 @@ class IndexEngine:
 
     # ------------------------------------------------------------------ fit
     def fit(self, vectors, ef_construction: Optional[int] = None,
-            num_threads: int = 1, _capture: bool = True) -> None:
-        """Build the index over ``vectors`` [n, dim] (``_capture=False``:
-        every build phase uncaptured, for a comparison)."""
+            num_threads: int = 1) -> None:
+        """Build the index over ``vectors`` [n, dim]."""
         del num_threads
         v = torch.as_tensor(np.asarray(vectors, dtype=np.float32)
                             if not isinstance(vectors, torch.Tensor)
@@ -154,7 +153,7 @@ class IndexEngine:
                                 ef=max(p.ef_construction, 128),
                                 alpha=float(p.prune_alpha))
             self.graph, self.search_space = builder.build_graph(
-                self.space, block, n, _capture=_capture)
+                self.space, block, n)
             self.build_timings = dict(builder.timings)
         else:
             bits = {QuantizationType.SQ8: 8,
@@ -174,8 +173,7 @@ class IndexEngine:
                 self.graph = self._build_sharded(n)
             else:
                 builder = _make_builder(p)
-                self.graph = builder.build_graph(self.space, n,
-                                                 _capture=_capture)
+                self.graph = builder.build_graph(self.space, n)
                 self.build_timings = dict(builder.timings)
         self._fitted = True
         synchronize(self.device)
@@ -250,10 +248,13 @@ class IndexEngine:
     def _batch_search_impl(self, queries, topk: int, ef: int = 100,
                            num_threads: int = 1, _capture: bool = True):
         """Device tensors (ids [Q, topk] i32, dists [Q, topk] f32).
-        ``_capture=False`` runs the same slices uncaptured, for a
-        comparison on the card; no entry point passes it."""
+        ``_capture=False`` runs the search inside ``captured.eager()``: the
+        benchmark's roofline probes pass it; no entry point does."""
         from .search import block_search_device
 
+        if not _capture:
+            with eager():
+                return self._batch_search_impl(queries, topk, ef)
         del num_threads
         self._require_fitted()
         with trace.span("alaya.engine.queries_in") as copy_in:
@@ -268,7 +269,7 @@ class IndexEngine:
             return self._flat_search(q, topk)
         ef = self._pool(topk, ef)
         if not self._is_block:
-            return self._graph_search(q, topk, ef, _capture)
+            return self._graph_search(q, topk, ef)
         qchunk = 1024 if self.space.dim >= 512 else 4096
         seed_arrays = self._seed_scan_arrays()
         if (seed_arrays is None and self.params.seed_sample <= 0
@@ -284,7 +285,7 @@ class IndexEngine:
             self.search_space.prep_query(q), k=topk, ef=ef,
             valid=self.space.valid, max_iters=self.params.search_iters,
             n_expand=self.params.beam_expand, qchunk=qchunk,
-            seed_sample=seed_arrays, _capture=_capture)
+            seed_sample=seed_arrays)
         if self.space.user_metric == "cos":
             # block spaces score squared L2 of normalized vectors (2 − 2cos);
             # return the −cos convention of every other path
@@ -318,8 +319,7 @@ class IndexEngine:
     def _is_block(self) -> bool:
         return self.params.quantization_type.is_block
 
-    def _graph_search(self, q: torch.Tensor, topk: int, ef: int,
-                      _capture: bool = True):
+    def _graph_search(self, q: torch.Tensor, topk: int, ef: int):
         """Raw graph search. Raw space: descent, beam and exact re-score of
         the k results. sq space: the walk keeps a pool of ``ef`` ids by the
         quantized distance, re-ranked exactly in the build space."""
@@ -327,7 +327,7 @@ class IndexEngine:
 
         g, p = self.graph, self.params
         kw = dict(max_iters=p.search_iters, valid=self.space.valid,
-                  n_expand=p.beam_expand, _capture=_capture)
+                  n_expand=p.beam_expand)
         if self.search_space is self.space:
             d, i = graph_search_device(self.space, g.nbrs, g.eps, g.overlay,
                                        self.space.prep_query(q), k=topk,
@@ -397,30 +397,27 @@ class IndexEngine:
             return arrays
 
     # --------------------------------------------------------------- update
-    def insert(self, vectors, ef: int = 100,
-               _capture: bool = True) -> np.ndarray:
+    def insert(self, vectors, ef: int = 100) -> np.ndarray:
         """Append rows. A flat index stores them in both spaces; a block
         index also links them into the graph (``fused_block_insert``), a
         raw graph index through ``_insert_raw_graph``. Returns the new ids,
-        −1 where capacity was exhausted (``Index.insert`` raises).
-        ``_capture=False``: the slices uncaptured, for a comparison."""
+        −1 where capacity was exhausted (``Index.insert`` raises)."""
         self._require_fitted()
         v = torch.atleast_2d(torch.as_tensor(
             np.asarray(vectors, dtype=np.float32), device=self.device))
         if self.params.quantization_type is QuantizationType.BSQ8:
-            ids = self._insert_block_fused(v, ef, _capture)
+            ids = self._insert_block_fused(v, ef)
         elif self._is_block:
             ids = self._insert_rabitq(v, ef)
         elif self.graph is not None:
-            ids = self._insert_raw_graph(v, ef, _capture)
+            ids = self._insert_raw_graph(v, ef)
         else:
             ids = self.space.insert(v)
             if self.search_space is not self.space:
                 self.search_space.insert(v)
         return ids.cpu().numpy().astype(self._id_dtype, copy=False)
 
-    def _insert_block_fused(self, v: torch.Tensor, ef: int,
-                            _capture: bool = True) -> torch.Tensor:
+    def _insert_block_fused(self, v: torch.Tensor, ef: int) -> torch.Tensor:
         """bsq8 insert in slices of ``INSERT_CHUNK`` rows; each slice,
         padded to its bucket, is one ``fused_block_insert`` step and sees
         the slices before it. The raw space mirrors the same bump slots."""
@@ -442,8 +439,7 @@ class IndexEngine:
                 self.search_space, self.graph.nbrs, self.graph.eps,
                 pad_rows(sub, b), nq, pad_rows(slots, b),
                 self._seed_scan_arrays(), r=r, w=RESERVOIR,
-                ef=max(int(ef), r), iters=0, m=self.params.beam_expand,
-                _capture=_capture)
+                ef=max(int(ef), r), iters=0, m=self.params.beam_expand)
             self.space.insert(sub)
             out.append(ids[:nq])
         return torch.cat(out)
@@ -486,8 +482,7 @@ class IndexEngine:
         self.graph.nbrs[all_ids] = ss.nbr_ids[all_ids]
         return new_ids
 
-    def _insert_raw_graph(self, v: torch.Tensor, ef: int,
-                          _capture: bool = True) -> torch.Tensor:
+    def _insert_raw_graph(self, v: torch.Tensor, ef: int) -> torch.Tensor:
         """Raw graph insert in slices of ``INSERT_CHUNK`` rows, each seeing
         the slices before it: the neighbor search (through the bsq8 shadow
         where ``_shadow_auto_on``, else the index's own search, at
@@ -512,12 +507,10 @@ class IndexEngine:
                 shadow = self._ensure_ins_shadow()
             if shadow is not None:
                 ids_nb = self._shadow_insert_search(shadow, sub, r,
-                                                    ef=max(int(ef), r),
-                                                    _capture=_capture)
+                                                    ef=max(int(ef), r))
             else:
                 ids_nb, _ = self._batch_search_impl(sub, r,
-                                                    ef=max(int(ef), r),
-                                                    _capture=_capture)
+                                                    ef=max(int(ef), r))
             new_ids = self.space.insert(sub)
             if self.search_space is not self.space:
                 self.search_space.insert(sub)
@@ -531,11 +524,9 @@ class IndexEngine:
             nid = pad_rows(new_ids, b, -1)
             touched = fused_raw_connect(
                 self.space, self.graph.nbrs, nid, pad_rows(nrow, b, -1),
-                pad_rows(slots, b), row_w=row_w, w=RESERVOIR,
-                _capture=_capture)
+                pad_rows(slots, b), row_w=row_w, w=RESERVOIR)
             if shadow is not None:
-                self._shadow_sync(shadow, torch.cat([nid, touched]),
-                                  _capture)
+                self._shadow_sync(shadow, torch.cat([nid, touched]))
             extend_overlay(self.graph, self.space, new_ids.cpu().numpy(),
                            self._rng, r)
             out.append(new_ids)
@@ -567,8 +558,7 @@ class IndexEngine:
         return self._ins_shadow
 
     def _shadow_insert_search(self, shadow: BQGSpace, v: torch.Tensor,
-                              r: int, ef: int,
-                              _capture: bool = True) -> torch.Tensor:
+                              r: int, ef: int) -> torch.Tensor:
         """The insert's neighbor search through the shadow: the block
         search with the seed-scan sample, whose exact re-rank of the pool
         gives the f32 path's candidate order. Returns ids [B, r]."""
@@ -578,11 +568,10 @@ class IndexEngine:
             shadow, self.graph.eps, shadow.prep_query(v), k=r, ef=ef,
             valid=self.space.valid, max_iters=self.params.search_iters,
             n_expand=self.params.beam_expand, qchunk=INSERT_CHUNK,
-            seed_sample=self._seed_scan_arrays(), _capture=_capture)
+            seed_sample=self._seed_scan_arrays())
         return i
 
-    def _shadow_sync(self, shadow: BQGSpace, ids: torch.Tensor,
-                     _capture: bool = True) -> None:
+    def _shadow_sync(self, shadow: BQGSpace, ids: torch.Tensor) -> None:
         """After an append and a connect step: the shadow's bump counter
         (its rows, norms and valid mask are the raw space's own tensors)
         and the blocks of ``ids`` (−1 dropped, repeats allowed), re-encoded
@@ -598,7 +587,7 @@ class IndexEngine:
         captured.run_inplace("shadow_sync", sync, (ids,),
                              (torch.full_like(ids, -1),), writes=(shadow,),
                              reads=(self.graph.nbrs,),
-                             static=(bqg.ENCODE_CHUNK,), capture=_capture)
+                             static=(bqg.ENCODE_CHUNK,))
 
     def remove(self, ids) -> None:
         """Tombstone ``ids`` in both spaces; searches skip them. On a graph

@@ -80,22 +80,20 @@ def _batch_mates(space, v: Tensor, new_ids: Tensor):
 
 def fused_block_insert(space, graph_nbrs: Tensor, eps: Tensor, vecs: Tensor,
                        count: int, slot_rand: Tensor, seed_sample, r: int,
-                       w: int, ef: int, iters: int, m: int,
-                       _capture: bool = True) -> Tensor:
+                       w: int, ef: int, iters: int, m: int) -> Tensor:
     """Insert the first ``count`` rows of ``vecs`` [B, D] (the rest is the
     bucket's padding) into the block space and the adjacency
     ``graph_nbrs`` [C, R], both updated in place. ``slot_rand`` [B, r]
     (ints in [0, w)) are the reverse table's slots, drawn by the caller.
     Returns the new ids [B] i32, −1 for padding and where the capacity was
-    exhausted. ``_capture=False``: the same steps uncaptured, for a
-    comparison."""
+    exhausted."""
     B = vecs.shape[0]
     v = space.prep_query(vecs)
 
     # 1. edges for the new nodes, among the nodes that exist already
     d_nb, ids_nb = block_search_device(
         space, eps, v, k=r, ef=max(ef, r), max_iters=iters, valid=space.valid,
-        n_expand=m, qchunk=B, seed_sample=seed_sample, _capture=_capture)
+        n_expand=m, qchunk=B, seed_sample=seed_sample)
 
     # 2a. append at the bump pointer (insert_raw normalizes under cos)
     new_ids = space.insert_raw(vecs[:count])
@@ -114,8 +112,7 @@ def fused_block_insert(space, graph_nbrs: Tensor, eps: Tensor, vecs: Tensor,
         "block_connect", connect, inputs,
         (v, torch.full_like(new_ids, -1), d_nb, ids_nb, slot_rand),
         writes=(space, graph_nbrs),
-        static=(r, w, MATES, TOUCHED_CHUNK, bqg.ENCODE_CHUNK),
-        capture=_capture)
+        static=(r, w, MATES, TOUCHED_CHUNK, bqg.ENCODE_CHUNK))
     return new_ids
 
 
@@ -239,7 +236,7 @@ def _reprune_rows(space, graph_nbrs: Tensor, rev: Tensor, t: Tensor,
 def fused_raw_connect(space, graph_nbrs: Tensor, new_ids: Tensor,
                       new_rows: Tensor, slot_rand: Tensor, row_w: int,
                       alpha: float = 1.0, chunk: int = TOUCHED_CHUNK,
-                      w: int = 16, _capture: bool = True) -> Tensor:
+                      w: int = 16) -> Tensor:
     """Link a batch into a raw graph's adjacency ``graph_nbrs`` [C, row_w],
     in place. ``space`` holds the batch's rows already (slots ``new_ids``
     [B], −1 for padding and rows that did not fit); ``new_rows`` [B, r] are
@@ -265,8 +262,8 @@ def fused_raw_connect(space, graph_nbrs: Tensor, new_ids: Tensor,
     any of them is written, so repeated rows write identical rows. The
     touched rows go in slices of ``chunk`` to bound the [chunk, M, M] pair
     tensor, M = row_w + w. Fixed in shape, no host sync; on the card one
-    replay of an in-place graph (``captured.run_inplace``; ``_capture=
-    False``: uncaptured, for a comparison). The JAX package's sequential
+    replay of an in-place graph (``captured.run_inplace``). The JAX
+    package's sequential
     prune (``ALAYA_CONNECT_PRUNE=seq``) is left out: the parallel rule is
     its default."""
     def connect(new_ids, new_rows, slot_rand):
@@ -277,7 +274,7 @@ def fused_raw_connect(space, graph_nbrs: Tensor, new_ids: Tensor,
         "raw_connect", connect, (new_ids, new_rows, slot_rand),
         (torch.full_like(new_ids, -1), new_rows, slot_rand),
         writes=(graph_nbrs,), reads=(space,),
-        static=(row_w, float(alpha), chunk, w, MATES), capture=_capture)[0]
+        static=(row_w, float(alpha), chunk, w, MATES))[0]
 
 
 def _raw_connect(space, graph_nbrs: Tensor, new_ids: Tensor,

@@ -45,16 +45,15 @@ class FusionGraphBuilder:
     seed: int = 0
     timings: Dict[str, float] = dataclasses.field(default_factory=dict)
 
-    def build_graph(self, space, n: Optional[int] = None,
-                    _capture: bool = True) -> Graph:
+    def build_graph(self, space, n: Optional[int] = None) -> Graph:
         if n is None:
             n = space.num
         hnsw = HNSWBuilder(r=self.r, l=self.l, chunk=self.chunk,
                            alpha=self.alpha, seed=self.seed)
         nsg = NSGBuilder(r=self.r, l=max(self.l // 2, 64), chunk=self.chunk,
                          alpha=self.alpha, seed=self.seed)
-        primary = hnsw.build_graph(space, n, _capture=_capture)
-        secondary = nsg.build_graph(space, n, _capture=_capture)
+        primary = hnsw.build_graph(space, n)
+        secondary = nsg.build_graph(space, n)
         self.timings = {**{f"hnsw_{k}": v for k, v in hnsw.timings.items()},
                         **{f"nsg_{k}": v for k, v in nsg.timings.items()}}
         union = _union_rows(primary.nbrs[:n], secondary.nbrs[:n], 2 * self.r)

@@ -94,10 +94,8 @@ class HNSWBuilder:
     seed: int = 0
     timings: Dict[str, float] = dataclasses.field(default_factory=dict)
 
-    def build_graph(self, space, n: Optional[int] = None,
-                    _capture: bool = True) -> Graph:
-        """The graph over the first n rows of ``space``; ``_capture=False``
-        runs every phase uncaptured, for a comparison."""
+    def build_graph(self, space, n: Optional[int] = None) -> Graph:
+        """The graph over the first n rows of ``space``."""
         if n is None:
             n = space.num
         self.timings = {}
@@ -105,7 +103,7 @@ class HNSWBuilder:
         with PhaseTimer(space.device, "hnsw", self.timings) as phase:
             knn_d, knn_i = build_knn_graph(space, n, self.knn_k,
                                            max_iters=self.nnd_iters,
-                                           seed=self.seed, _capture=_capture)
+                                           seed=self.seed)
             phase("knn")
             overlay, top_global = _build_overlay(space, n, self.r, rng)
             ep = top_global if top_global is not None else 0
@@ -118,22 +116,20 @@ class HNSWBuilder:
             pchunk = min(self.chunk, 2048) if hidim else self.chunk
             pool_d, pool_i = search_pool_dev(
                 bf16_pool_space(space), knn_i, np.array([ep]), ef=ef, n=n,
-                chunk=pchunk, seed=self.seed, _capture=_capture)
+                chunk=pchunk, seed=self.seed)
             cand_i = torch.cat([pool_i, knn_i], dim=1)
             cand_d = torch.cat([pool_d, knn_d], dim=1)
             del pool_d, pool_i, knn_d, knn_i
             phase("pools")
 
             nbrs = prune_all_dev(space, cand_d, cand_i, r=self.r,
-                                 alpha=self.alpha, chunk=self.chunk,
-                                 _capture=_capture)
+                                 alpha=self.alpha, chunk=self.chunk)
             phase("prune")
             rev = reverse_edges_dev(nbrs, make_generator(space.device,
                                                          self.seed + 3),
                                     width=2 * self.r)
             nbrs = reprune_with_reverse_dev(space, nbrs, rev, r=self.r,
-                                            alpha=self.alpha, chunk=self.chunk,
-                                            _capture=_capture)
+                                            alpha=self.alpha, chunk=self.chunk)
             del rev
             if space.user_metric == "ip":
                 # under IP the occlusion rule collapses rows toward high-norm
@@ -141,10 +137,10 @@ class HNSWBuilder:
                 # with their nearest unused candidates. Under l2 / cos the
                 # occluded rows are navigable as they are.
                 nbrs = fill_degree_dev(nbrs, cand_d, cand_i, r=self.r,
-                                       chunk=self.chunk, _capture=_capture)
+                                       chunk=self.chunk)
             del cand_d, cand_i
             phase("reverse_reprune")
-            nbrs = repair_connectivity(space, nbrs, ep, _capture=_capture)
+            nbrs = repair_connectivity(space, nbrs, ep)
             phase("repair")
         extra = rng.integers(0, n, size=7).astype(np.int32)
         log.info("hnsw build: n=%d r=%d l=%d levels=%d", n, self.r, self.l,

@@ -18,8 +18,8 @@ random init's chunks are independent and go through ``run_chunks``. A
 round's random numbers are drawn before its replay, from the round's
 ``torch.Generator``, into inputs of narrow dtypes (``sel2`` over all
 chunks is ``n·s1·s2`` entries a round), so a captured and an uncaptured
-round draw the same numbers and give the same rows bit for bit
-(``_capture=False``: the same functions uncaptured, for a comparison).
+round (under ``captured.eager()``) draw the same numbers and give the
+same rows bit for bit.
 Nothing in a round syncs with the host; the cluster init makes one sync,
 the upload of its anchor ids (``INIT_SYNCS``). ``build_knn_graph.syncs``
 counts these stated host reads.
@@ -154,8 +154,8 @@ def _nnd_round(space, s_rev: int, chunk: int, knn_d, knn_i, sel1, slot,
 
 
 def nnd_block(space, knn_d: Tensor, knn_i: Tensor, gen, rounds: int, s1: int,
-              s2: int, s_rev: int, n_rand: int, chunk: int,
-              _capture: bool = True) -> Tuple[Tensor, Tensor, Tensor]:
+              s2: int, s_rev: int, n_rand: int,
+              chunk: int) -> Tuple[Tensor, Tensor, Tensor]:
     """``rounds`` NN-Descent rounds (JAX's ``_nnd_rounds_dev``), each round
     one replay on the card. Returns (knn_d, knn_i, changes [rounds] i64 on
     the device); the caller reads ``changes`` once."""
@@ -179,13 +179,12 @@ def nnd_block(space, knn_d: Tensor, knn_i: Tensor, gen, rounds: int, s1: int,
 
         knn_d, knn_i, c = captured.run_inplace(
             "nnd_round", fn, inputs, inputs, reads=(space,),
-            static=(s_rev, chunk), capture=_capture, warm=warm)
+            static=(s_rev, chunk), warm=warm)
         changes.append(c)
     return knn_d, knn_i, torch.stack(changes)
 
 
-def _init_random_knn(space, n: int, k: int, gen, chunk: int,
-                     _capture: bool = True):
+def _init_random_knn(space, n: int, k: int, gen, chunk: int):
     """Each row starts from ``k`` random nodes (itself moved to the next
     id), scored and deduplicated. The chunks are independent: on the card
     each is one replay (``captured.run_chunks``)."""
@@ -199,8 +198,7 @@ def _init_random_knn(space, n: int, k: int, gen, chunk: int,
         return _dedup_merge_fast(pd, torch.full_like(cc, -1), d, cc, k)
 
     return captured.run_chunks("nnd_init_random", one_chunk, n, chunk,
-                               (cand,), reads=(space,), static=(k,),
-                               capture=_capture)
+                               (cand,), reads=(space,), static=(k,))
 
 
 def _assign(space, n: int, chunk: int, a_vecs, a_sq):
@@ -248,8 +246,7 @@ def _score(space, n: int, k: int, chunk: int, *tables):
     return kd, ki
 
 
-def _init_cluster_knn(space, n: int, k: int, seed: int, chunk: int,
-                      _capture: bool = True):
+def _init_cluster_knn(space, n: int, k: int, seed: int, chunk: int):
     """Cluster-local init: random anchors → nearest anchor of every node
     (bf16 values, f32 products) → each node's row starts from k random
     members of its own cluster ∪ k random nodes. The assign and the score
@@ -274,7 +271,7 @@ def _init_cluster_knn(space, n: int, k: int, seed: int, chunk: int,
     (assign,) = captured.run_inplace(
         "nnd_assign", functools.partial(_assign, space, n, c),
         (a_vecs, a_sq), (a_vecs, a_sq), reads=(space,), static=(n, c),
-        capture=_capture, warm=warm_assign)
+        warm=warm_assign)
     order = torch.sort(assign, stable=True).indices.to(torch.int32)
     counts = torch.zeros((n_anchors,), dtype=torch.int32, device=dev)
     counts.scatter_add_(0, assign.long(), torch.ones_like(assign))
@@ -292,8 +289,7 @@ def _init_cluster_knn(space, n: int, k: int, seed: int, chunk: int,
 
     return captured.run_inplace(
         "nnd_score", functools.partial(_score, space, n, k, c), tables,
-        tables, reads=(space,), static=(n, k, c), capture=_capture,
-        warm=warm_score)
+        tables, reads=(space,), static=(n, k, c), warm=warm_score)
 
 
 SAMPLE_RATE = 0.5          # forward-edge sample per round, as a share of k
@@ -315,12 +311,10 @@ def round_shape(n: int, k: int, dim: int) -> dict:
 
 
 def build_knn_graph(space, n: int, k: int, max_iters: int = 0, seed: int = 0,
-                    cluster_init_min: int = 100_000,
-                    _capture: bool = True) -> Tuple[Tensor, Tensor]:
+                    cluster_init_min: int = 100_000) -> Tuple[Tensor, Tensor]:
     """Approximate kNN graph of the first ``n`` rows of ``space``:
     (dists [n, k] f32, ids [n, k] i32) on the space's device. Exact
-    all-pairs search up to EXACT_THRESHOLD rows. ``_capture=False`` runs
-    every step uncaptured, for a comparison."""
+    all-pairs search up to EXACT_THRESHOLD rows."""
     if max_iters <= 0:
         max_iters = (12 if n > 100_000
                      else max(12, int(np.log2(max(n, 2))) + 6))
@@ -332,20 +326,17 @@ def build_knn_graph(space, n: int, k: int, max_iters: int = 0, seed: int = 0,
     shape = round_shape(n, k, space.dim)
     t0 = time.time()
     if n > cluster_init_min:
-        knn_d, knn_i = _init_cluster_knn(space, n, k, seed,
-                                         chunk=shape["chunk"],
-                                         _capture=_capture)
+        knn_d, knn_i = _init_cluster_knn(space, n, k, seed, shape["chunk"])
     else:
         knn_d, knn_i = _init_random_knn(space, n, k,
                                         make_generator(space.device, seed),
-                                        chunk=shape["chunk"],
-                                        _capture=_capture)
+                                        chunk=shape["chunk"])
     gen = make_generator(space.device, seed + 1)
     it = 0
     while it < max_iters:
         rounds = min(BLOCK, max_iters - it)
         knn_d, knn_i, changes = nnd_block(space, knn_d, knn_i, gen, rounds,
-                                          _capture=_capture, **shape)
+                                          **shape)
         changes = changes.tolist()           # the block's one host read
         build_knn_graph.syncs += 1
         it += rounds

@@ -173,10 +173,8 @@ class NSGBuilder:
     seed: int = 0
     timings: Dict[str, float] = dataclasses.field(default_factory=dict)
 
-    def build_graph(self, space, n: Optional[int] = None,
-                    _capture: bool = True) -> Graph:
-        """The graph over the first n rows of ``space``; ``_capture=False``
-        runs every phase uncaptured, for a comparison."""
+    def build_graph(self, space, n: Optional[int] = None) -> Graph:
+        """The graph over the first n rows of ``space``."""
         from .build_phases import (PhaseTimer, make_generator, prune_all_dev,
                                    reprune_with_reverse_dev,
                                    reverse_edges_dev, search_pool_dev)
@@ -195,31 +193,28 @@ class NSGBuilder:
         with PhaseTimer(space.device, "nsg", self.timings) as phase:
             knn_d, knn_i = build_knn_graph(space, n, self.knn_k,
                                            max_iters=self.nnd_iters,
-                                           seed=self.seed, _capture=_capture)
+                                           seed=self.seed)
             phase("knn")
             ep = find_medoid(space, n)
             pool_d, pool_i = search_pool_dev(space, knn_i, np.array([ep]),
                                              ef=self.l, n=n, chunk=self.chunk,
-                                             seed=self.seed,
-                                             _capture=_capture)
+                                             seed=self.seed)
             cand_i = torch.cat([pool_i, knn_i], dim=1)[:, :self.c]
             cand_d = torch.cat([pool_d, knn_d], dim=1)[:, :self.c]
             del pool_d, pool_i, knn_d, knn_i
             phase("pools")
             nbrs = prune_all_dev(space, cand_d, cand_i, r=self.r,
-                                 alpha=self.alpha, chunk=self.chunk,
-                                 _capture=_capture)
+                                 alpha=self.alpha, chunk=self.chunk)
             del cand_d, cand_i
             phase("prune")
             rev = reverse_edges_dev(nbrs, make_generator(space.device,
                                                          self.seed + 3),
                                     width=self.c - self.r)
             nbrs = reprune_with_reverse_dev(space, nbrs, rev, r=self.r,
-                                            alpha=self.alpha, chunk=self.chunk,
-                                            _capture=_capture)
+                                            alpha=self.alpha, chunk=self.chunk)
             del rev
             phase("reverse_reprune")
-            nbrs = repair_connectivity(space, nbrs, ep, _capture=_capture)
+            nbrs = repair_connectivity(space, nbrs, ep)
             phase("repair")
         # the medoid first (NSG semantics), then spread extras, so queries
         # that land in a part linked only by thin repair chains converge

@@ -54,11 +54,9 @@ class QGBuilder:
     pool_mode: str = ""     # "" = by size; "beam" | "block" | "twohop"
     timings: Dict[str, float] = dataclasses.field(default_factory=dict)
 
-    def build_graph(self, raw_space, bqg_space, n: Optional[int] = None,
-                    _capture: bool = True):
+    def build_graph(self, raw_space, bqg_space, n: Optional[int] = None):
         """Returns (Graph with eps, the block space with encoded blocks):
-        ``bqg_space`` is a BQGSpace or a RaBitQSpace. ``_capture=False``
-        runs every phase uncaptured, for a comparison."""
+        ``bqg_space`` is a BQGSpace or a RaBitQSpace."""
         if n is None:
             n = raw_space.num
         if self.r != bqg_space.degree:
@@ -72,7 +70,7 @@ class QGBuilder:
             # residual kNN noise
             knn_d, knn_i = build_knn_graph(raw_space, n, KNN_K,
                                            max_iters=8 if n > 100_000 else 0,
-                                           seed=SEED, _capture=_capture)
+                                           seed=SEED)
             phase("knn")
             ep = find_medoid(raw_space, n)
             pool_mode = self.pool_mode or (
@@ -93,8 +91,7 @@ class QGBuilder:
             pool_ef = min(self.ef, 128)
             if pool_mode == "twohop":
                 pool_d, pool_i = twohop_pool_dev(raw_space, knn_i, ef=self.ef,
-                                                 n=n, chunk=CHUNK,
-                                                 _capture=_capture)
+                                                 n=n, chunk=CHUNK)
             elif pool_mode == "block":
                 # interim blocks from the kNN rows; the final encode below
                 # rewrites them from the real adjacency in the same buffer
@@ -102,36 +99,30 @@ class QGBuilder:
                 phase("interim_pack")
                 pool_d, pool_i = block_pool_dev(
                     bqg_space, np.array([ep]), ef=pool_ef, n=n, chunk=CHUNK,
-                    seed=SEED, max_iters=pool_iters, seed_sample=sample,
-                    _capture=_capture)
+                    seed=SEED, max_iters=pool_iters, seed_sample=sample)
             else:
                 pool_d, pool_i = search_pool_dev(
                     bf16_pool_space(raw_space), knn_i, np.array([ep]),
                     ef=pool_ef, n=n, chunk=CHUNK, seed=SEED,
-                    max_iters=pool_iters, seed_sample=sample,
-                    _capture=_capture)
+                    max_iters=pool_iters, seed_sample=sample)
             cand_i = torch.cat([pool_i, knn_i], dim=1)
             cand_d = torch.cat([pool_d, knn_d], dim=1)
             del pool_d, pool_i, knn_d, knn_i, sample
             phase(f"pools_{pool_mode}")
 
             nbrs = prune_all_dev(raw_space, cand_d, cand_i, r=self.r,
-                                 alpha=self.alpha, chunk=CHUNK,
-                                 _capture=_capture)
+                                 alpha=self.alpha, chunk=CHUNK)
             phase("prune")
             rev = reverse_edges_dev(nbrs, make_generator(dev, SEED + 3),
                                     width=2 * self.r)
             nbrs = reprune_with_reverse_dev(raw_space, nbrs, rev, r=self.r,
-                                            alpha=self.alpha, chunk=CHUNK,
-                                            _capture=_capture)
+                                            alpha=self.alpha, chunk=CHUNK)
             del rev
             phase("reverse_reprune")
-            nbrs = fill_degree_dev(nbrs, cand_d, cand_i, r=self.r,
-                                   chunk=CHUNK, _capture=_capture)
+            nbrs = fill_degree_dev(nbrs, cand_d, cand_i, r=self.r, chunk=CHUNK)
             del cand_d, cand_i
             phase("fill")
-            nbrs = repair_connectivity(raw_space, nbrs, ep,
-                                       _capture=_capture)
+            nbrs = repair_connectivity(raw_space, nbrs, ep)
             phase("repair")
             bqg_space.update_neighbors(nbrs, chunk=CHUNK)
             rng = np.random.default_rng(SEED + 17)

@@ -18,7 +18,6 @@ on the device; the attach is one fixed-shape replay (JAX's donated
 The round loop reads ``missing`` and ``n_comp`` on the host, as JAX does:
 so a repair makes one host sync a ``LOOP_CHUNK`` test and two a round
 (``repair_connectivity.syncs`` counts them).
-``_capture=False`` runs the same steps uncaptured, for a comparison.
 
 Difference from the JAX package: ``repair_connectivity`` there takes this
 device path only above 200k rows and repairs smaller graphs on the host
@@ -68,8 +67,7 @@ def _expand_steps(nbrs: Tensor, steps: int, reached: Tensor,
     return reached, frontier, frontier.any()
 
 
-def _expand_reached(nbrs: Tensor, reached: Tensor,
-                    capture: bool = True) -> Tensor:
+def _expand_reached(nbrs: Tensor, reached: Tensor) -> Tensor:
     """Grow ``reached`` to the directed-BFS fixpoint along ``nbrs`` rows
     (a new tensor): blocks of ``LOOP_CHUNK`` steps, one replay each on the
     card (its warm-up one step on scratch state), the host testing the
@@ -80,7 +78,7 @@ def _expand_reached(nbrs: Tensor, reached: Tensor,
         *state, more = captured.run_inplace(
             "repair_expand",
             functools.partial(_expand_steps, nbrs, LOOP_CHUNK), state, state,
-            reads=(nbrs,), static=(LOOP_CHUNK,), capture=capture,
+            reads=(nbrs,), static=(LOOP_CHUNK,),
             warm=lambda: _expand_steps(nbrs, 1, *(x.clone() for x in state)))
         more = bool(more)
         repair_connectivity.syncs += 1
@@ -104,8 +102,7 @@ def _label_steps(nbrs: Tensor, steps: int, mask: Tensor, labels: Tensor):
     return labels, changed
 
 
-def _component_labels(nbrs: Tensor, mask: Tensor,
-                      capture: bool = True) -> Tensor:
+def _component_labels(nbrs: Tensor, mask: Tensor) -> Tensor:
     """Min-label connected components of the subgraph induced by ``mask``
     (edges undirected). Returns int32 labels, the smallest member id of
     each component, n where ~mask. Blocks of ``LOOP_CHUNK`` steps, one
@@ -120,7 +117,7 @@ def _component_labels(nbrs: Tensor, mask: Tensor,
             "repair_labels",
             functools.partial(_label_steps, nbrs, LOOP_CHUNK),
             (mask, labels), (mask, labels), reads=(nbrs,),
-            static=(LOOP_CHUNK,), capture=capture,
+            static=(LOOP_CHUNK,),
             warm=lambda: _label_steps(nbrs, 1, mask, labels.clone()))
         changed = bool(changed)
         repair_connectivity.syncs += 1
@@ -209,16 +206,15 @@ def _attach_writes(nbrs: Tensor, reps: Tensor, srcs: Tensor,
     return (protected,)
 
 
-def _attach(nbrs: Tensor, reps: Tensor, srcs: Tensor, protected: Tensor,
-            capture: bool = True) -> Tensor:
+def _attach(nbrs: Tensor, reps: Tensor, srcs: Tensor,
+            protected: Tensor) -> Tensor:
     """``_attach_writes`` as one replay on the card (``nbrs`` written in
     place; the warm-up runs on pairs that are all invalid, which write
     nothing new). Returns the updated ``protected``."""
     idle = (torch.full_like(reps, nbrs.shape[0]), srcs, protected)
     return captured.run_inplace(
         "repair_attach", functools.partial(_attach_writes, nbrs),
-        (reps, srcs, protected), idle, writes=(nbrs,),
-        capture=capture)[0]
+        (reps, srcs, protected), idle, writes=(nbrs,))[0]
 
 
 def _nearest_scan(data: Tensor, sq: Tensor, tile: int, metric: str,
@@ -242,7 +238,7 @@ def _nearest_scan(data: Tensor, sq: Tensor, tile: int, metric: str,
 
 
 def _nearest_valid(qs: Tensor, data: Tensor, sq: Tensor, valid: Tensor,
-                   tile: int, metric: str, capture: bool = True) -> Tensor:
+                   tile: int, metric: str) -> Tensor:
     """``_nearest_scan`` over every tile, one replay on the card (its
     warm-up scans one tile)."""
     def warm():
@@ -252,20 +248,19 @@ def _nearest_valid(qs: Tensor, data: Tensor, sq: Tensor, valid: Tensor,
         "repair_nearest",
         functools.partial(_nearest_scan, data, sq, tile, metric),
         (qs, valid), (qs, valid), reads=(data, sq), static=(tile, metric),
-        capture=capture, warm=warm)[0]
+        warm=warm)[0]
 
 
 def repair_connectivity(space, nbrs: Tensor, ep: int, max_rounds: int = 24,
-                        tol: float = 2e-4, _capture: bool = True) -> Tensor:
+                        tol: float = 2e-4) -> Tensor:
     """Repair ``nbrs`` [n, r] (updated in place and returned) until at most
     ``tol·n`` nodes are unreachable from ``ep``, verified by a BFS from
-    scratch. ``_capture=False`` runs every step uncaptured, for a
-    comparison."""
+    scratch."""
     n = nbrs.shape[0]
     # fixed in shape: an element write from a Python value would copy it
     # from the host and sync
     seed = torch.arange(n, device=nbrs.device) == int(ep)
-    reached = _expand_reached(nbrs, seed, _capture)
+    reached = _expand_reached(nbrs, seed)
     protected = torch.zeros(nbrs.shape, dtype=torch.bool, device=nbrs.device)
     data_n, norms_n = space.data[:n], space.sq_norms[:n]
     verified = True
@@ -275,15 +270,14 @@ def repair_connectivity(space, nbrs: Tensor, ep: int, max_rounds: int = 24,
         if missing <= max(0, int(tol * n)) and rnd > 0:
             if verified:
                 break
-            reached = _expand_reached(nbrs, seed, _capture)
+            reached = _expand_reached(nbrs, seed)
             verified = True
             continue
         if missing == 0:
             break
         verified = False
         mask = ~reached
-        reps = _representatives(_component_labels(nbrs, mask, _capture),
-                                mask)
+        reps = _representatives(_component_labels(nbrs, mask), mask)
         n_comp = int((reps < n).sum())
         repair_connectivity.syncs += 1
         log.info("attach round %d: %d unreached in %d components", rnd,
@@ -292,10 +286,9 @@ def repair_connectivity(space, nbrs: Tensor, ep: int, max_rounds: int = 24,
             break
         qs = space.data[torch.clamp(reps, max=n - 1).long()].float()
         srcs = _nearest_valid(qs, data_n, norms_n, reached,
-                              tile=min(16384, n), metric=space.metric,
-                              capture=_capture)
-        protected = _attach(nbrs, reps, srcs, protected, _capture)
-        reached = _expand_reached(nbrs, reached, _capture)
+                              tile=min(16384, n), metric=space.metric)
+        protected = _attach(nbrs, reps, srcs, protected)
+        reached = _expand_reached(nbrs, reached)
     return nbrs
 
 

@@ -211,23 +211,22 @@ def _beam_search(space, nbrs: Tensor, seeds: Tensor, queries: Tensor, k: int,
 
 def beam_search(space, nbrs: Tensor, seeds: Tensor, queries: Tensor, k: int,
                 ef: int, max_iters: int = 0, valid: Optional[Tensor] = None,
-                n_expand: int = 1, visited_mode: str = "ring",
-                _capture: bool = True) -> Tuple[Tensor, Tensor]:
+                n_expand: int = 1,
+                visited_mode: str = "ring") -> Tuple[Tensor, Tensor]:
     """Beam search over a space with ``gather_dists`` and the adjacency
     ``nbrs`` [C, R]. ``valid`` [C] bool filters the results (tombstones:
     the walk still routes through removed nodes). ``visited_mode``: "ring"
     (the pop ring plus the merge's dedup, scatter-free) or "bitmask" (an
     exact bitset per query, [B, C / 32] words). Returns (dists [B, k] f32,
-    ids [B, k] i32, −1 absent). On the card one replay of a captured graph
-    (``_capture=False``: the same function uncaptured, for a comparison)."""
+    ids [B, k] i32, −1 absent). On the card one replay of a captured
+    graph."""
     if visited_mode not in ("ring", "bitmask"):
         raise ValueError(f"unknown visited_mode {visited_mode!r}")
     return run("beam_search",
                lambda s, q: _beam_search(space, nbrs, s, q, k, ef, max_iters,
                                          valid, n_expand, visited_mode),
                (seeds, queries), reads=(space, nbrs, valid),
-               static=(k, ef, max_iters, n_expand, visited_mode),
-               capture=_capture)
+               static=(k, ef, max_iters, n_expand, visited_mode))
 
 
 def _descend_steps(space, level_ids: Tensor, level_nbrs: Tensor,
@@ -252,8 +251,8 @@ def _descend_steps(space, level_ids: Tensor, level_nbrs: Tensor,
 
 
 def overlay_descend(space, level_ids: Tensor, level_nbrs: Tensor,
-                    level_down: Tensor, start: Tensor, queries: Tensor,
-                    _capture: bool = True) -> Tensor:
+                    level_down: Tensor, start: Tensor,
+                    queries: Tensor) -> Tensor:
     """Greedy descent within one overlay level, batched over queries: each
     query moves to its best neighbor while that improves. ``start`` [B]
     local indices; returns [B] local indices into the level below. The
@@ -274,22 +273,21 @@ def overlay_descend(space, level_ids: Tensor, level_nbrs: Tensor,
                               improved, queries, DESCENT_CHUNK)
 
     cur, cur_d, improved = run("descend_first", first, (start, queries),
-                               reads, (DESCENT_CHUNK,), _capture)
+                               reads, (DESCENT_CHUNK,))
     while True:
         overlay_descend.syncs += 1
         if not bool(improved.any()):
             break
         cur, cur_d, improved = run("descend_more", more,
                                    (cur, cur_d, improved, queries), reads,
-                                   (DESCENT_CHUNK,), _capture)
+                                   (DESCENT_CHUNK,))
     return level_down[cur.long()]
 
 
 overlay_descend.syncs = 0
 
 
-def graph_seeds(space, eps: Tensor, overlay, queries: Tensor,
-                _capture: bool = True) -> Tensor:
+def graph_seeds(space, eps: Tensor, overlay, queries: Tensor) -> Tensor:
     """Seed ids [B, S] for the beam: the overlay's greedy descent where the
     graph has one, else the stored entry points. The descent starts at the
     top level's first live slot (a removed slot has id −1); if the whole top
@@ -303,8 +301,7 @@ def graph_seeds(space, eps: Tensor, overlay, queries: Tensor,
     start = torch.argmax(live.to(torch.int8)).to(torch.int32)
     cur = start.expand(B)
     for lvl in overlay:
-        cur = overlay_descend(space, lvl.ids, lvl.nbrs, lvl.down, cur,
-                              queries, _capture)
+        cur = overlay_descend(space, lvl.ids, lvl.nbrs, lvl.down, cur, queries)
     ok = live.any() & (cur >= 0)
     return torch.where(ok, cur, eps[0])[:, None]
 
@@ -330,8 +327,7 @@ def graph_search_device(space, nbrs: Tensor, eps: Tensor, overlay,
                         q_all: Tensor, k: int, ef: int, max_iters: int = 0,
                         valid: Optional[Tensor] = None, n_expand: int = 8,
                         visited_mode: str = "ring", qchunk: int = 4096,
-                        exact_rerank: bool = True,
-                        _capture: bool = True) -> Tuple[Tensor, Tensor]:
+                        exact_rerank: bool = True) -> Tuple[Tensor, Tensor]:
     """The raw graph query over a batch padded as the JAX engine pads it
     (``captured.slice_rows``: slices of min(qchunk, bucket) rows, zero
     queries appended, their rows dropped): per slice the overlay descent,
@@ -351,10 +347,9 @@ def graph_search_device(space, nbrs: Tensor, eps: Tensor, overlay,
     outs_d, outs_i = [], []
     for lo in range(0, b, qchunk):
         q = q_all[lo:lo + qchunk]
-        seeds = graph_seeds(space, eps, overlay, q, _capture)
+        seeds = graph_seeds(space, eps, overlay, q)
         d, i = run("graph_beam", beam, (seeds, q), (space, nbrs, valid),
-                   (k, ef, max_iters, n_expand, visited_mode, exact_rerank),
-                   _capture)
+                   (k, ef, max_iters, n_expand, visited_mode, exact_rerank))
         outs_d.append(d)
         outs_i.append(i)
     return torch.cat(outs_d)[:nq], torch.cat(outs_i)[:nq]
@@ -437,8 +432,7 @@ def _block_beam_search(space, seeds: Tensor, queries: Tensor, k: int,
 
 def block_beam_search(space, seeds: Tensor, queries: Tensor, k: int, ef: int,
                       max_iters: int = 0, valid: Optional[Tensor] = None,
-                      n_expand: int = 1,
-                      _capture: bool = True) -> Tuple[Tensor, Tensor]:
+                      n_expand: int = 1) -> Tuple[Tensor, Tensor]:
     """Beam search over a block space (BQGSpace, RaBitQSpace): each popped
     node's block is read by the space's ``estimate_many`` (bsq8: one
     ``gather_estimate`` launch a hop; rabitq: one ``block_diagdot``), which
@@ -446,8 +440,7 @@ def block_beam_search(space, seeds: Tensor, queries: Tensor, k: int, ef: int,
     ones already expanded or pooled, and the final pool is re-ranked with
     exact raw distances: one ``unique_topk`` launch keeps the first copy
     of each live id (``valid``) and the k best. On the card one replay of a
-    captured graph (``_capture=False``: the same function uncaptured, for a
-    comparison).
+    captured graph.
 
     A 1-bit space (``space.bits == 1``) also keeps the result pool: the
     exact distances of the popped nodes, which the estimator needs as its
@@ -459,7 +452,7 @@ def block_beam_search(space, seeds: Tensor, queries: Tensor, k: int, ef: int,
                lambda s, q: _block_beam_search(space, s, q, k, ef, max_iters,
                                                valid, n_expand),
                (seeds, queries), reads=(space, valid),
-               static=(k, ef, max_iters, n_expand), capture=_capture)
+               static=(k, ef, max_iters, n_expand))
 
 
 def seed_sample_arrays(data: Tensor, ids: Tensor, user_metric: str):
@@ -486,8 +479,7 @@ def scan_seeds(q: Tensor, sample_ids: Tensor, sample_vecs: Tensor,
 def block_search_device(space, eps: Tensor, q_all: Tensor, k: int, ef: int,
                         max_iters: int = 0, valid: Optional[Tensor] = None,
                         n_expand: int = 8, qchunk: int = 4096,
-                        seed_sample=None,
-                        _capture: bool = True) -> Tuple[Tensor, Tensor]:
+                        seed_sample=None) -> Tuple[Tensor, Tensor]:
     """``block_beam_search`` over a query batch padded as the JAX engine
     pads it (``captured.slice_rows``), slice by slice; on the card each
     slice (the seed scan and the beam) is one replay of a captured graph.
@@ -510,7 +502,7 @@ def block_search_device(space, eps: Tensor, q_all: Tensor, k: int, ef: int,
     for lo in range(0, b, qchunk):
         d, i = run("block_slice", one_slice, (q_all[lo:lo + qchunk],),
                    (space, eps, valid, seed_sample),
-                   (k, ef, max_iters, n_expand), _capture)
+                   (k, ef, max_iters, n_expand))
         outs_d.append(d)
         outs_i.append(i)
     with trace.span("alaya.search.concat", rows=nq):

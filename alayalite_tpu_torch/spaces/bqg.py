@@ -36,14 +36,6 @@ from .raw import bump_slots, put_rows, tombstone
 
 Tensor = torch.Tensor
 
-# The gather_estimate entry that estimate_many launches. At the hop's shape
-# (B 4096, M 8, R 32, Dp 128, codes of 100,000 nodes) chip_smoke.py timed
-# rows at 0.0631 ms and bulk at 0.1373 ms of device time, the dot alone
-# 0.0546 and 0.1001, on an NVIDIA H100 80GB HBM3 at its 700.00 W power
-# limit (bound 0.0322 ms for the dot alone): bulk's persistent blocks walk
-# their items one after another (wait, compute, barrier, next copy), rows
-# keeps 24 warps an SM with 8 loads in flight each.
-ESTIMATE_VARIANT = "rows"
 ENCODE_CHUNK = 8192   # rows per step of set_neighbor_rows' encode
 
 
@@ -251,11 +243,19 @@ class BQGSpace:
         [B, M*R] ids). On the card one ``gather_estimate`` launch reads the
         code blocks, the norms and the ids and writes both."""
         _, qs, qconst = ctx
+        # gather_estimate's "rows" entry (its default). At the hop's shape
+        # (B 4096, M 8, R 32, Dp 128, codes of 100,000 nodes) chip_smoke.py
+        # timed rows at 0.0631 ms and bulk at 0.1373 ms of device time, the
+        # dot alone 0.0546 and 0.1001, on an NVIDIA H100 80GB HBM3 at its
+        # 700.00 W power limit (bound 0.0322 ms for the dot alone): bulk's
+        # persistent blocks walk their items one after another (wait,
+        # compute, barrier, next copy), rows keeps 24 warps an SM with 8
+        # loads in flight each.
         return gather_estimate(self.nbr_codes,
                                u.to(torch.int32).contiguous(), qs,
                                qconst.contiguous(), self._dot_coef,
                                self.nbr_xsq, self.nbr_ids,
-                               self.metric == "l2", variant=ESTIMATE_VARIANT)
+                               self.metric == "l2")
 
     def gather_dists(self, q: Tensor, ids: Tensor) -> Tensor:
         """Exact f32 distances (seed scoring + final rerank)."""

@@ -35,12 +35,6 @@ from ..ops.distance import normalize_rows
 from ..ops.gather_diagdot import gather_diagdot
 from .raw import bump_slots, tombstone
 
-# The gather_diagdot entry of the sq8 traversal's dot. At (4096 queries x
-# 256 ids over 100,000 x 128 codes) chip_smoke.py timed rows at 0.0476 ms
-# and bulk at 0.2429 ms of device time on an NVIDIA H100 80GB HBM3 at
-# 700.00 W: bulk moves 128-byte rows one TMA copy each.
-GATHER_VARIANT = "rows"
-
 
 @dataclasses.dataclass
 class SQSpace:
@@ -181,10 +175,13 @@ class SQSpace:
             # the codes as one-row blocks [C, 1, dim]: the kernel reads the
             # u8 rows once, with no decoded copy. Its epilogue form
             # (qconst − c·dot + xsq) is not this one's f32 order, so the
-            # dot alone is taken and the epilogue stays here
+            # dot alone is taken and the epilogue stays here. The "rows"
+            # entry (the default): at (4096 queries x 256 ids over 100,000 x
+            # 128 codes) chip_smoke.py timed it at 0.0476 ms and bulk at
+            # 0.2429 ms of device time on an NVIDIA H100 80GB HBM3 at
+            # 700.00 W; bulk moves 128-byte rows one TMA copy each
             dot_c = gather_diagdot(self.codes.view(self.capacity, 1, -1),
-                                   safe.view(B, K), qs.contiguous(),
-                                   variant=GATHER_VARIANT)
+                                   safe.view(B, K), qs.contiguous())
         else:
             # c − h is an integer of at most 8 bits: exact in bf16, and its
             # product with a bf16 value is exact in f32

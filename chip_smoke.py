@@ -258,8 +258,8 @@ graph (alayalite_tpu_torch/index/captured.py), the batch padded to the JAX
 engine's buckets, the hop loops free of host syncs.
  25. captured  (on the indices of phases 4, 6c and 15, while they stand)
                the 8192 queries through IndexEngine._batch_search_impl on
-               the card, captured and uncaptured (its private
-               _capture=False): the 1M bsq8 index at ef 32 / 64 / 96, one
+               the card, captured and uncaptured (inside
+               captured.eager()): the 1M bsq8 index at ef 32 / 64 / 96, one
                bsq8 build-pool chunk (4096 rows for their own pools at ef
                128, seeded as build_phases seeds them), the raw hnsw at ef
                64 (and its descent's steps by level) and the 1-bit rabitq
@@ -280,8 +280,8 @@ prune, re-prune, fill or two-hop chunk is one replay (the chunk's row ids
 an input), an insert slice (padded to its bucket) the search's replay, the
 append and one replay of the connect step's in-place graph.
  26. captured  (after phase 25's bsq8 cases, and inside phase 6c) phase 4's
-     build     bsq8 fit again with every phase uncaptured (the private
-               _capture=False; its build_timings beside phase 4's, graphs
+     build     bsq8 fit again with every phase uncaptured (inside
+               captured.eager(); its build_timings beside phase 4's, graphs
                captured 0), its prune, re-prune and fill inputs recorded;
                one chunk of each and the whole prune_all_dev on them,
                captured against uncaptured: bit for bit (the whole prune
@@ -333,6 +333,7 @@ build/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -500,7 +501,7 @@ MH_SHARDS = 4                        # phase 24: ranged reads and file fit
 # buckets). Here each of the 1M bsq8 index at CAPTURE_EFS, one bsq8
 # build-pool chunk (4096 rows at ef 128), the 1M raw hnsw at ef 64 and the
 # 1M rabitq at ef 64 (the frontier's hop budget) runs captured and
-# uncaptured (the private _capture=False): ids and distances bit for bit,
+# uncaptured (inside captured.eager()): ids and distances bit for bit,
 # CAPTURE_REPS synchronised calls of each after the capturing one, host
 # syncs a call (torch's sync debug mode), graphs and capture seconds, the
 # reserved memory of each with no other graph held, the hop at which the
@@ -675,8 +676,6 @@ def check_gather(torch, dev) -> dict:
     from alayalite_tpu_torch.ops.gather_diagdot import (
         VARIANTS, bulk_fits, gather_diagdot, gather_diagdot_ref,
         gather_estimate, gather_estimate_ref)
-    from alayalite_tpu_torch.spaces.bqg import ESTIMATE_VARIANT
-    from alayalite_tpu_torch.spaces.sq import GATHER_VARIANT
     from alayalite_tpu_torch.utils.timing import bound, cuda_ms
 
     rng = np.random.default_rng(2)
@@ -758,13 +757,11 @@ def check_gather(torch, dev) -> dict:
             rep[f"{v}_ms_spin"] = cuda_ms(dot_fn(v), spin=True)
             est_rep[f"{v}_ms"] = cuda_ms(est_fn(v))
             est_rep[f"{v}_ms_spin"] = cuda_ms(est_fn(v), spin=True)
-        route = ESTIMATE_VARIANT if shape == GATHER_MAIN else GATHER_VARIANT
-        rep.update(variant=route, max_abs_err=errs[route],
-                   ms=rep[f"{route}_ms"], ms_spin=rep[f"{route}_ms_spin"])
-        est_rep.update(variant=ESTIMATE_VARIANT,
-                       max_abs_err=est_errs[ESTIMATE_VARIANT],
-                       ms=est_rep[f"{ESTIMATE_VARIANT}_ms"],
-                       ms_spin=est_rep[f"{ESTIMATE_VARIANT}_ms_spin"])
+        # the spaces launch the "rows" entry (the wrappers' default)
+        rep.update(variant="rows", max_abs_err=errs["rows"],
+                   ms=rep["rows_ms"], ms_spin=rep["rows_ms_spin"])
+        est_rep.update(variant="rows", max_abs_err=est_errs["rows"],
+                       ms=est_rep["rows_ms"], ms_spin=est_rep["rows_ms_spin"])
         key = "main" if shape == GATHER_MAIN else "r1"
         out["gather_diagdot"][key] = rep
         out["gather_estimate"][key] = est_rep
@@ -1693,7 +1690,7 @@ def check_sq8_gather(torch, dev) -> dict:
     library route for the same distances, written out here (index_select +
     decode + torch.bmm); both are timed."""
     from alayalite_tpu_torch.ops.gather_diagdot import gather_diagdot
-    from alayalite_tpu_torch.spaces.sq import GATHER_VARIANT, SQSpace
+    from alayalite_tpu_torch.spaces.sq import SQSpace
     from alayalite_tpu_torch.utils.timing import cuda_ms
 
     rng = np.random.default_rng(6)
@@ -1727,10 +1724,10 @@ def check_sq8_gather(torch, dev) -> dict:
     codes = sp.codes.view(N_SMALL, 1, -1)
 
     def kernel():
-        return gather_diagdot(codes, ids, qs, variant=GATHER_VARIANT)
+        return gather_diagdot(codes, ids, qs, variant="rows")
 
     rep = {"max_abs_err": err, "launches_per_call": launched,
-           "variant": GATHER_VARIANT,
+           "variant": "rows",
            "kernel_ms": cuda_ms(lambda: sp.gather_dists(q, ids)),
            "kernel_ms_spin": cuda_ms(lambda: sp.gather_dists(q, ids),
                                      spin=True),
@@ -1739,7 +1736,7 @@ def check_sq8_gather(torch, dev) -> dict:
            "bmm_ms": cuda_ms(library)}
     restore_counts(saved)
     log(f"sq8 gather_dists (4096, 256) over {N_SMALL} x {DIM} codes: "
-        f"through gather_diagdot[{GATHER_VARIANT}] {rep['kernel_ms']:.4f} ms "
+        f"through gather_diagdot[rows] {rep['kernel_ms']:.4f} ms "
         f"({rep['kernel_ms_spin']:.4f} device alone; the kernel alone "
         f"{rep['dot_ms']:.4f} / {rep['dot_ms_spin']:.4f}; {launched} launch "
         f"per call), index_select + bmm {rep['bmm_ms']:.4f} ms, max_abs_err "
@@ -2049,6 +2046,7 @@ def hop_cat_kernels(torch, sp) -> dict:
     profiler sees each launch."""
     from torch.profiler import ProfilerActivity, profile
 
+    from alayalite_tpu_torch.index import captured
     from alayalite_tpu_torch.index.search import block_beam_search
     from alayalite_tpu_torch.ops.gather_diagdot import gather_estimate
     from alayalite_tpu_torch.ops.ring_probe import ring_probe
@@ -2062,14 +2060,15 @@ def hop_cat_kernels(torch, sp) -> dict:
     saved = snapshot_counts(gather_estimate, ring_probe)
     seen = {}
     for iters in (1, 9):
-        block_beam_search(sp, seeds, q, k=K, ef=64, max_iters=iters,
-                          n_expand=8, _capture=False)
-        torch.cuda.synchronize()
-        hops = gather_estimate.calls
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with captured.eager():
             block_beam_search(sp, seeds, q, k=K, ef=64, max_iters=iters,
-                              n_expand=8, _capture=False)
+                              n_expand=8)
             torch.cuda.synchronize()
+            hops = gather_estimate.calls
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                block_beam_search(sp, seeds, q, k=K, ef=64, max_iters=iters,
+                                  n_expand=8)
+                torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         seen[iters] = {"hops": gather_estimate.calls - hops,
@@ -3118,12 +3117,25 @@ def stop_hops(torch, sp, seeds, q, k, ef, m, max_iters, nbrs=None):
     return iters, iters
 
 
+def as_mode(fn):
+    """``fn`` as ``call(capture)``: ``fn()`` with the port's slices
+    replayed where ``capture``, else inside ``captured.eager()``."""
+    from alayalite_tpu_torch.index import captured
+
+    def call(capture: bool):
+        with contextlib.nullcontext() if capture else captured.eager():
+            return fn()
+    return call
+
+
 def captured_case(torch, what: str, search, stops, card: str) -> dict:
-    """One search of phase 25: ``search(capture)`` -> (d or ids, ...) on the
-    card, ``stops()`` -> [(stop hop, hops)] a slice."""
+    """One search of phase 25: ``search()`` -> (d or ids, ...) on the card,
+    captured against uncaptured; ``stops()`` -> [(stop hop, hops)] a
+    slice."""
     from alayalite_tpu_torch.index import captured
     from alayalite_tpu_torch.index.search import overlay_descend
 
+    search = as_mode(search)
     launches = Launches(new_counters())
     want, peak_u, held_u = reserved_of(torch, lambda: search(False))
     s0 = dict(captured.stats)
@@ -3192,6 +3204,7 @@ def captured_case(torch, what: str, search, stops, card: str) -> dict:
 def engine_case(torch, what, idx, qd, ef, card, raw=False):
     """A whole batch through ``IndexEngine._batch_search_impl`` (device
     queries, device results), captured and not; stop hops by slice."""
+    from alayalite_tpu_torch.index import captured
     from alayalite_tpu_torch.index.search import graph_seeds, scan_seeds
 
     eng = idx._engine
@@ -3206,8 +3219,9 @@ def engine_case(torch, what, idx, qd, ef, card, raw=False):
             q = qd[lo:lo + 4096]
             if raw:
                 g = eng.graph
-                seeds = graph_seeds(eng.space, g.eps, g.overlay,
-                                    eng.space.prep_query(q), _capture=False)
+                with captured.eager():
+                    seeds = graph_seeds(eng.space, g.eps, g.overlay,
+                                        eng.space.prep_query(q))
                 out.append(stop_hops(torch, eng.space, seeds,
                                      eng.space.prep_query(q), K, k_ef,
                                      p.beam_expand, p.search_iters,
@@ -3221,7 +3235,7 @@ def engine_case(torch, what, idx, qd, ef, card, raw=False):
         return out
 
     return captured_case(
-        torch, what, lambda c: eng._batch_search_impl(qd, K, ef, _capture=c),
+        torch, what, lambda: eng._batch_search_impl(qd, K, ef),
         stops, card)
 
 
@@ -3242,8 +3256,8 @@ def pool_chunk_case(torch, idx, card) -> dict:
     m = eng.params.beam_expand
     return captured_case(
         torch, f"bsq8 pool chunk ({POOL_CHUNK} rows, ef {POOL_EF})",
-        lambda c: block_beam_search(sp, seeds, rows, k=POOL_EF, ef=POOL_EF,
-                                    n_expand=m, _capture=c),
+        lambda: block_beam_search(sp, seeds, rows, k=POOL_EF, ef=POOL_EF,
+                                  n_expand=m),
         lambda: [stop_hops(torch, sp, seeds, rows, POOL_EF, POOL_EF, m, 0)],
         card)
 
@@ -3251,6 +3265,7 @@ def pool_chunk_case(torch, idx, card) -> dict:
 def descent_steps(torch, idx, qd) -> list:
     """The steps of each overlay level's descent for the first slice (one
     host test a step): what DESCENT_CHUNK is picked from."""
+    from alayalite_tpu_torch.index import captured
     from alayalite_tpu_torch.index import search as S
 
     eng = idx._engine
@@ -3263,8 +3278,9 @@ def descent_steps(torch, idx, qd) -> list:
     try:
         for lvl in overlay:
             s0 = S.overlay_descend.syncs
-            cur = S.overlay_descend(eng.space, lvl.ids, lvl.nbrs, lvl.down,
-                                    cur, q, _capture=False)
+            with captured.eager():
+                cur = S.overlay_descend(eng.space, lvl.ids, lvl.nbrs,
+                                        lvl.down, cur, q)
             steps.append(S.overlay_descend.syncs - s0)
     finally:
         S.DESCENT_CHUNK = chunk
@@ -3272,8 +3288,9 @@ def descent_steps(torch, idx, qd) -> list:
 
 
 class Uncaptured:
-    """An index whose engine searches with ``_capture=False``: the
-    SearchServer of phase 25's uncaptured closed loop."""
+    """An index whose engine searches inside ``captured.eager()`` (on the
+    thread that searches): the SearchServer of phase 25's uncaptured closed
+    loop."""
 
     def __init__(self, idx):
         self._idx, self._engine = idx, self
@@ -3283,8 +3300,11 @@ class Uncaptured:
 
     def batch_search_with_distance(self, queries, topk, ef=100,
                                    num_threads=1):
+        from alayalite_tpu_torch.index import captured
+
         eng = self._idx._engine
-        ids, d = eng._batch_search_impl(queries, topk, ef, _capture=False)
+        with captured.eager():
+            ids, d = eng._batch_search_impl(queries, topk, ef)
         return (ids.cpu().numpy().astype(eng._id_dtype, copy=False),
                 d.cpu().numpy())
 
@@ -3344,7 +3364,7 @@ def closed_loop_case(torch, idx, queries, gt, card) -> dict:
 # ---- the captured build phases and inserts (phase 26) ----
 def replay_case(torch, what: str, call, card: str, restore=lambda: None,
                 state=lambda: {}) -> dict:
-    """One call of phase 26: ``call(capture)`` -> a tuple of tensors, run
+    """One call of phase 26: ``call()`` -> a tuple of tensors, run
     after ``restore()`` (an insert: the index state it started from) and
     captured against uncaptured. The results and ``state()`` (the tensors
     the call wrote) bit for bit, the launch counts of a replay against an
@@ -3353,6 +3373,7 @@ def replay_case(torch, what: str, call, card: str, restore=lambda: None,
     other graph held."""
     from alayalite_tpu_torch.index import captured
 
+    call = as_mode(call)
     launches = Launches(new_counters())
     restore()
     launches.zero()
@@ -3497,8 +3518,9 @@ def build_capture_phase(torch, ds, card, fitted, fitted_memory) -> tuple:
     try:
         base = fit_memory_base(torch)
         s0 = dict(captured.stats)
-        _, fit_s = synced(torch, lambda: idx._engine.fit(
-            ds.data, ef_construction=100, _capture=False))
+        with captured.eager():
+            _, fit_s = synced(torch, lambda: idx._engine.fit(
+                ds.data, ef_construction=100))
     finally:
         for name in names:
             setattr(qg, name, real[name])
@@ -3564,24 +3586,24 @@ def build_capture_phase(torch, ds, card, fitted, fitted_memory) -> tuple:
     c = min(chunk, ci.shape[0])
     rep["prune_chunk"] = replay_case(
         torch, f"prune chunk ({c} x {ci.shape[1]}, alpha {alpha})",
-        lambda m: (bp.prune_all_dev(sp, cd[:c], ci[:c], r=r, alpha=alpha,
-                                    chunk=chunk, _capture=m),), card)
+        lambda: (bp.prune_all_dev(sp, cd[:c], ci[:c], r=r, alpha=alpha,
+                                  chunk=chunk),), card)
     rep["reprune_chunk"] = replay_case(
         torch, f"re-prune chunk ({c} x {nbrs.shape[1] + rev.shape[1]})",
-        lambda m: (bp.reprune_with_reverse_dev(
-            sp, nbrs[:c], rev[:c], r=r, alpha=alpha, chunk=chunk,
-            _capture=m),), card)
+        lambda: (bp.reprune_with_reverse_dev(
+            sp, nbrs[:c], rev[:c], r=r, alpha=alpha, chunk=chunk),), card)
     rep["fill_chunk"] = replay_case(
         torch, f"fill chunk ({c} x {fnb.shape[1] + fci.shape[1]})",
-        lambda m: (bp.fill_degree_dev(fnb[:c], fcd[:c], fci[:c], r=r,
-                                      chunk=chunk, _capture=m),), card)
+        lambda: (bp.fill_degree_dev(fnb[:c], fcd[:c], fci[:c], r=r,
+                                    chunk=chunk),), card)
     whole = {}
+    prune = as_mode(lambda: bp.prune_all_dev(sp, cd, ci, r=r, alpha=alpha,
+                                             chunk=chunk))
     for mode in (True, False):
         s0 = dict(captured.stats)
         ((out, wall), syncs), peak, held = reserved_of(
             torch, lambda: host_syncs(torch, lambda: synced(
-                torch, lambda: bp.prune_all_dev(sp, cd, ci, r=r, alpha=alpha,
-                                                chunk=chunk, _capture=mode))))
+                torch, lambda: prune(mode))))
         same = bool(torch.equal(out, pruned))
         whole["captured" if mode else "uncaptured"] = {
             "wall_s": wall, "host_syncs": syncs, "peak_reserved_gib": peak,
@@ -3667,7 +3689,7 @@ def sort_at_nnd_chunk(torch, dev, chunk: int, k: int) -> dict:
 
 def scoped_case(torch, what: str, call, reads, card: str,
                 restore=lambda: None) -> dict:
-    """One case of phase 27: ``call(capture)`` -> a tuple of tensors, after
+    """One case of phase 27: ``call()`` -> a tuple of tensors, after
     ``restore()``, captured inside one captured.scope() (the first call
     captures, as a fit phase does; later calls replay) against uncaptured:
     results bit for bit, a replay's launch counts against the uncaptured
@@ -3675,6 +3697,8 @@ def scoped_case(torch, what: str, call, reads, card: str,
     against the host reads the module states (``reads()``: its counter),
     graphs, capture seconds, peak and held reserved memory."""
     from alayalite_tpu_torch.index import captured
+
+    call = as_mode(call)
 
     def counted(mode):
         r0 = reads()
@@ -3764,15 +3788,14 @@ def knn_repair_phase(torch, sp, nbrs0, ep: int, card: str) -> dict:
     rep["knn"] = scoped_case(
         torch, f"kNN phase (n {n}, k {NND_K}, {NND_ITERS} rounds, "
         f"{-(-n // shape['chunk'])} chunks of {shape['chunk']})",
-        lambda m: nndescent.build_knn_graph(sp, n, NND_K,
-                                            max_iters=NND_ITERS, seed=0,
-                                            _capture=m),
+        lambda: nndescent.build_knn_graph(sp, n, NND_K,
+                                          max_iters=NND_ITERS, seed=0),
         lambda: knn_reads.syncs, card)
     buf = torch.empty_like(nbrs0)
     repair = repair_dev.repair_connectivity
 
-    def call(m):
-        return (repair(sp, buf, ep, _capture=m).clone(),)
+    def call():
+        return (repair(sp, buf, ep).clone(),)
 
     rep["repair"] = scoped_case(
         torch, f"repair ({n} x {nbrs0.shape[1]})", call,
@@ -3846,7 +3869,7 @@ def insert_case(torch, what: str, eng, rows: np.ndarray, card: str) -> dict:
     overlay_update.extend_overlay = counted
     try:
         rep = replay_case(torch, what,
-                          lambda m: (slice_fn(v, INSERT_EF, _capture=m),),
+                          lambda: (slice_fn(v, INSERT_EF),),
                           card, restore, state)
     finally:
         overlay_update.extend_overlay = real

@@ -33,6 +33,7 @@ Writes build/torch_choice_probe.json. Needs a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -140,7 +141,8 @@ def merge_probe(torch, dev, ds, gt) -> dict:
         eng = idx._engine
 
         def run(capture=True):
-            return eng._batch_search_impl(q, K, EF, _capture=capture)
+            with contextlib.nullcontext() if capture else captured.eager():
+                return eng._batch_search_impl(q, K, EF)
 
         # rows whose pool arrives out of order, over one search as shipped
         seen = {"rows": 0, "unsorted": 0, "merges": 0}

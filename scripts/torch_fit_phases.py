@@ -8,7 +8,7 @@ with the repository's headline parameters (``chip_smoke.py`` phase 4), raw
 hnsw with the defaults (phase 6c) and the frontier's 1-bit rabitq
 (``hnsw_rabitq_R32_efc200``, phase 15). Each is fitted captured (every
 build phase one replay a chunk, a round or a loop block, as the entry
-point runs it) and uncaptured (the private ``_capture=False``), in turns:
+point runs it) and uncaptured (inside ``captured.eager()``), in turns:
 captured first on even repeats, uncaptured first on odd ones. For each fit
 it prints one JSON line: seconds, seconds of each build phase (the
 builder's ``build_timings``: knn, pools, prune, reverse_reprune, repair,
@@ -23,6 +23,7 @@ device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -54,7 +55,8 @@ def fit_once(torch, name: str, data, capture: bool) -> dict:
     idx = Index(name, IndexParams(**CONFIGS[name], capacity=N + SPARE))
     s0 = dict(captured.stats)
     t = time.time()
-    idx._engine.fit(data, ef_construction=100, _capture=capture)
+    with contextlib.nullcontext() if capture else captured.eager():
+        idx._engine.fit(data, ef_construction=100)
     torch.cuda.synchronize()
     rep = {"index": name, "captured": capture, "seconds": time.time() - t,
            "phases": dict(idx._engine.build_timings),

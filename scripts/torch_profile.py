@@ -10,7 +10,7 @@ then traces with ``torch.profiler``:
     16 random nodes; the scan uses the search's sample),
   - one occlusion-prune chunk: 4096 rows x 160 candidates, alpha 1.2,
     through prune_all_dev as the build runs it (one replay of the chunk's
-    captured graph), and the same chunk uncaptured (``_capture=False``);
+    captured graph), and the same chunk uncaptured (``captured.eager()``);
   - one insert batch: 4096 new rows drawn from the data's clusters through
     IndexEngine.insert (the search for their edges, the append, the
     re-selection and re-encoding of every touched row: the search's replay,
@@ -123,6 +123,16 @@ def trace(torch, name, fn, top=12) -> dict:
             "port_kernels": port, "split": split(rows)}
 
 
+def uncaptured(fn):
+    """``fn`` as a call that runs it inside ``captured.eager()``."""
+    from alayalite_tpu_torch.index import captured
+
+    def call():
+        with captured.eager():
+            return fn()
+    return call
+
+
 def split(rows) -> dict:
     """Device ms of the flat scan's parts: the l2_tile kernel, selection
     (top-k and sort kernels) and everything else."""
@@ -203,7 +213,7 @@ def raw_windows(torch, ds, dev) -> dict:
                                 lambda: eng.insert(next(batches)), top=16)
     out["insert_batch_uncaptured"] = trace(
         torch, "raw insert batch (4096 rows), uncaptured",
-        lambda: eng.insert(next(batches), _capture=False), top=16)
+        uncaptured(lambda: eng.insert(next(batches))), top=16)
     del idx, eng
     torch.cuda.empty_cache()
     return out
@@ -376,14 +386,14 @@ def bsq8_windows(torch, idx, ds, out: dict) -> None:
         lambda: prune_all_dev(raw, cand_d, cand_i, r=32, alpha=1.2))
     out["prune_chunk_uncaptured"] = trace(
         torch, "prune chunk, uncaptured",
-        lambda: prune_all_dev(raw, cand_d, cand_i, r=32, alpha=1.2,
-                              _capture=False))
+        uncaptured(lambda: prune_all_dev(raw, cand_d, cand_i, r=32,
+                                         alpha=1.2)))
     batches = churn_batches(N, 4)                      # warm-up, traced
     out["insert_batch"] = trace(torch, "insert batch (4096 rows)",
                                 lambda: eng.insert(next(batches)), top=16)
     out["insert_batch_uncaptured"] = trace(
         torch, "insert batch (4096 rows), uncaptured",
-        lambda: eng.insert(next(batches), _capture=False), top=16)
+        uncaptured(lambda: eng.insert(next(batches))), top=16)
     del eng, bq, raw, rows, cand_d, cand_i, q
 
 

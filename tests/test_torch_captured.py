@@ -16,10 +16,12 @@ and the capture key to follow the slabs' pointers.
 With a CUDA device (``python -m pytest --noconftest -m gpu
 tests/test_torch_captured.py``: JAX is imported inside the CPU tests only)
 a captured search is held bit for bit against the same function uncaptured
-on a 20k bsq8 and a 20k raw hnsw index, and the launch counters, the graph
-per bucket and two threads on one index are checked.
+(inside ``captured.eager()``) on a 20k bsq8 and a 20k raw hnsw index, a
+search inside that scope is shown to capture nothing, and the launch
+counters, the graph per bucket and two threads on one index are checked.
 """
 
+import contextlib
 import math
 import threading
 
@@ -314,6 +316,60 @@ def test_cpu_runs_uncaptured():
     assert captured.cached() == 0
 
 
+class _OnCard:
+    """Stands in for a [4, 2] f32 tensor on the card: what ``run`` and
+    ``run_inplace`` read of an input before they replay."""
+    device = torch.device("cuda")
+    shape = (4, 2)
+    dtype = torch.float32
+
+
+def test_eager_scope(monkeypatch):
+    """``eager()`` nests, is left on an exception and is this thread's
+    alone; inside it ``run``, ``run_chunks`` and ``run_inplace`` call
+    ``fn`` as it is, where outside it a card input goes to a replay."""
+    def replay(*args, **kwargs):
+        raise AssertionError("replayed")
+
+    monkeypatch.setattr(captured, "_replay", replay)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    card, x = torch.device("cuda"), _OnCard()
+
+    def fn(*xs):
+        return xs
+
+    with pytest.raises(AssertionError, match="replayed"):
+        captured.run("t", fn, (x,))
+    with pytest.raises(AssertionError, match="replayed"):
+        captured.run_inplace("t", fn, (x,), (x,))
+    assert not captured._uncaptured(card)
+    with captured.eager():
+        with captured.eager():
+            assert captured._uncaptured(card)
+        assert captured._uncaptured(card)
+        assert captured.run("t", fn, (x,), reads=(object(),)) == (x,)
+        assert captured.run_inplace("t", fn, (x,), (x,),
+                                    writes=(object(),)) == (x,)
+        rows = torch.arange(5.0)[:, None]
+        got = captured.run_chunks("t", lambda ids, r: (r * 2 + ids[:, None],),
+                                  5, 2, (rows,), reads=(object(),))
+        assert torch.equal(got[0], rows * 3)
+        seen = []
+        other = threading.Thread(
+            target=lambda: seen.append(captured._uncaptured(card)))
+        other.start()
+        other.join(timeout=30)
+        assert not other.is_alive() and seen == [False]
+    assert not captured._uncaptured(card)
+    with pytest.raises(ValueError):
+        with captured.eager():
+            with captured.eager():
+                raise ValueError("inside two scopes")
+    assert not captured._uncaptured(card)
+    assert captured.cached() == 0
+
+
 # ----------------------------------------------------------------- the card
 def _cuda_index(kind: str, n: int = 20_000):
     from alayalite_tpu_torch import Client
@@ -330,16 +386,16 @@ def _cuda_index(kind: str, n: int = 20_000):
 def _slice_search(idx, q, ef, capture):
     eng = idx._engine
     g, p = eng.graph, eng.params
-    if eng.params.quantization_type.is_block:
-        return search.block_search_device(
-            eng.search_space, g.eps, eng.search_space.prep_query(q), k=10,
-            ef=ef, valid=eng.space.valid, max_iters=p.search_iters,
-            n_expand=p.beam_expand, seed_sample=eng._seed_scan_arrays(),
-            _capture=capture)
-    return search.graph_search_device(
-        eng.space, g.nbrs, g.eps, g.overlay, eng.space.prep_query(q), k=10,
-        ef=ef, max_iters=p.search_iters, valid=eng.space.valid,
-        n_expand=p.beam_expand, _capture=capture)
+    with contextlib.nullcontext() if capture else captured.eager():
+        if eng.params.quantization_type.is_block:
+            return search.block_search_device(
+                eng.search_space, g.eps, eng.search_space.prep_query(q), k=10,
+                ef=ef, valid=eng.space.valid, max_iters=p.search_iters,
+                n_expand=p.beam_expand, seed_sample=eng._seed_scan_arrays())
+        return search.graph_search_device(
+            eng.space, g.nbrs, g.eps, g.overlay, eng.space.prep_query(q),
+            k=10, ef=ef, max_iters=p.search_iters, valid=eng.space.valid,
+            n_expand=p.beam_expand)
 
 
 @pytest.mark.gpu
@@ -357,6 +413,34 @@ def test_cuda_captured_equals_uncaptured(kind):
                 got = _slice_search(idx, q[:rows], ef, True)
                 assert torch.equal(got[0], want[0])
                 assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_cuda_eager_scope_captures_nothing():
+    """Searches inside ``eager()`` (and through ``_batch_search_impl``'s
+    ``_capture=False``) capture no graph, hold none and replay none, and
+    give the bits of the replays that follow."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    idx, q = _cuda_index("bsq8")
+    eng = idx._engine
+    captured.clear()
+    before = dict(captured.stats)
+    with captured.eager():
+        eager = [eng._batch_search_impl(q[:rows], 10, 64)
+                 for rows in (50, 1200)]
+    flag = [eng._batch_search_impl(q[:rows], 10, 64, _capture=False)
+            for rows in (50, 1200)]
+    assert captured.stats["captures"] == before["captures"]
+    assert captured.stats["replays"] == before["replays"]
+    assert captured.cached() == 0
+    for rows, want, also in zip((50, 1200), eager, flag):
+        for _ in range(2):                     # the capture, then a replay
+            got = eng._batch_search_impl(q[:rows], 10, 64)
+            for a, b, c in zip(got, want, also):
+                assert torch.equal(a, b) and torch.equal(a, c)
+    assert captured.stats["captures"] - before["captures"] >= 2
+    assert captured.stats["replays"] - before["replays"] >= 4
 
 
 @pytest.mark.gpu

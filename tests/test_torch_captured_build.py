@@ -20,6 +20,7 @@ against the same calls uncaptured, and a replay's launch counts against
 the uncaptured call's.
 """
 
+import contextlib
 import copy
 
 import numpy as np
@@ -398,12 +399,13 @@ def test_cuda_prune_captured_equals_uncaptured(alpha):
     ci = torch.randint(0, n, (n, 160), generator=g, device="cuda",
                        dtype=torch.int32)
     cd = sp.gather_dists(sp.data[:n], ci)
-    want = build_phases.prune_all_dev(sp, cd, ci, r=32, alpha=alpha,
-                                      _capture=False)
+    with captured.eager():
+        want = build_phases.prune_all_dev(sp, cd, ci, r=32, alpha=alpha)
     got = build_phases.prune_all_dev(sp, cd, ci, r=32, alpha=alpha)
     assert torch.equal(got, want)
     before = captured.counts()
-    build_phases.prune_all_dev(sp, cd, ci, r=32, alpha=alpha, _capture=False)
+    with captured.eager():
+        build_phases.prune_all_dev(sp, cd, ci, r=32, alpha=alpha)
     mid = captured.counts()
     build_phases.prune_all_dev(sp, cd, ci, r=32, alpha=alpha)
     after = captured.counts()
@@ -432,7 +434,8 @@ def test_cuda_insert_captured_equals_uncaptured(kind, monkeypatch):
             restore()
             eng._rng = copy.deepcopy(rng_state)
             before = captured.counts()
-            ids = eng.insert(x[:rows].cpu().numpy(), _capture=mode)
+            with contextlib.nullcontext() if mode else captured.eager():
+                ids = eng.insert(x[:rows].cpu().numpy())
             delta = {k: v - before[k] for k, v in captured.counts().items()}
             results[mode] = (ids, _state(eng), delta)
         np.testing.assert_array_equal(results[True][0], results[False][0])

@@ -22,6 +22,7 @@ graphs and their pool; a fit leaves no graph held and its reserved memory
 after ``empty_cache`` within 0.25 GiB of an uncaptured fit's.
 """
 
+import contextlib
 import gc
 
 import numpy as np
@@ -365,9 +366,9 @@ def test_cuda_knn_captured_equals_uncaptured():
 
     def call(mode):
         before = captured.counts()
-        out = nndescent.build_knn_graph(sp, n, 16, max_iters=8,
-                                        cluster_init_min=1000,
-                                        _capture=mode)
+        with contextlib.nullcontext() if mode else captured.eager():
+            out = nndescent.build_knn_graph(sp, n, 16, max_iters=8,
+                                            cluster_init_min=1000)
         return out, _delta(before)
 
     want, d_u = call(False)
@@ -396,8 +397,9 @@ def test_cuda_repair_captured_equals_uncaptured():
 
     def call(mode):
         before = captured.counts()
-        out = repair_dev.repair_connectivity(sp, buf.copy_(nb0), 0,
-                                             _capture=mode).clone()
+        with contextlib.nullcontext() if mode else captured.eager():
+            out = repair_dev.repair_connectivity(sp, buf.copy_(nb0),
+                                                 0).clone()
         return out, _delta(before)
 
     want, _ = call(False)
@@ -433,7 +435,8 @@ def test_cuda_fit_holds_no_graph(kind):
         torch.cuda.empty_cache()
         base = torch.cuda.memory_reserved()
         idx = Index(f"fit_{mode}", IndexParams(**params))
-        idx._engine.fit(x, _capture=mode)
+        with contextlib.nullcontext() if mode else captured.eager():
+            idx._engine.fit(x)
         torch.cuda.synchronize()
         assert captured.held() == []
         gc.collect()
@@ -455,8 +458,8 @@ def test_cuda_phase_end_drops_graphs_and_pool():
     sp = RawSpace.create(data.shape[0], DIM, device=torch.device(
         "cuda")).fit(torch.as_tensor(data, device="cuda"))
     nb0 = torch.as_tensor(nbrs, device="cuda")
-    want = repair_dev.repair_connectivity(sp, nb0.clone(), 0,
-                                          _capture=False)
+    with captured.eager():
+        want = repair_dev.repair_connectivity(sp, nb0.clone(), 0)
     with build_phases.PhaseTimer(sp.device, "t", {}) as phase:
         got = repair_dev.repair_connectivity(sp, nb0.clone(), 0)
         first = phase._scope

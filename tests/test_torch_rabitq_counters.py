@@ -113,7 +113,8 @@ def test_cuda_replay_adds_what_its_capture_counted():
     q = torch.as_tensor(x[:NQ], device="cuda")
     eng._batch_search_impl(q, TOPK, EF)                     # captures
     before = captured.counts()
-    eng._batch_search_impl(q, TOPK, EF, _capture=False)
+    with captured.eager():
+        eng._batch_search_impl(q, TOPK, EF)
     torch.cuda.synchronize()
     mid = captured.counts()
     eng._batch_search_impl(q, TOPK, EF)                     # one replay

@@ -300,7 +300,7 @@ def test_block_search_device_matches_the_plain_path(quant, monkeypatch):
     with the kernel, against the same slices uncaptured with the plain
     version in its place: the same ids and distances, bit for bit."""
     from alayalite_tpu_torch import Index, IndexParams
-    from alayalite_tpu_torch.index import search
+    from alayalite_tpu_torch.index import captured, search
     from alayalite_tpu_torch.utils.datasets import random_dataset
 
     _gpu()
@@ -315,7 +315,8 @@ def test_block_search_device_matches_the_plain_path(quant, monkeypatch):
     torch.cuda.synchronize()
     assert unique_topk.launches > launches
     monkeypatch.setattr(search, "unique_topk", unique_topk_ref)
-    i_p, d_p = eng._batch_search_impl(ds.queries, 10, 32, _capture=False)
+    with captured.eager():
+        i_p, d_p = eng._batch_search_impl(ds.queries, 10, 32)
     assert torch.equal(i_k, i_p)
     assert torch.equal(d_k.view(torch.int32), d_p.view(torch.int32))
     assert not bool(((i_k >= 0) & (i_k % 9 == 0)).any())
