@@ -202,6 +202,7 @@ def _walk(x, tensors: list):
 def _counted() -> tuple:
     from ..ops.diagdot import block_diagdot
     from ..ops.gather_diagdot import gather_diagdot, gather_estimate
+    from ..ops.gather_dot import gather_dot
     from ..ops.l2_tile import l2_tile
     from ..ops.pool_sort import merge_kv, pool_merge, roll_n, sort_kv
     from ..ops.ring_probe import ring_probe
@@ -209,9 +210,9 @@ def _counted() -> tuple:
     from ..ops.sq8_tile import sq8_tile
     from ..ops.unique_topk import unique_topk
 
-    return (block_diagdot, gather_diagdot, gather_estimate, l2_tile, merge_kv,
-            pool_merge, roll_n, sort_kv, ring_probe, seed_scan, sq8_tile,
-            unique_topk)
+    return (block_diagdot, gather_diagdot, gather_estimate, gather_dot,
+            l2_tile, merge_kv, pool_merge, roll_n, sort_kv, ring_probe,
+            seed_scan, sq8_tile, unique_topk)
 
 
 def counts() -> dict:

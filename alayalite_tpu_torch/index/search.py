@@ -311,13 +311,18 @@ def exact_rescore(space, q: Tensor, ids: Tensor, k: int):
     ``q`` [B, D] from the stored rows (full f32 products), then the ``k``
     best: the user-facing re-score; ``gather_dists`` only orders a walk."""
     ok = ids >= 0
-    safe = torch.where(ok, ids, torch.zeros_like(ids)).long()
-    dot = row_dots(space.data[safe].float(), q)
-    if space.metric == "ip":
-        d = -dot
+    if space.data.dtype == torch.float32:
+        # f32 rows: gather_dists is this product (one gather_dot, whose
+        # clamp reads row 0 for a -1, as ``safe`` does)
+        d = space.gather_dists(q, ids)
     else:
-        q_sq = (q * q).sum(-1, keepdim=True)
-        d = torch.clamp(q_sq + space.sq_norms[safe] - 2.0 * dot, min=0.0)
+        safe = torch.where(ok, ids, torch.zeros_like(ids)).long()
+        dot = row_dots(space.data[safe].float(), q)
+        if space.metric == "ip":
+            d = -dot
+        else:
+            q_sq = (q * q).sum(-1, keepdim=True)
+            d = torch.clamp(q_sq + space.sq_norms[safe] - 2.0 * dot, min=0.0)
     out_d, sel = topk_smallest(_inf_where_not(ok, d), k)
     out_i = torch.gather(ids, 1, sel)
     return out_d, _neg1_where_not(torch.isfinite(out_d), out_i)

@@ -147,18 +147,25 @@ def _rerank_device(q: Tensor, x: Tensor, x_sq: Optional[Tensor],
                    cand: Tensor, k: int, metric: str
                    ) -> Tuple[Tensor, Tensor]:
     """Full-precision distances for pre-selected candidate ids [Q, C]
-    (−1 allowed), then the ``k`` smallest, lower position first among
-    ties."""
+    (−1 allowed; f32 rows through one ``gather_dot``), then the ``k``
+    smallest, lower position first among ties."""
     if cand.shape[1] < k:
         cand = torch.nn.functional.pad(cand, (0, k - cand.shape[1]),
                                        value=-1)
-    safe = cand.clamp(min=0).long()
-    dot = row_dots(x[safe].float(), q.float())
-    if metric == "ip":
-        d = -dot
+    if x.dtype == torch.float32:
+        from .gather_dot import gather_dot
+
+        cand, q = cand.contiguous(), q.float().contiguous()
+        d = (-gather_dot(x, cand, q) if metric == "ip"
+             else gather_dot(x, cand, q, sqnorms(q), x_sq))
     else:
-        d = torch.clamp(sqnorms(q)[:, None] + x_sq[safe] - 2.0 * dot,
-                        min=0.0)
+        safe = cand.clamp(min=0).long()
+        dot = row_dots(x[safe].float(), q.float())
+        if metric == "ip":
+            d = -dot
+        else:
+            d = torch.clamp(sqnorms(q)[:, None] + x_sq[safe] - 2.0 * dot,
+                            min=0.0)
     d = torch.where(cand >= 0, d, torch.full_like(d, FINF))
     d, sel = topk_smallest(d, k)
     ids = torch.gather(cand, 1, sel)

@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..ops.distance import pairwise, row_dots
+from ..ops.distance import pairwise
+from ..ops.gather_dot import gather_dot
 from ..params import IndexParams
 from .sharded import Mesh
 
@@ -65,24 +66,22 @@ class DistSlab:
 
     def gather_dists(self, q: Tensor, ids: Tensor) -> Tensor:
         """Distances [B, K] of ``q`` [B, D] to ``ids`` [B, K] on ``q``'s
-        device: every shard scores the ids it owns (others gather its row
-        0 and count 0.0), the partial distances are summed."""
+        device: every shard scores the ids it owns (one ``gather_dot``;
+        the others count 0.0), the partial distances are summed."""
         lead = q.device
         total = torch.zeros(ids.shape, device=lead)
         off = 0
         for data, sq in zip(self.data, self.sq_norms):
             dev = data.device
             rows = data.shape[0]
-            qd, idd = q.to(dev), ids.to(dev)
-            local = idd - off
+            qd, idd = q.to(dev).contiguous(), ids.to(dev)
+            local = (idd - off).contiguous()
             own = (local >= 0) & (local < rows)
-            safe = torch.where(own, local, torch.zeros_like(local)).long()
-            dot = row_dots(data[safe].float(), qd)
+            # gather_dot clamps the ids another shard owns into its rows
             if self.metric == "ip":
-                d = -dot
+                d = -gather_dot(data, local, qd)
             else:
-                q_sq = (qd * qd).sum(-1, keepdim=True)
-                d = torch.clamp(q_sq + sq[safe] - 2.0 * dot, min=0.0)
+                d = gather_dot(data, local, qd, (qd * qd).sum(-1), sq)
             total += torch.where(own, d, torch.zeros_like(d)).to(lead)
             off += rows
         in_range = (ids >= 0) & (ids < self.n_total)

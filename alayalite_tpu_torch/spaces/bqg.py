@@ -30,8 +30,9 @@ import numpy as np
 import torch
 
 from ..ops.diagdot import block_diagdot
-from ..ops.distance import normalize_rows, row_dots
+from ..ops.distance import normalize_rows
 from ..ops.gather_diagdot import gather_estimate
+from ..ops.gather_dot import gather_dot
 from .raw import bump_slots, put_rows, tombstone
 
 Tensor = torch.Tensor
@@ -258,17 +259,12 @@ class BQGSpace:
                                self.metric == "l2")
 
     def gather_dists(self, q: Tensor, ids: Tensor) -> Tensor:
-        """Exact f32 distances (seed scoring + final rerank)."""
-        B, K = ids.shape
-        safe = ids.clamp(0, self.capacity - 1).reshape(-1)
-        vecs = self.data.index_select(0, safe).view(B, K, -1)
-        dot = row_dots(vecs, q)
+        """Exact f32 distances (seed scoring + final rerank) to the rows
+        ``ids`` [B, K] (clamped into [0, capacity)): one ``gather_dot``."""
+        ids, q = ids.contiguous(), q.contiguous()
         if self.metric == "ip":
-            return -dot
-        q_sq = (q * q).sum(-1, keepdim=True)
-        return torch.clamp(
-            q_sq + self.sq_norms.index_select(0, safe).view(B, K) - 2.0 * dot,
-            min=0.0)
+            return -gather_dot(self.data, ids, q)
+        return gather_dot(self.data, ids, q, (q * q).sum(-1), self.sq_norms)
 
     # ---- persistence (the JAX package's npz keys) ----
     def save_arrays(self) -> dict:

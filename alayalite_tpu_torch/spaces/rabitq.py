@@ -41,7 +41,8 @@ import numpy as np
 import torch
 
 from ..ops.diagdot import block_diagdot
-from ..ops.distance import normalize_rows, row_dots
+from ..ops.distance import normalize_rows
+from ..ops.gather_dot import gather_dot
 from .raw import bump_slots, tombstone
 
 Tensor = torch.Tensor
@@ -377,16 +378,12 @@ class RaBitQSpace:
         return est.reshape(B, -1), self.nbr_ids[safe].reshape(B, -1)
 
     def gather_dists(self, q: Tensor, ids: Tensor) -> Tensor:
-        """Exact f32 squared distances (seeds, result pool, rerank)."""
-        B, K = ids.shape
-        counters.exact_rows += B * K
-        safe = ids.clamp(0, self.capacity - 1).reshape(-1)
-        vecs = self.data.index_select(0, safe).view(B, K, -1)
-        dot = row_dots(vecs, q)
-        q_sq = (q * q).sum(-1, keepdim=True)
-        return torch.clamp(
-            q_sq + self.sq_norms.index_select(0, safe).view(B, K) - 2.0 * dot,
-            min=0.0)
+        """Exact f32 squared distances (seeds, result pool, rerank) to the
+        rows ``ids`` [B, K] (clamped into [0, capacity)): one
+        ``gather_dot``."""
+        counters.exact_rows += ids.numel()
+        return gather_dot(self.data, ids.contiguous(), q.contiguous(),
+                          (q * q).sum(-1), self.sq_norms)
 
     # ---- persistence (the JAX package's npz keys) ----
     def save_arrays(self) -> dict:

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..ops.distance import normalize_rows, row_dots, sqnorms
+from ..ops.gather_dot import gather_dot
 
 
 STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -158,9 +159,15 @@ class RawSpace:
 
     def gather_dists(self, q: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         """Distances from per-query vectors q [B, D] to gathered node ids
-        [B, K] (−1 allowed; the caller masks). Returns f32 [B, K]. A bf16
-        space multiplies bf16 values with f32 accumulation, as the JAX
-        bf16 einsum does."""
+        [B, K] (−1 allowed; the caller masks). Returns f32 [B, K]. f32
+        rows take one ``gather_dot``. A bf16 space multiplies bf16 values
+        with f32 accumulation, as the JAX bf16 einsum does."""
+        if self.data.dtype == torch.float32:
+            ids, q = ids.contiguous(), q.contiguous()
+            if self.metric == "ip":
+                return -gather_dot(self.data, ids, q)
+            return gather_dot(self.data, ids, q, (q * q).sum(-1),
+                              self.sq_norms)
         B, K = ids.shape
         safe = ids.clamp(0, self.capacity - 1).reshape(-1)
         vecs = self.data.index_select(0, safe).view(B, K, -1).float()

@@ -61,7 +61,13 @@ the script exits non-zero:
                bit against its plain version at the paths' (B, W, k), timed
                at the 1-bit search's (4096, 522, 10) and bsq8's
                (4096, 64, 10) beside the duplicate net and top k it
-               replaced (library_ms);
+               replaced (library_ms); and gather_dot (the exact
+               re-scoring) against float64 distances at the paths' (B, K,
+               D) and odd D, bit for bit its plain version (the chain it
+               replaced) at D 128, a pair bit-equal in any batch and at
+               K 8, timed at (4096, 512, 128) and (4096, 8, 128) over 1M
+               rows beside the plain version and index_select + bmm
+               (library_ms), against the bytes of its distinct rows;
   4. fit       Client().create_index(hnsw + bsq8, the repository's
                headline parameters, capacity 1M + 16,384) and fit on
                bench.py's data, random_dataset(1M x 128, seed 42, 500
@@ -540,6 +546,14 @@ UNIQUE_TOPK_SHAPES = ((4096, 522, 10, True), (4096, 64, 10, True),
                       (4096, 100, 100, False), (4096, 64, 32, True),
                       (52, 64, 10, True))
 UNIQUE_TOPK_CAPACITY = 1_016_384
+# gather_dot: (B, K, D, C): the 1-bit search's final re-score and its hop
+# over 1M rows first, the timed two; bsq8's final pool of a served batch,
+# K under a group's rows, GIST's D, D split unevenly over the lanes, D with
+# no 16-byte rows (word loads)
+GATHER_DOT_SHAPES = ((4096, 512, 128, 1_000_000), (4096, 8, 128, 1_000_000),
+                     (52, 72, 128, 100_000), (7, 5, 96, 10_000),
+                     (33, 3, 960, 10_000), (65, 17, 100, 10_000),
+                     (19, 11, 98, 10_000))
 NEW_PHASES = ("collection", "reindex", "calc_gt", "rabitq", "rabitq2",
               *SLICE11_PHASES, *SLICE12_PHASES)
 
@@ -1245,6 +1259,128 @@ def check_unique_topk(torch, dev) -> dict:
             f"{times['plain_ms']:.4f} ms, the net + top k "
             f"{times['library_ms']:.4f} ms ({times['library_ms_spin']:.4f}), "
             f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        torch.cuda.empty_cache()
+    return out
+
+
+def gather_dot_inputs(torch, rng, B, K, D, C, dev):
+    """An exact re-score's operands: C normal rows, their squared norms,
+    B normal queries and theirs, ids uniform over the rows with 5% holes
+    (-1, clamped to row 0 as the searches pass them). (data, ids i32, q,
+    q_sq, x_sq)."""
+    from alayalite_tpu_torch.ops.distance import sqnorms
+
+    data = torch.randn((C, D), device=dev,
+                       generator=torch.Generator(dev).manual_seed(int(
+                           rng.integers(1 << 31))))
+    q = torch.as_tensor(rng.normal(size=(B, D)).astype(np.float32),
+                        device=dev)
+    ids = rng.integers(0, C, size=(B, K)).astype(np.int32)
+    ids[rng.random((B, K)) < 0.05] = -1
+    return (data, torch.as_tensor(ids, device=dev), q, (q * q).sum(-1),
+            sqnorms(data))
+
+
+def gather_dot_bytes(B, K, D, ids) -> int:
+    """The bytes gather_dot must move: each distinct row of ``ids`` and its
+    squared norm once (a row that several queries read may come from L2),
+    the ids, the queries and their norms read, the output written."""
+    rows = ids.clamp(min=0).unique().numel()
+    return rows * (D * 4 + 4) + B * K * 8 + B * (D * 4 + 4)
+
+
+def gather_dot_library(data, ids, q, q_sq=None, x_sq=None):
+    """gather_dot's function through one PyTorch product: index_select,
+    bmm, the epilogue where q_sq and x_sq are given."""
+    import torch
+
+    B, K = ids.shape
+    safe = ids.clamp(0, data.shape[0] - 1).reshape(-1)
+    dot = torch.bmm(data.index_select(0, safe).view(B, K, -1),
+                    q.unsqueeze(2)).squeeze(2)
+    if x_sq is None:
+        return dot
+    return torch.clamp(q_sq[:, None] + x_sq.index_select(0, safe).view(B, K)
+                       - 2.0 * dot, min=0.0)
+
+
+def gather_dot_error(torch, got, data, ids, q) -> float:
+    """The largest |got - d| over (|q|^2 + |x|^2), d the float64 distance
+    from the same f32 operands (1024 queries at a time)."""
+    worst = 0.0
+    for lo in range(0, ids.shape[0], 1024):
+        rows = data.double()[ids[lo:lo + 1024].long().clamp(0, data.shape[0]
+                                                            - 1)]
+        qd = q[lo:lo + 1024].double()
+        scale = (qd * qd).sum(-1)[:, None] + (rows * rows).sum(-1)
+        d = torch.clamp(scale - 2.0 * (rows * qd[:, None, :]).sum(-1), min=0)
+        worst = max(worst, float(((got[lo:lo + 1024].double() - d).abs()
+                                  / scale).max()))
+    return worst
+
+
+def check_gather_dot(torch, dev) -> dict:
+    """gather_dot (csrc/gather_dot.cu) against float64 distances from the
+    same operands (relative error <= 1e-5 of |q|^2 + |x|^2) at the paths'
+    shapes, and bit for bit its plain version (the chain it replaced:
+    index_select, row_dots, the epilogue) at D 128; one (query, row) pair
+    bit-equal in slices of 54 queries and at K 8; times of the kernel, the
+    plain version and index_select + bmm at the two search shapes, against
+    the bytes of the distinct rows."""
+    from alayalite_tpu_torch.ops.gather_dot import gather_dot, gather_dot_ref
+    from alayalite_tpu_torch.utils.timing import bound, cuda_ms
+
+    rng = np.random.default_rng(31)
+    out = {"checked": [], "at": {}}
+    for B, K, D, C in GATHER_DOT_SHAPES:
+        args = gather_dot_inputs(torch, rng, B, K, D, C, dev)
+        got = gather_dot(*args)
+        plain = gather_dot_ref(*args)
+        torch.cuda.synchronize()
+        err = gather_dot_error(torch, got, *args[:3])
+        rep = {"rel_err": err, "max_abs_vs_plain": float(
+            (got - plain).abs().max()), "bits_equal_plain": float(
+                (got.view(torch.int32) == plain.view(torch.int32)).float()
+                .mean())}
+        if not err <= 1e-5:
+            raise AssertionError(f"gather_dot at {(B, K, D)}: relative error "
+                                 f"{err} against float64")
+        if D == 128 and rep["bits_equal_plain"] != 1.0:
+            raise AssertionError(f"gather_dot at {(B, K, D)}: "
+                                 f"{rep['bits_equal_plain']} of the outputs "
+                                 f"have the bits of the plain version")
+        out["checked"].append([B, K, D, C, rep])
+        if (B, K, D, C) not in GATHER_DOT_SHAPES[:2]:
+            continue
+        data, ids, q, q_sq, x_sq = args
+        parts = torch.cat([gather_dot(data, ids[lo:lo + 54], q[lo:lo + 54],
+                                      q_sq[lo:lo + 54], x_sq)
+                           for lo in range(0, B, 54)])
+        head = gather_dot(data, ids[:, :8].contiguous(), q, q_sq, x_sq)
+        if not (_same_bits(parts, got) and _same_bits(head, got[:, :8])):
+            raise AssertionError(f"gather_dot at {(B, K, D)}: a pair's bits "
+                                 f"depend on the batch or on K")
+        times = {"ms": cuda_ms(lambda: gather_dot(*args)),
+                 "ms_spin": cuda_ms(lambda: gather_dot(*args), spin=True),
+                 "plain_ms": cuda_ms(lambda: gather_dot_ref(*args)),
+                 "plain_ms_spin": cuda_ms(lambda: gather_dot_ref(*args),
+                                          spin=True),
+                 "library_ms": cuda_ms(
+                     lambda: gather_dot_library(*args)),
+                 "library_ms_spin": cuda_ms(
+                     lambda: gather_dot_library(*args), spin=True)}
+        b = bound(gather_dot_bytes(B, K, D, ids), 0, "f32")
+        out["at"][str((B, K, D))] = {
+            **rep, **b, **times,
+            "spin_over_bound": times["ms_spin"] / b["bound_ms"]}
+        log(f"kernel gather_dot {(B, K, D)} over {C} rows: {times['ms']:.4f} "
+            f"ms ({times['ms_spin']:.4f} device alone), plain (the chain) "
+            f"{times['plain_ms']:.4f} ms ({times['plain_ms_spin']:.4f}), "
+            f"index_select + bmm "
+            f"{times['library_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms "
+            f"(the distinct rows once), {times['ms_spin'] / b['bound_ms']:.2f}"
+            f"x it; relative error {err:.2e}")
+        del args, data, ids, q, got, plain, parts
         torch.cuda.empty_cache()
     return out
 
@@ -2521,15 +2657,17 @@ def new_counters():
     the stale check, gather_diagdot, their launches by kernel, and the hop
     estimates (gather_estimate through a raw insert's shadow,
     block_diagdot on the rabitq hop), the distance tile, the block
-    search's final selection (unique_topk)."""
+    search's final selection (unique_topk), the exact re-scoring
+    (gather_dot)."""
     from alayalite_tpu_torch.ops.diagdot import block_diagdot
     from alayalite_tpu_torch.ops.gather_diagdot import gather_estimate
+    from alayalite_tpu_torch.ops.gather_dot import gather_dot
     from alayalite_tpu_torch.ops.l2_tile import l2_tile
 
     from alayalite_tpu_torch.ops.unique_topk import unique_topk
 
     return (*pool_counters(), gather_estimate, block_diagdot, l2_tile,
-            unique_topk)
+            unique_topk, gather_dot)
 
 
 class Launches:
@@ -2839,6 +2977,13 @@ def rabitq_search(torch, idx, queries, gt, ef: int, launches, step: str,
     if got["block_diagdot"] <= 0 or got["block_diagdot"] != got["ring_probe"]:
         raise AssertionError(f"{step}: the rabitq hop did not launch "
                              f"block_diagdot once a hop: {got}")
+    # the exact distances: a slice's seeds, each hop's popped nodes and the
+    # final pool (18 a slice at ef 128), one gather_dot each
+    if got["unique_topk"] <= 0 or got["gather_dot"] != (
+            got["block_diagdot"] + 2 * got["unique_topk"]):
+        raise AssertionError(f"{step}: the exact distances did not launch "
+                             f"gather_dot once a hop and twice a slice: "
+                             f"{got}")
     return calc_recall(ids, gt), queries.shape[0] / wall, ids
 
 
@@ -4045,7 +4190,7 @@ def service_phase(torch, root: str, want_ids, gt, doc_of, queries) -> dict:
     col = app.client.get_collection("docs")
     # phase 12 searched all the queries in one call: the searches sum each
     # distance in an order that does not depend on the batch
-    # (ops.distance.row_dots), so the rows must be equal
+    # (ops.gather_dot), so the rows must be equal
     default = rep["default"]
     default["ids_equal_phase12"] = float(np.mean(
         [a == b for a, b in zip(ids, want_ids)]))
@@ -4769,12 +4914,14 @@ def main() -> int:
     report["sq8_gather"] = check_sq8_gather(torch, dev)
     report["seed_scan"] = check_seed_scan(torch, dev)
     report["unique_topk"] = check_unique_topk(torch, dev)
+    report["gather_dot"] = check_gather_dot(torch, dev)
     # the kernels of every block hop, and the hops (estimate_many calls)
     hop = (gather_estimate, ring_probe,
            CallCount(gather_estimate, "estimate_many_calls"))
     # pool_merge, sort_kv, merge_kv, and the launches by kernel of
     # pool_merge, sort_kv and ring_probe
     pool = (*pool_counters()[:3], *pool_counters()[5:])
+    from alayalite_tpu_torch.ops.gather_dot import gather_dot
     from alayalite_tpu_torch.ops.unique_topk import unique_topk
 
     t = time.time()
@@ -4835,7 +4982,7 @@ def main() -> int:
     search_launches = {c.__name__: 0 for c in hop}
     for ef in EFS:
         ids, dist, wall, launches = timed_search(
-            torch, idx, ds.queries, K, (*hop, *pool, unique_topk),
+            torch, idx, ds.queries, K, (*hop, *pool, unique_topk, gather_dot),
             ef_search=ef)
         for c in pool:
             bsq8_pool[c.__name__] += launches[c.__name__]
@@ -4853,6 +5000,10 @@ def main() -> int:
         if launches["gather_estimate"] != launches["estimate_many_calls"]:
             raise AssertionError("a hop's estimate_many did not launch "
                                  "gather_estimate exactly once")
+        # the exact distances of a slice's seeds and of its final pool
+        if launches["gather_dot"] != 2 * launches["unique_topk"]:
+            raise AssertionError(f"the exact distances did not launch "
+                                 f"gather_dot twice a slice: {launches}")
         report["search"][ef] = {"recall": rec, "qps": NQ / wall,
                                 "wall_s": wall, "launches": launches}
         report["estimate_many"][f"launches_per_hop_ef{ef}"] = (
@@ -4999,6 +5150,10 @@ def main() -> int:
                 for ph in (*SLICE11_PHASES, *SLICE12_PHASES)}
 
     sdk_rabitq = NEW_PHASES[:5]
+    gather_dot_main = report["gather_dot"]["at"][str(GATHER_DOT_SHAPES[0][:3])]
+    gather_dot_launches = (sum(r["launches"]["gather_dot"]
+                               for r in report["search"].values())
+                           + new_launches("gather_dot"))
 
     rabitq_searches = sum(new_launches(
         "block_diagdot", (ph,), [s for s in report[ph]["launches"]
@@ -5118,6 +5273,36 @@ def main() -> int:
          "variant": fused["variant"], "at": entries(fused),
          "kernels_per_estimate_many": report["estimate_many"][
              "kernels_per_call"]},
+        # no Pallas kernel: the JAX package's gather_dists leaves the gather
+        # and the product to XLA
+        {**row("gather_dot", "alayalite_tpu_torch/csrc/gather_dot.cu",
+               "alayalite_tpu/spaces/raw.py:138 (XLA, no Pallas kernel)",
+               gather_dot_launches, {
+                   **gather_dot_main,
+                   "max_abs_err": gather_dot_main["max_abs_vs_plain"]}),
+         "also_replaces": ["alayalite_tpu/spaces/bqg.py:264",
+                           "alayalite_tpu/spaces/rabitq.py:356"],
+         "launched_by": "the f32 spaces' gather_dists (RawSpace, BQGSpace, "
+                        "RaBitQSpace: a block search's seeds and final pool, "
+                        "the 1-bit hop's popped nodes, the raw beam, "
+                        "exact_rescore, the fits' kNN, prune and repair, "
+                        "the inserts), DistSlab.gather_dists, the flat fast "
+                        "rerank",
+         "launches_by_phase": {
+             "bsq8_1m_search": sum(r["launches"]["gather_dot"]
+                                   for r in report["search"].values()),
+             "rabitq_1m_search": new_launches("gather_dot", ("rabitq",), [
+                 s for s in report["rabitq"]["launches"]
+                 if s.startswith("search")]),
+             "rabitq2_100k_search": new_launches("gather_dot", ("rabitq2",), [
+                 s for s in report["rabitq2"]["launches"]
+                 if s.startswith("search")])},
+         "launches_by_new_phase": by_new_phase("gather_dot"),
+         "at": {shape: {k: rep[k] for k in (
+             "ms", "ms_spin", "plain_ms", "plain_ms_spin",
+             "library_ms", "library_ms_spin", "bound_ms", "bound_by",
+             "spin_over_bound", "bits_equal_plain")}
+             for shape, rep in report["gather_dot"]["at"].items()}},
         {**row("ring_probe", "alayalite_tpu_torch/csrc/ring_probe.cu",
                "scripts/proto_pallas_sort2.py:135", probe_launches,
                report["ring_probe"]),
@@ -5233,6 +5418,7 @@ def main() -> int:
         "raw": report["raw"], "sq8_gather": report["sq8_gather"],
         "seed_scan": report["seed_scan"],
         "unique_topk": report["unique_topk"],
+        "gather_dot": report["gather_dot"],
         "estimate_many": report["estimate_many"],
         "bsq8_pool_launches": bsq8_pool,
         "flat": {k: report["flat"][k] for k in ("fit_s", "exact", "fast")},

@@ -6,15 +6,15 @@
 On ``random_dataset(n x 128, n_queries=nq, seed 42, one cluster per 2000
 rows)``, for batch splits of 512, 54 and 1 queries against one call of all
 of them, prints the share of bit-equal outputs of the operations a search
-runs in PyTorch's own kernels (the row distances as a ``torch.bmm`` of the
-gathered rows, and as ``ops.distance.row_dots``, an elementwise product
-and a sum, which the searches take; the bf16 seed-scan ``torch.matmul``),
-their times at the hop's [4096, 256, 128] (CUDA events, device time
-alone), then the share of equal result rows of a raw hnsw and a bsq8 index
-(ef 64, k 10) searched in those splits and the wall seconds of one search
-of all the queries, each with ``row_dots`` and with ``torch.bmm`` in its
-place, in turns. Needs a CUDA device; prints the card's name and power
-limit beside the numbers.
+runs for its exact distances (the row distances as a ``torch.bmm`` of the
+gathered rows; as ``ops.distance.row_dots``, an elementwise product and a
+sum; as ``ops.gather_dot``, the kernel the f32 searches take; the bf16
+seed-scan ``torch.matmul``), their times at the hop's [4096, 256, 128]
+(CUDA events, device time alone), then the share of equal result rows of
+a raw hnsw and a bsq8 index (ef 64, k 10) searched in those splits and the
+wall seconds of one search of all the queries, each with ``gather_dot``
+and with ``index_select`` + ``torch.bmm`` in its place, in turns. Needs a
+CUDA device; prints the card's name and power limit beside the numbers.
 """
 
 from __future__ import annotations
@@ -50,25 +50,37 @@ def bmm_dots(rows, q):
     return torch.bmm(rows, q.unsqueeze(2)).squeeze(2)
 
 
+def bmm_gather(data, ids, q, q_sq=None, x_sq=None):
+    """``gather_dot``'s function through index_select and ``torch.bmm``."""
+    import torch
+
+    B, K = ids.shape
+    safe = ids.clamp(0, data.shape[0] - 1).reshape(-1)
+    dot = bmm_dots(data.index_select(0, safe).view(B, K, -1), q)
+    if x_sq is None:
+        return dot
+    return torch.clamp(q_sq[:, None] + x_sq.index_select(0, safe).view(B, K)
+                       - 2.0 * dot, min=0.0)
+
+
 @contextmanager
-def dots_as(fn):
-    """Every search module's ``row_dots`` replaced by ``fn``. The captured
-    search graphs are dropped on the way in and out, so each form captures
-    its own."""
-    from alayalite_tpu_torch.index import captured, search
-    from alayalite_tpu_torch.ops import distance
+def gather_as(fn):
+    """Every space module's ``gather_dot`` replaced by ``fn``. The
+    captured search graphs are dropped on the way in and out, so each form
+    captures its own."""
+    from alayalite_tpu_torch.index import captured
     from alayalite_tpu_torch.spaces import bqg, rabitq, raw
 
-    mods = (search, distance, bqg, rabitq, raw)
-    saved = [m.row_dots for m in mods]
+    mods = (bqg, rabitq, raw)
+    saved = [m.gather_dot for m in mods]
     for m in mods:
-        m.row_dots = fn
+        m.gather_dot = fn
     captured.clear()
     try:
         yield
     finally:
         for m, f in zip(mods, saved):
-            m.row_dots = f
+            m.gather_dot = f
         captured.clear()
 
 
@@ -86,6 +98,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from alayalite_tpu_torch import Index, IndexParams
     from alayalite_tpu_torch.ops.distance import row_dots
+    from alayalite_tpu_torch.ops.gather_dot import gather_dot
     from alayalite_tpu_torch.spaces.raw import RawSpace
     from alayalite_tpu_torch.utils.datasets import random_dataset
     from alayalite_tpu_torch.utils.timing import card_line, cuda_ms
@@ -110,8 +123,12 @@ def main() -> int:
     def seed_scan(qq):
         return torch.matmul(qq.to(torch.bfloat16), sample.T).float()
 
+    def kernel(qq, ii):
+        return gather_dot(sp.data, ii, qq)
+
     ops = {"bmm": (gathered(bmm_dots), (q, ids)),
            "row_dots": (gathered(row_dots), (q, ids)),
+           "gather_dot": (kernel, (q, ids)),
            "seed_scan_matmul": (seed_scan, (q,))}
     out = {"card": card_line(), "n": args.n, "nq": args.nq, "ops": {},
            "ms_spin_4096x256x128": {}, "search": {}}
@@ -121,7 +138,7 @@ def main() -> int:
                             for rows in SPLITS}
     hop_q, hop_ids = q[:4096], ids[:4096]
     for _ in range(2):                                        # in turns
-        for name in ("bmm", "row_dots"):
+        for name in ("bmm", "row_dots", "gather_dot"):
             fn = ops[name][0]
             out["ms_spin_4096x256x128"].setdefault(name, []).append(
                 cuda_ms(lambda: fn(hop_q, hop_ids), spin=True))
@@ -130,8 +147,9 @@ def main() -> int:
         idx = Index(name, IndexParams(capacity=args.n, **kw))
         idx.fit(ds.data)
         rep = out["search"][name] = {"wall_s": {}}
-        for dots, label in ((row_dots, "row_dots"), (bmm_dots, "bmm")):
-            with dots_as(dots):
+        for fn, label in ((gather_dot, "gather_dot"),
+                          (bmm_gather, "bmm")):
+            with gather_as(fn):
                 full = idx.batch_search(ds.queries, 10, ef_search=64)
                 rep[label] = {}
                 for rows in SPLITS[:2]:
@@ -141,8 +159,9 @@ def main() -> int:
                         for lo in range(0, args.nq, rows)])
                     rep[label][rows] = float((parts == full).all(1).mean())
         for _ in range(3):                                    # in turns
-            for dots, label in ((row_dots, "row_dots"), (bmm_dots, "bmm")):
-                with dots_as(dots):
+            for fn, label in ((gather_dot, "gather_dot"),
+                              (bmm_gather, "bmm")):
+                with gather_as(fn):
                     torch.cuda.synchronize()
                     t = time.perf_counter()
                     idx.batch_search(ds.queries, 10, ef_search=64)
