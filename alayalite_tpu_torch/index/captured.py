@@ -91,8 +91,9 @@ insert in place moves it, so the graph of a grown index is kept. A slab that is
 reallocated (fit, load, compact, a new ``valid`` or seed sample) changes a
 pointer and so the key.
 
-The kernels' counters (``.calls``, ``.launches``, ``.route_launches``) and
-the RaBitQ hop's (``spaces/rabitq.counters``) are Python integers that a
+The kernels' counters (``.calls``, ``.launches``, ``.route_launches``),
+the RaBitQ hop's (``spaces/rabitq.counters``) and the tiled scans'
+(``ops/distance.counters``) are Python integers that a
 replay does not touch: the layer records each counter's change during a
 capture, takes it back (nothing ran), and adds it again on every replay, so
 a count read around a search stays the count of the work that ran.
@@ -217,8 +218,9 @@ def _counted() -> tuple:
 
 def counts() -> dict:
     """Every kernel counter: {(wrapper, attribute, route or None): n}; and
-    the RaBitQ hop's, {(rabitq.counters, field, None): n}."""
-    from ..spaces.rabitq import counters
+    the RaBitQ hop's and the tiled scans', {(counters, field, None): n}."""
+    from ..ops.distance import counters as scan
+    from ..spaces.rabitq import counters as rabitq
 
     out = {}
     for fn in _counted():
@@ -226,8 +228,9 @@ def counts() -> dict:
             out[(fn, attr, None)] = getattr(fn, attr)
         for route, n in getattr(fn, "route_launches", {}).items():
             out[(fn, "route_launches", route)] = n
-    for attr in counters.FIELDS:
-        out[(counters, attr, None)] = getattr(counters, attr)
+    for c in (rabitq, scan):
+        for attr in c.FIELDS:
+            out[(c, attr, None)] = getattr(c, attr)
     return out
 
 

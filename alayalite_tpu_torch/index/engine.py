@@ -51,6 +51,7 @@ import torch
 
 from .. import trace
 from ..device import DeviceLike, resolve_device, synchronize
+from ..ops.distance import counters as scan_counters
 from ..ops.distance import exact_topk, flat_search_device
 from ..params import IndexParams, IndexType, QuantizationType
 from ..spaces.bqg import BQGSpace
@@ -347,18 +348,26 @@ class IndexEngine:
         coarse scan keeping max(32, 4·topk) candidates, then an f32 rerank.
         The JAX package caches a padded copy of the slab for its fast mode
         (it pads to fixed shapes for XLA); the port scans the rows in place
-        and reads the space's own norms, so there is nothing to cache."""
+        and reads the space's own norms, so there is nothing to cache.
+        The scan is the span ``alaya.flat.scan`` (mode, the slab's rows
+        scanned, queries, and the tiles scored, from
+        ``ops/distance.counters``)."""
         sp = self.space
         n = sp.num
-        qp = sp.prep_query(q)
-        if self.params.flat_mode == "fast":
-            d, i = flat_search_device(
-                qp, sp.data[:n], sp.sq_norms[:n], sp.valid[:n], k=topk,
-                metric=sp.metric, tile_n=min(65536, max(n, 1)),
-                rerank=max(32, 4 * topk))
-        else:
-            d, i = exact_topk(qp, sp.data[:n], topk, metric=sp.metric,
-                              valid=sp.valid[:n])
+        mode = self.params.flat_mode
+        with trace.span("alaya.flat.scan", mode=mode, rows=n,
+                        queries=q.shape[0]) as scan:
+            tiles = scan_counters.tiles
+            qp = sp.prep_query(q)
+            if mode == "fast":
+                d, i = flat_search_device(
+                    qp, sp.data[:n], sp.sq_norms[:n], sp.valid[:n], k=topk,
+                    metric=sp.metric, tile_n=min(65536, max(n, 1)),
+                    rerank=max(32, 4 * topk))
+            else:
+                d, i = exact_topk(qp, sp.data[:n], topk, metric=sp.metric,
+                                  valid=sp.valid[:n])
+            scan.set(tiles=scan_counters.tiles - tiles)
         return i, d
 
     def _seed_scan_arrays(self):

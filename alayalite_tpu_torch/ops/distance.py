@@ -19,6 +19,9 @@ of one tile tie at its k-th place, the rows ``torch.topk`` keeps are taken
 (the JAX package keeps the lower ids). Fast mode's coarse selection is an
 exact ``torch.topk`` where the JAX package takes ``approx_max_k``, so the
 port's coarse set holds every candidate the approximation could find.
+
+``counters`` counts the tiled scans' work (``ScanCounters``), carried by
+``index/captured.py`` beside the kernels' launches.
 """
 
 from __future__ import annotations
@@ -33,6 +36,28 @@ from .topk import select_smallest, topk_smallest
 
 FINF = float("inf")
 Tensor = torch.Tensor
+
+
+class ScanCounters:
+    """What the tiled scans (``_exact_topk_device``: the flat index's
+    exact and fast scans, ``exact_topk``'s callers, the sharded slab's
+    scan) did, as Python integers that ``index/captured.py`` keeps as it
+    keeps the kernels' ``.launches``.
+
+      pairs       (query, row) distances scored: Σ Q · N over the tiles
+                  (``pairwise``: ``l2_tile`` for f32 l2)
+      tiles       tiles of rows scored
+      candidates  each tile's selection merged into the running best
+                  (``merge_kv``): Σ Q · min(k, N)
+    """
+
+    FIELDS = ("pairs", "tiles", "candidates")
+
+    def __init__(self):
+        self.pairs = self.tiles = self.candidates = 0
+
+
+counters = ScanCounters()
 
 
 def sqnorms(x: Tensor) -> Tensor:
@@ -122,6 +147,9 @@ def _exact_topk_device(q: Tensor, x: Tensor, x_sq: Optional[Tensor],
         if t in masked:
             d.masked_fill_(~valid[lo:hi], FINF)
         d_t, sel = select_smallest(d, min(k, hi - lo))
+        counters.pairs += Q * (hi - lo)
+        counters.tiles += 1
+        counters.candidates += Q * min(k, hi - lo)
         # both lists are ascending: the merge network, not a sort
         best_d, best_i = merge_kv(best_d, best_i, d_t.contiguous(),
                                   sel.to(torch.int32) + lo, k)

@@ -23,8 +23,9 @@ Spans mark host boundaries only: none sits inside a function that
 and none touches a graph's key.
 
 The spans of a batch search (the path of ``IndexEngine
-.batch_search_with_distance``; the raw graph and flat paths have the
-root, the two copies and the replays):
+.batch_search_with_distance``; the raw graph path has the root, the two
+copies and the replays, the flat path the root, the two copies and the
+scan):
 
   alaya.engine.batch_search   the call (topk, ef, rows, the space's
                               quantization, the pool width searched)
@@ -34,6 +35,8 @@ root, the two copies and the replays):
     alaya.captured.replay     one slice's replay (graph, bucket, rows, hit)
       alaya.captured.capture  a missed key's warm-up and capture (graph)
     alaya.search.concat       the slices' answers joined (rows)
+    alaya.flat.scan           a flat index's tiled scan, eager (mode, the
+                              slab's rows, queries, tiles scored)
     alaya.engine.answers_out  the answers to numpy (waits for the card)
 """
 

@@ -3,7 +3,8 @@ span's ``pool`` and ``space``.
 
 On the CPU one search of a small seeded rabitq or rabitq2 index adds to
 the counters exactly their closed form in the search's shapes; a bsq8 or
-raw hnsw search leaves them as they were; the root span
+raw hnsw search leaves them as they were, and no graph search moves the
+flat scan's (``ops/distance.counters``); the root span
 ``alaya.engine.batch_search`` records the pool width searched (the boosted
 ef of a 1-bit index) and the space's quantization.
 
@@ -19,6 +20,7 @@ import torch
 
 from alayalite_tpu_torch import Client, trace
 from alayalite_tpu_torch.index import captured
+from alayalite_tpu_torch.ops.distance import counters as scan_counters
 from alayalite_tpu_torch.spaces.rabitq import counters
 
 torch.set_num_threads(2)
@@ -81,6 +83,17 @@ def test_other_spaces_leave_the_counters(indices, quant):
     idx, x = _cached(indices, quant)
     got = _added(lambda: idx.batch_search(x[:NQ], TOPK, ef_search=EF))
     assert got == {f: 0 for f in counters.FIELDS}
+
+
+@pytest.mark.parametrize("quant", ["rabitq", "bsq8", "none"])
+def test_graph_searches_leave_the_scan_counters(indices, quant):
+    """The flat scan's counters (``ops/distance.counters``) move only on
+    a tiled scan: a graph search leaves them."""
+    idx, x = _cached(indices, quant)
+    before = {f: getattr(scan_counters, f) for f in scan_counters.FIELDS}
+    idx.batch_search(x[:NQ], TOPK, ef_search=EF)
+    assert {f: getattr(scan_counters, f)
+            for f in scan_counters.FIELDS} == before
 
 
 @pytest.mark.parametrize("quant,pool", [("rabitq", 4 * EF), ("rabitq2", EF),
