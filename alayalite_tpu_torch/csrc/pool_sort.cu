@@ -1,14 +1,11 @@
 // pool_sort: the sort and merge of a beam search's candidate pool, written
 // for Hopper (sm_90a). Two functions over one compare-exchange, each with a
-// warp route beside the shared-memory network, and one merge without a
-// network (roll_n, the exchange's calibration, is in roll_n.cu):
+// warp route beside the shared-memory network (roll_n, the exchange's
+// calibration, is in roll_n.cu):
 //
 //   sort_kv     each list of f32 keys ascending, with an optional i32 payload
 //               and the source positions; lists along rows [B, K] or along
 //               columns [K, B] (strides); the first kout entries are written
-//   merge_kv    two ascending lists [B, L1], [B, L2] with i32 payloads ->
-//               the first kout entries of the ascending merge (a merge path:
-//               a co-rank search per output, see its note below)
 //   pool_merge  the hop's whole merge in one launch: the concatenation
 //               [B, L1] ‖ [B, L2] of (distance, id, flag) sorted ascending,
 //               the first kout kept, the later of two adjacent equal
@@ -24,15 +21,14 @@
 // pool_merge, the one that runs in every hop, and sort_kv along rows keep
 // each list in one warp's registers instead (the warp routes below) and use
 // the shared-memory network only for lists longer than a warp holds (and
-// sort_kv for lists along columns). A merge of two sorted lists needs no
-// network at all: merge_kv finds each output's place by binary search.
+// sort_kv for lists along columns).
 //
 // The order is total. Every entry is one 64-bit word: the key's bits made
 // monotone (-0 and +0 equal, NaN after +inf) in the high half, the entry's
 // position in the input in the low half. All words differ, so the network,
 // which is not stable by itself, returns exactly what a stable sort by key
-// returns: among equal keys the earlier input position first (in pool_merge
-// and merge_kv: the first operand first). Keys and payloads are written from
+// returns: among equal keys the earlier input position first (in pool_merge:
+// the first operand first). Keys and payloads are written from
 // the inputs at the sorted positions, so their bits pass through untouched.
 // Slots that pad a list to a power of two hold the largest word.
 //
@@ -171,85 +167,6 @@ sort_kv_kernel(const float* __restrict__ keys, const int* __restrict__ pay,
     if (oidx != nullptr) {
       oidx[obase + o * ois] = pos;
     }
-  }
-}
-
-// ------------------------------------------------------------------------
-// merge_kv: a merge path, one co-rank search per output; no network.
-//
-// Output o of a row is the o-th word of the merge of a's words compose(a[i],
-// i) and b's words compose(b[j], L1 + j): the words the network sorts. If
-// i of the first o outputs come from a, the other o - i from b, then i is the
-// least index in [max(0, o - L2), min(o, L1)] whose word in a is not below
-// b's word o - i - 1 (the co-rank of o), and output o is the smaller of a's
-// word i and b's word o - i. A binary search finds i in ceil(log2(range +
-// 1)) probes, each reading one key of each list straight from device memory
-// through the L1 cache (a row's keys are a few lines that every lane of the
-// row probes). A word of a and a word of b never tie, and a's position half
-// is the lower, so comparing the two is comparing their keys in the words'
-// order with a first among equal keys: x <= y or y is NaN (IEEE's <= already
-// makes -0 equal to +0; a NaN key sorts after +inf), two float compares
-// where the monotone bits cost a dozen instructions a probe. The key and
-// payload are copied from the input at the chosen position, so their bits
-// pass through untouched: bit for bit what the stable sort of the
-// concatenation returns (merge_kv_ref), given that both operands ascend in
-// word order (not checked).
-//
-// Mapping: G = min(128, pow2(kout)) lanes a row: one output a lane where
-// kout <= 128 (the four warps of a 64 + 64 -> 128 row search at once), 32 /
-// G rows a warp where kout <= 16 (the exact scan's 10 + 10 -> 10: two rows;
-// find_medoid's 1 + 1 -> 1: thirty-two); lane l of a row finds and writes
-// outputs l, l + G, ..., so stores are coalesced. No shared memory, no
-// barrier, no padding to a power of two; any width the wrapper takes.
-//
-// Bound: the bytes (each key and payload read once, each output written
-// once: 8.4 MB at [4096, 64 + 64] -> 128, 2.5 us at 3.35 TB/s). The network
-// this replaces padded the two lists to a power of two and ran log2(P)
-// shared-memory stages behind barriers; here a row's work is its lanes'
-// searches, log2(L) dependent L1 reads each. Measured forms of the same
-// search (scripts/torch_sort_ab.py): one warp a row, and one search a lane
-// followed by a merge of its chunk of outputs one by one.
-
-constexpr int kMergeBlock = 256;
-constexpr int kMergeLanes = 128;   // most lanes a row
-
-// a's key x comes before b's key y in the merge
-__device__ __forceinline__ bool a_first(float x, float y) {
-  return x <= y || isnan(y);
-}
-
-__global__ void __launch_bounds__(kMergeBlock)
-merge_kv_kernel(const float* __restrict__ ka, const int* __restrict__ pa,
-                const float* __restrict__ kb, const int* __restrict__ pb,
-                float* __restrict__ okeys, int* __restrict__ opay,
-                long long B, int L1, int L2, int kout, int lg_g) {
-  const long long t =
-      static_cast<long long>(blockIdx.x) * kMergeBlock + threadIdx.x;
-  const long long row = t >> lg_g;
-  if (row >= B) {
-    return;  // no lane waits on another: nothing is exchanged
-  }
-  const int G = 1 << lg_g;
-  const float* a = ka + row * L1;
-  const float* b = kb + row * L2;
-  for (int o = static_cast<int>(t & (G - 1)); o < kout; o += G) {
-    int lo = o > L2 ? o - L2 : 0;
-    int hi = o < L1 ? o : L1;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (a_first(__ldg(a + mid), __ldg(b + o - mid - 1))) {
-        lo = mid + 1;
-      } else {
-        hi = mid;
-      }
-    }
-    const int j = o - lo;
-    const float x = lo < L1 ? __ldg(a + lo) : 0.f;
-    const float y = j < L2 ? __ldg(b + j) : 0.f;
-    const bool from_a = lo < L1 && (j >= L2 || a_first(x, y));
-    okeys[row * kout + o] = from_a ? x : y;
-    opay[row * kout + o] = from_a ? __ldg(pa + row * L1 + lo)
-                                  : __ldg(pb + row * L2 + j);
   }
 }
 
@@ -746,31 +663,6 @@ extern "C" int alaya_sort_kv_warp(const void* keys, const void* pay,
     default: ALAYA_SORT_WARP(16); break;
   }
 #undef ALAYA_SORT_WARP
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int alaya_merge_kv(const void* ka, const void* pa, const void* kb,
-                              const void* pb, void* okeys, void* opay,
-                              long long B, int L1, int L2, int kout,
-                              void* stream) {
-  if (B == 0 || kout == 0) {
-    return 0;
-  }
-  if (kout > L1 + L2) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int lg_g = 0;  // G = min(kMergeLanes, pow2(kout)) lanes a row
-  while ((1 << lg_g) < kMergeLanes && (1 << lg_g) < kout) {
-    ++lg_g;
-  }
-  const long long threads = B << lg_g;
-  merge_kv_kernel<<<static_cast<unsigned>((threads + kMergeBlock - 1) /
-                                          kMergeBlock),
-                    kMergeBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(ka), static_cast<const int*>(pa),
-      static_cast<const float*>(kb), static_cast<const int*>(pb),
-      static_cast<float*>(okeys), static_cast<int*>(opay), B, L1, L2, kout,
-      lg_g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -205,15 +205,16 @@ def _counted() -> tuple:
     from ..ops.gather_diagdot import gather_diagdot, gather_estimate
     from ..ops.gather_dot import gather_dot
     from ..ops.l2_tile import l2_tile
-    from ..ops.pool_sort import merge_kv, pool_merge, roll_n, sort_kv
+    from ..ops.pool_sort import pool_merge, roll_n, sort_kv
     from ..ops.ring_probe import ring_probe
     from ..ops.seed_scan import seed_scan
     from ..ops.sq8_tile import sq8_tile
+    from ..ops.tile_topk import tile_topk
     from ..ops.unique_topk import unique_topk
 
     return (block_diagdot, gather_diagdot, gather_estimate, gather_dot,
-            l2_tile, merge_kv, pool_merge, roll_n, sort_kv, ring_probe,
-            seed_scan, sq8_tile, unique_topk)
+            l2_tile, tile_topk, pool_merge, roll_n, sort_kv,
+            ring_probe, seed_scan, sq8_tile, unique_topk)
 
 
 def counts() -> dict:

@@ -12,13 +12,14 @@ that product to XLA. With ``compute_dtype=torch.bfloat16`` it is fast
 mode's coarse scan: a bf16 product with float32 output, then the l2
 epilogue.
 
-The scans select ``k`` within each tile of rows, then merge the k-wide
-results; the ``[Q, tile]`` matrix is never concatenated. Tie rule: among
-equal distances the lower id comes first, except that where several rows
-of one tile tie at its k-th place, the rows ``torch.topk`` keeps are taken
-(the JAX package keeps the lower ids). Fast mode's coarse selection is an
-exact ``torch.topk`` where the JAX package takes ``approx_max_k``, so the
-port's coarse set holds every candidate the approximation could find.
+The scans merge each tile of rows into a running best of ``k`` as soon
+as it is scored (``ops/tile_topk``: one kernel a tile); the ``[Q, tile]``
+matrix is never concatenated. Tie rule: among equal distances the lower id
+comes first, as the JAX package's ``lax.top_k`` has it (past
+``tile_topk.MAX_K`` on a CUDA device, the rows ``torch.topk`` keeps of
+several that tie at a tile's k-th place). Fast mode's coarse selection is
+exact where the JAX package takes ``approx_max_k``, so the port's coarse
+set holds every candidate the approximation could find.
 
 ``counters`` counts the tiled scans' work (``ScanCounters``), carried by
 ``index/captured.py`` beside the kernels' launches.
@@ -31,8 +32,8 @@ from typing import Optional, Tuple
 import torch
 
 from .l2_tile import l2_tile
-from .pool_sort import merge_kv
-from .topk import select_smallest, topk_smallest
+from .tile_topk import tile_topk
+from .topk import topk_smallest
 
 FINF = float("inf")
 Tensor = torch.Tensor
@@ -48,7 +49,7 @@ class ScanCounters:
                   (``pairwise``: ``l2_tile`` for f32 l2)
       tiles       tiles of rows scored
       candidates  each tile's selection merged into the running best
-                  (``merge_kv``): Σ Q · min(k, N)
+                  (``tile_topk``): Σ Q · min(k, N)
     """
 
     FIELDS = ("pairs", "tiles", "candidates")
@@ -128,11 +129,10 @@ def _exact_topk_device(q: Tensor, x: Tensor, x_sq: Optional[Tensor],
                        valid: Optional[Tensor], k: int, metric: str,
                        tile_n: int, bf16: bool) -> Tuple[Tensor, Tensor]:
     """The ``k`` smallest of ``pairwise(q, x)`` per query, scanning ``x``
-    in tiles of ``tile_n`` rows: select ``k`` within the tile, then merge
-    ``[Q, 2k]`` with the running best (stable, so earlier tiles, which hold
-    the lower ids, win ties). ``valid`` (bool [N] or None) masks rows to
-    inf. Returns (d [Q, k] f32, ids [Q, k] i32), inf / −1 where fewer than
-    ``k`` rows are valid."""
+    in tiles of ``tile_n`` rows, each merged into the running best by
+    ``tile_topk`` (earlier tiles, which hold the lower ids, win ties).
+    ``valid`` (bool [N] or None) masks rows to inf. Returns (d [Q, k] f32,
+    ids [Q, k] i32), inf / −1 where fewer than ``k`` rows are valid."""
     Q, n = q.shape[0], x.shape[0]
     cdt = torch.bfloat16 if bf16 else None
     q_sq = sqnorms(q) if bf16 and metric == "l2" else None
@@ -146,15 +146,10 @@ def _exact_topk_device(q: Tensor, x: Tensor, x_sq: Optional[Tensor],
                      compute_dtype=cdt)
         if t in masked:
             d.masked_fill_(~valid[lo:hi], FINF)
-        d_t, sel = select_smallest(d, min(k, hi - lo))
         counters.pairs += Q * (hi - lo)
         counters.tiles += 1
         counters.candidates += Q * min(k, hi - lo)
-        # both lists are ascending: the merge network, not a sort
-        best_d, best_i = merge_kv(best_d, best_i, d_t.contiguous(),
-                                  sel.to(torch.int32) + lo, k)
-    best_i = torch.where(torch.isfinite(best_d), best_i,
-                         torch.full_like(best_i, -1))
+        tile_topk(d, lo, best_d, best_i, k)
     return best_d, best_i
 
 

@@ -4,8 +4,6 @@
                                   payload (and the source positions) carried
                                   along; lists along rows [B, K] or columns
                                   [K, B]
-    merge_kv(ka, pa, kb, pb, k)   the first k of the merge of two ascending
-                                  lists [B, L1], [B, L2] with payloads
     pool_merge(d1, i1, f1, d2, i2, f2, k, dedup)
                                   the first k of the sorted concatenation of
                                   two (distance, id, flag) sets, unsorted or
@@ -31,13 +29,11 @@ Replaces the TPU kernels ``scripts/proto_pallas_sort.py:111`` and ``:117``
 ``:87``, ``:92`` (the sort along columns, and without payload along columns
 and rows) and ``scripts/opt_hop2.py:120`` (``roll_kernel_n``). The kernels
 are bound by memory on paper (a [4096, 64 + 256] merge moves 6.6 MB).
-``merge_kv`` is a merge path: each output finds its place in the two lists
-by a binary search (its co-rank), with no network; ``pool_merge`` and
-``sort_kv`` (lists along rows) keep each list in one warp's registers and
-exchange words by shuffles, up to ``WARP_LIST`` words a list, and sort
-longer ones (and ``sort_kv`` lists along columns) in shared memory;
-``roll_n`` exchanges by shuffles where a row is 32·W words (W ≤ 16) and in
-shared memory elsewhere; see the notes in the sources.
+``pool_merge`` and ``sort_kv`` (lists along rows) keep each list in one
+warp's registers and exchange words by shuffles, up to ``WARP_LIST`` words a
+list, and sort longer ones (and ``sort_kv`` lists along columns) in shared
+memory; ``roll_n`` exchanges by shuffles where a row is 32·W words (W ≤ 16)
+and in shared memory elsewhere; see the notes in the sources.
 
 Each function counts its calls on any device (``.calls``) and its CUDA kernel
 launches and nothing else (``.launches``); ``sort_kv.route_launches``,
@@ -74,6 +70,9 @@ def sort_kv_ref(keys: Tensor, payload: Optional[Tensor] = None,
 
 def merge_kv_ref(ka: Tensor, pa: Tensor, kb: Tensor, pb: Tensor,
                  k: int) -> Tuple[Tensor, Tensor]:
+    """The first ``k`` (keys, payloads) of the stable sort of each row of
+    [ka ‖ kb]: the plain merge of ``pool_merge_ref`` and
+    ``tile_topk_ref``."""
     cat_d = torch.cat([ka, kb], dim=-1)
     pay = torch.cat([pa, pb], dim=-1)
     sd, order = torch.sort(cat_d, dim=-1, stable=True)
@@ -246,37 +245,6 @@ def sort_kv(keys: Tensor, payload: Optional[Tensor] = None,
     return (ok, op, oi) if return_index else (ok, op)
 
 
-def merge_kv(ka: Tensor, pa: Tensor, kb: Tensor, pb: Tensor,
-             k: int) -> Tuple[Tensor, Tensor]:
-    """The first ``k`` of the merge of two lists per row, each ascending on
-    entry (the kernel does not check: unsorted input gives an unsorted
-    result; ``pool_merge`` takes unsorted operands)."""
-    from ._build import launch
-
-    _check_2d("ka", ka, torch.float32)
-    _check_2d("pa", pa, torch.int32, ka, same_shape=True)
-    _check_2d("kb", kb, torch.float32, ka)
-    _check_2d("pb", pb, torch.int32, kb, same_shape=True)
-    B, L1 = ka.shape
-    L2 = kb.shape[1]
-    k = min(int(k), L1 + L2)
-    if k < 0:
-        raise ValueError(f"k={k} is negative")
-    _check_width(L1 + L2)
-    merge_kv.calls += 1
-    if ka.device.type == "cpu":
-        return merge_kv_ref(ka, pa, kb, pb, k)
-    ok = torch.empty((B, k), dtype=torch.float32, device=ka.device)
-    op = torch.empty((B, k), dtype=torch.int32, device=ka.device)
-    if B and k:
-        launch(_entry("alaya_merge_kv", [_P, _P, _P, _P, _P, _P, _LL, _I, _I,
-                                         _I]),
-               ka.device, ka.data_ptr(), pa.data_ptr(), kb.data_ptr(),
-               pb.data_ptr(), ok.data_ptr(), op.data_ptr(), B, L1, L2, k)
-        merge_kv.launches += 1
-    return ok, op
-
-
 def pool_merge(d1: Tensor, i1: Tensor, f1: Optional[Tensor], d2: Tensor,
                i2: Tensor, f2: Optional[Tensor], k: int,
                dedup: bool = False):
@@ -354,7 +322,7 @@ def roll_n(x: Tensor, n: int) -> Tensor:
     return out
 
 
-for _fn in (sort_kv, merge_kv, pool_merge, roll_n):
+for _fn in (sort_kv, pool_merge, roll_n):
     _fn.calls = 0
     _fn.launches = 0
 pool_merge.route_launches = {"warp": 0, "network": 0}

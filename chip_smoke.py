@@ -34,10 +34,7 @@ the script exits non-zero:
                its warp route and its network, both bit for bit and timed
                at [4096, 256] with a payload, NN-Descent's 180 -> 32 and
                the search's 64 -> 10, keys with NaN, both zeros, +inf),
-               merge_kv (a merge path, on NaN, both zeros, +-inf and ties
-               across the operands; timed at 64 + 64 and at the paths'
-               10 + 10 -> 10, 40 + 40 -> 40 and 1 + 1 -> 1 beside an empty
-               kernel's event span), pool_merge (the hop's merge_topk_dedup, on ties,
+               pool_merge (the hop's merge_topk_dedup, on ties,
                duplicates, +inf / -1 slots, both zeros, negative keys, and
                on pools with dedup's holes, which are not ascending; both
                of its kernels, the warp route and the shared-memory network
@@ -67,7 +64,13 @@ the script exits non-zero:
                replaced) at D 128, a pair bit-equal in any batch and at
                K 8, timed at (4096, 512, 128) and (4096, 8, 128) over 1M
                rows beside the plain version and index_select + bmm
-               (library_ms), against the bytes of its distinct rows;
+               (library_ms), against the bytes of its distinct rows; and
+               tile_topk (the flat scans' per-tile selection) bit for bit
+               against its plain version at the scans' (Q, n, k), into a
+               running best from an earlier tile, timed at the exact
+               scan's (4096, 16384, 10) and the fast scan's
+               (4096, 65536, 40) beside select_smallest + merge_topk, the
+               chain it replaced (library_ms), against the tile's bytes;
   4. fit       Client().create_index(hnsw + bsq8, the repository's
                headline parameters, capacity 1M + 16,384) and fit on
                bench.py's data, random_dataset(1M x 128, seed 42, 500
@@ -103,7 +106,7 @@ The bsq8 index is freed, then the raw graph path runs:
                1.0) fitted on the 1M rows with per-phase seconds; 8192
                queries at ef 32, 64 and 128 with recall@10, wall QPS, host
                syncs of the overlay descent and launches of pool_merge,
-               sort_kv, merge_kv and ring_probe (each must be launched in
+               sort_kv, tile_topk and ring_probe (each must be launched in
                the fit and in the search; the launches of pool_merge,
                sort_kv and ring_probe are counted by kernel on every path,
                and every path launch of sort_kv must take "warp" and of
@@ -149,9 +152,9 @@ Then the flat path runs on the same data:
                exact search of the 8192 queries, k = 10: recall@10 against
                the ground truth of phase 5 (fails below 0.999), returned
                distances against direct f32 distances, wall QPS, l2_tile
-               and merge_kv launches (fails at 0);
+               and tile_topk launches (fails at 0);
   9. fast      a flat index with flat_mode="fast": recall@10 (fails below
-               0.99), wall QPS, merge_kv launches (fails at 0);
+               0.99), wall QPS, tile_topk launches (fails at 0);
  10. upkeep    remove 10,000 ids and search again (none may come back);
                insert 1,000 new rows (each must be its own top-1);
  11. sq8       sq8_tile on the flat index's fitted codes (the first 65,536
@@ -410,14 +413,6 @@ SORT_RAGGED = ((1, 1), (333, 77), (1000, 200), (333, 320), (1, 200),
 # 32) and the search's final k (ef 64 -> 10), keys only with positions
 SORT_PATHS = ((4096, 256, 256, True), (4096, 180, 32, False),
               (4096, 64, 10, False))
-# merge_kv (B, L1, L2, k; ascending operands) timed: 64 + 64 and the paths'
-# shapes, the exact flat scan's 10 + 10 -> 10 and the fast scan's coarse
-# 40 + 40 -> 40 (4096-query slices), find_medoid's 1 + 1 -> 1; then shapes
-# only checked
-MERGE_TIMED = ((4096, 64, 64, 128), (4096, 10, 10, 10), (4096, 40, 40, 40),
-               (1, 1, 1, 1))
-MERGE_RAGGED = ((4096, 32, 32, 64), (333, 10, 100, 10), (1000, 100, 77, 177),
-                (1, 1, 200, 1), (333, 7, 0, 7))
 POOL_MAIN = (4096, 64, 256)                         # B, pool ef, M*R
 # every (B, ef, M*R) the hops launch, k = ef: the searches at ef 32, 64,
 # 128 and the build pools (ef 128) of both graph paths, and the fusion
@@ -546,6 +541,13 @@ UNIQUE_TOPK_SHAPES = ((4096, 522, 10, True), (4096, 64, 10, True),
                       (4096, 100, 100, False), (4096, 64, 32, True),
                       (52, 64, 10, True))
 UNIQUE_TOPK_CAPACITY = 1_016_384
+# tile_topk: (Q, n, k): the flat scan's full tile at top 10 and fast mode's
+# coarse tile at 40, the timed two; calc_gt's fast coarse tile at 256
+# (MAX_K), the last query slice, the ragged last tile of 1M rows,
+# find_medoid's one query; n % 4 != 0
+TILE_TOPK_SHAPES = ((4096, 16384, 10), (4096, 65536, 40), (4096, 65536, 256),
+                    (1808, 16384, 10), (4096, 576, 10), (1, 16384, 1),
+                    (333, 1001, 33), (257, 4099, 128))
 # gather_dot: (B, K, D, C): the 1-bit search's final re-score and its hop
 # over 1M rows first, the timed two; bsq8's final pool of a served batch,
 # K under a group's rows, GIST's D, D split unevenly over the lanes, D with
@@ -1263,6 +1265,107 @@ def check_unique_topk(torch, dev) -> dict:
     return out
 
 
+def tile_topk_inputs(torch, rng, Q, n, k, dev):
+    """Two tiles as the flat scan scores them (l2_tile of normal queries
+    against normal rows, D 128, a sixteenth of the rows repeated so that
+    equal distances stand around a row's k-th place) and the running best
+    after the first: (tile, lo, best_d, best_i), the second tile's
+    columns from lo = n."""
+    from alayalite_tpu_torch.ops.l2_tile import l2_tile
+    from alayalite_tpu_torch.ops.tile_topk import tile_topk
+
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    q = torch.randn((Q, 128), device=dev, generator=g)
+    tiles = []
+    for _ in range(2):
+        x = torch.randn((n, 128), device=dev, generator=g)
+        src = torch.randint(0, n, (n // 16,), device=dev, generator=g)
+        x[torch.randint(0, n, (n // 16,), device=dev, generator=g)] = x[src]
+        tiles.append(l2_tile(q, x))
+    best_d = torch.full((Q, k), np.inf, device=dev)
+    best_i = torch.full((Q, k), -1, dtype=torch.int32, device=dev)
+    tile_topk(tiles[0], 0, best_d, best_i, k)
+    return tiles[1], n, best_d, best_i
+
+
+def tile_topk_chain(torch, d, lo, best_d, best_i, k):
+    """The selection tile_topk replaced in the flat scan: torch.topk's
+    select, the two sorts and gathers (select_smallest), the id offset and
+    the merge with the running best, here merge_topk (pool_merge's kernel,
+    as tile_topk's wide route merges)."""
+    from alayalite_tpu_torch.ops.topk import merge_topk, select_smallest
+
+    d_t, sel = select_smallest(d, min(k, d.shape[1]))
+    return merge_topk(best_d, best_i, d_t, sel.to(torch.int32) + lo, k)
+
+
+def tile_topk_bytes(Q, n, k) -> int:
+    """The bytes tile_topk must move: the tile read once, the running best
+    read and written."""
+    return Q * n * 4 + 2 * Q * k * 8
+
+
+def check_tile_topk(torch, dev) -> dict:
+    """tile_topk (csrc/tile_topk.cu) against its plain version on the CPU,
+    bit for bit, at the flat scans' shapes, merging a tile into a running
+    best that came from an earlier one (and, at the first shape, into an
+    empty one); times of the kernel (the running best copied afresh before
+    each launch, as the launch updates it in place), its plain version and
+    the chain it replaced at the two timed shapes."""
+    from alayalite_tpu_torch.ops.tile_topk import tile_topk, tile_topk_ref
+    from alayalite_tpu_torch.utils.timing import bound, cuda_ms
+
+    rng = np.random.default_rng(26)
+    out = {"checked": [], "at": {}}
+    for Q, n, k in TILE_TOPK_SHAPES:
+        d, lo, bd, bi = tile_topk_inputs(torch, rng, Q, n, k, dev)
+        starts = [(bd, bi)]
+        if (Q, n, k) == TILE_TOPK_SHAPES[0]:
+            starts.append((torch.full_like(bd, np.inf),
+                           torch.full_like(bi, -1)))
+        for sd, si in starts:
+            want = tile_topk_ref(d.cpu(), lo, sd.cpu(), si.cpu(), k)
+            got = tile_topk(d, lo, sd.clone(), si.clone(), k)
+            torch.cuda.synchronize()
+            if not (_same_bits(got[0].cpu(), want[0])
+                    and _same_bits(got[1].cpu(), want[1])):
+                raise AssertionError(f"tile_topk differs from its plain "
+                                     f"version at {(Q, n, k)}")
+        out["checked"].append([Q, n, k])
+        if (Q, n, k) not in TILE_TOPK_SHAPES[:2]:
+            continue
+
+        def kernel(d=d, lo=lo, bd=bd, bi=bi, k=k):
+            return tile_topk(d, lo, bd.clone(), bi.clone(), k)
+
+        empty = (torch.full_like(bd, np.inf), torch.full_like(bi, -1))
+        b = bound(tile_topk_bytes(Q, n, k), 0, "f32")
+        times = {
+            "ms": cuda_ms(kernel),
+            "ms_spin": cuda_ms(kernel, spin=True),
+            "first_tile_ms_spin": cuda_ms(
+                lambda: tile_topk(d, lo, empty[0].clone(), empty[1].clone(),
+                                  k), spin=True),
+            "clone_ms_spin": cuda_ms(lambda: (bd.clone(), bi.clone()),
+                                     spin=True),
+            "plain_ms": cuda_ms(lambda: tile_topk_ref(d, lo, bd, bi, k)),
+            "library_ms": cuda_ms(
+                lambda: tile_topk_chain(torch, d, lo, bd, bi, k)),
+            "library_ms_spin": cuda_ms(
+                lambda: tile_topk_chain(torch, d, lo, bd, bi, k), spin=True)}
+        out["at"][str((Q, n, k))] = {**b, **times}
+        log(f"kernel tile_topk {(Q, n, k)}: {times['ms']:.4f} ms "
+            f"({times['ms_spin']:.4f} device alone, of it "
+            f"{times['clone_ms_spin']:.4f} the copy of the running best; "
+            f"into an empty best {times['first_tile_ms_spin']:.4f}), plain "
+            f"{times['plain_ms']:.4f} ms, select_smallest + merge_topk "
+            f"{times['library_ms']:.4f} ms ({times['library_ms_spin']:.4f}), "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        torch.cuda.empty_cache()
+    out.update(out["at"][str(TILE_TOPK_SHAPES[0])], max_abs_err=0.0)
+    return out
+
+
 def gather_dot_inputs(torch, rng, B, K, D, C, dev):
     """An exact re-score's operands: C normal rows, their squared norms,
     B normal queries and theirs, ids uniform over the rows with 5% holes
@@ -1490,11 +1593,10 @@ def _shared_roll_n(torch, x, n):
 
 
 def check_pool_sort(torch, dev) -> dict:
-    """sort_kv, merge_kv, pool_merge and roll_n against their plain
+    """sort_kv, pool_merge and roll_n against their plain
     versions, bit for bit; times, bounds and the library route
     (torch.sort(stable=True) + gather) at the hop's shapes."""
-    from alayalite_tpu_torch.ops.pool_sort import (merge_kv, merge_kv_ref,
-                                                   pool_merge, pool_merge_ref,
+    from alayalite_tpu_torch.ops.pool_sort import (pool_merge, pool_merge_ref,
                                                    pool_merge_route, roll_n,
                                                    roll_n_ref, roll_n_route,
                                                    sort_kv, sort_kv_on,
@@ -1634,64 +1736,6 @@ def check_pool_sort(torch, dev) -> dict:
     main = out["sort_kv"]["at"][f"{SORT_MAIN[1]}->{SORT_MAIN[1]}"]
     out["sort_kv"].update(network_ms=main["network_ms"],
                           network_ms_spin=main["network_ms_spin"])
-
-    # ---- merge_kv (ascending operands; keys with NaN, both zeros, +-inf
-    # and ties within and across the operands), bit for bit at every shape
-    # and k; timed at MERGE_TIMED beside an empty kernel's event span (one
-    # fill of 16 floats), the floor of every spin time
-    tiny = torch.zeros(16, device=dev)
-    empty = cuda_ms(lambda: tiny.zero_(), spin=True)
-    out["merge_kv"] = {"at": {}, "empty_kernel_ms_spin": empty}
-    for B, L1, L2, k in (*MERGE_TIMED, *MERGE_RAGGED):
-        lists = []
-        for L in (L1, L2):
-            keys = sort_keys(B, L)
-            keys[torch.rand(keys.shape, device=dev) < 0.05] = -np.inf
-            pay = torch.as_tensor(rng.integers(-1, 1 << 30, size=(B, L))
-                                  .astype(np.int32), device=dev)
-            lists.append(sort_kv_ref(keys, pay))
-        a, b = lists
-        for kk in sorted({k, L1 + L2, max(1, L1)}):
-            got = merge_kv(*a, *b, kk)
-            torch.cuda.synchronize()
-            if not all(_same_bits(g, w)
-                       for g, w in zip(got, merge_kv_ref(*a, *b, kk))):
-                fail("merge_kv", (B, L1, L2, kk))
-        log(f"kernel merge_kv {(B, L1, L2)}: equals the plain version bit "
-            f"for bit at k = {sorted({k, L1 + L2, max(1, L1)})}")
-        if (B, L1, L2, k) not in MERGE_TIMED:
-            continue
-        cat_d, cat_p = torch.cat([a[0], b[0]], 1), torch.cat([a[1], b[1]], 1)
-
-        def library(cat_d=cat_d, cat_p=cat_p, k=k):
-            sd, order = torch.sort(cat_d, dim=1, stable=True)
-            return sd[:, :k], torch.gather(cat_p, 1, order[:, :k])
-
-        # bytes: both lists' keys (the co-rank searches read them), the k
-        # payloads taken, k keys and payloads written; operations: a compare
-        # per probe, ceil(log2(min(L1, L2) + 1)) + 1 probes an output
-        probes = min(L1, L2).bit_length() + 1
-        rep = timed(lambda a=a, b=b, k=k: merge_kv(*a, *b, k),
-                    lambda a=a, b=b, k=k: merge_kv_ref(*a, *b, k), library,
-                    B * (L1 + L2) * 4 + B * k * 12, B * k * probes,
-                    (B, L1, L2), k=k, empty_kernel_ms_spin=empty,
-                    compares=B * k * probes)
-        rep["spin_over_empty_kernel"] = rep["ms_spin"] / empty
-        # one copy_ of the outputs' bytes (k keys and payloads a row, read
-        # once and written once): what moving them alone reads in this span
-        src = torch.empty(2 * B * k, dtype=torch.float32, device=dev)
-        dst = torch.empty_like(src)
-        rep["copy_ms_spin"] = cuda_ms(lambda: dst.copy_(src), spin=True)
-        del src, dst
-        out["merge_kv"]["at"][f"{L1}+{L2}->{k}"] = rep
-        log(f"kernel merge_kv {(B, L1, L2)} -> {k}: {rep['ms']:.4f} ms "
-            f"({rep['ms_spin']:.4f} device alone, "
-            f"{rep['spin_over_empty_kernel']:.2f}x an empty kernel's "
-            f"{empty:.4f}; a copy of the outputs' bytes "
-            f"{rep['copy_ms_spin']:.4f}), plain {rep['plain_ms']:.4f} ms, library sort + "
-            f"gather {rep['library_ms']:.4f} ms, bound {rep['bound_ms']:.4f} "
-            f"ms ({rep['bound_by']})")
-    out["merge_kv"].update(out["merge_kv"]["at"]["64+64->128"])
 
     # ---- pool_merge: merge_topk_dedup, merge_topk_with_flags, merge_topk;
     # pools ascending with an empty tail, and pools with dedup's holes
@@ -2085,7 +2129,7 @@ def churn_phase(torch, dev, idx, ds, counters) -> dict:
     return rep
 
 
-POOL_KERNELS = ("pool_merge", "sort_kv", "merge_kv", "ring_probe")
+POOL_KERNELS = ("pool_merge", "sort_kv", "tile_topk", "ring_probe")
 
 
 class CallCount:
@@ -2137,39 +2181,51 @@ def estimate_kernels(torch, sp) -> dict:
 
 
 class RouteCount:
-    """A wrapper's launches through one of its kernels, read and set to 0
-    like the wrapper's own count, so that every phase counts them where it
-    counts the wrapper: pool_merge[warp], sort_kv[network], ring_probe[hash]
-    and so on."""
+    """A wrapper's launches through one of its kernels (or, with ``attr``
+    "route_calls", its calls by route), read and set to 0 like the
+    wrapper's own count, so that every phase counts them where it counts
+    the wrapper: pool_merge[warp], sort_kv[network], ring_probe[hash],
+    tile_topk[wide] and so on."""
 
-    def __init__(self, fn, route: str):
-        self._fn, self.route = fn, route
+    def __init__(self, fn, route: str, attr: str = "route_launches"):
+        self._fn, self.route, self._attr = fn, route, attr
         self.__name__ = f"{fn.__name__}[{route}]"
 
     @property
     def launches(self) -> int:
-        return self._fn.route_launches[self.route]
+        return getattr(self._fn, self._attr)[self.route]
 
     @launches.setter
     def launches(self, n: int) -> None:
-        self._fn.route_launches[self.route] = n
+        getattr(self._fn, self._attr)[self.route] = n
 
 
 def route_counters(fn):
     return tuple(RouteCount(fn, r) for r in fn.route_launches)
 
 
-def pool_counters():
-    """The kernels a graph index can launch: the pool's three, the stale
-    check, and (an sq8 traversal's gathered dot) gather_diagdot; then the
-    launches by kernel of pool_merge, sort_kv and ring_probe."""
-    from alayalite_tpu_torch.ops.gather_diagdot import gather_diagdot
-    from alayalite_tpu_torch.ops.pool_sort import merge_kv, pool_merge, sort_kv
-    from alayalite_tpu_torch.ops.ring_probe import ring_probe
+def topk_wide():
+    """tile_topk's calls through its wide route (k > MAX_K), which
+    launches no tile_topk kernel: no path shape may take it."""
+    from alayalite_tpu_torch.ops.tile_topk import tile_topk
 
-    return (pool_merge, sort_kv, merge_kv, ring_probe, gather_diagdot,
+    return RouteCount(tile_topk, "wide", "route_calls")
+
+
+def pool_counters():
+    """The kernels a graph index can launch: the pool's two, the exact
+    scans' per-tile selection (find_medoid, the overlay's exact kNN), the
+    stale check, and (an sq8 traversal's gathered dot) gather_diagdot; then
+    the launches by kernel of pool_merge, sort_kv and ring_probe, and
+    tile_topk's calls through its wide route."""
+    from alayalite_tpu_torch.ops.gather_diagdot import gather_diagdot
+    from alayalite_tpu_torch.ops.pool_sort import pool_merge, sort_kv
+    from alayalite_tpu_torch.ops.ring_probe import ring_probe
+    from alayalite_tpu_torch.ops.tile_topk import tile_topk
+
+    return (pool_merge, sort_kv, tile_topk, ring_probe, gather_diagdot,
             *route_counters(pool_merge), *route_counters(sort_kv),
-            *route_counters(ring_probe))
+            *route_counters(ring_probe), topk_wide())
 
 
 def hop_cat_kernels(torch, sp) -> dict:
@@ -2483,8 +2539,8 @@ def raw_graph_phases(torch, dev, ds, gt) -> dict:
         RAW_FLOORS["hnsw_1m_alpha12"], False, index_type="hnsw",
         prune_alpha=1.2)
     big = rep["hnsw_1m"]
-    # the fit also merges sorted lists (the overlay's exact kNN); a search
-    # sorts and merges pools only
+    # the fit also scans exactly (find_medoid, the overlay's exact kNN); a
+    # search sorts and merges pools only
     for where, counts, kernels in (
             ("fit", big["fit_launches"], POOL_KERNELS),
             *((f"search ef={ef}", big["search"][ef]["launches"],
@@ -2533,8 +2589,8 @@ def flat_phases(torch, dev, ds, gt) -> dict:
     inserts, sq8_tile on the fitted codes."""
     from alayalite_tpu_torch import Client
     from alayalite_tpu_torch.ops.l2_tile import l2_tile
-    from alayalite_tpu_torch.ops.pool_sort import merge_kv
     from alayalite_tpu_torch.ops.sq8_tile import sq8_tile, sq8_tile_ref
+    from alayalite_tpu_torch.ops.tile_topk import tile_topk
     from alayalite_tpu_torch.utils.evaluate import calc_recall
 
     client = Client()
@@ -2547,8 +2603,9 @@ def flat_phases(torch, dev, ds, gt) -> dict:
     idx.fit(ds.data)
     torch.cuda.synchronize()
     rep["fit_s"] = time.time() - t
+    wide = topk_wide()
     ids, dist, wall, launches = timed_search(torch, idx, ds.queries, K,
-                                             (l2_tile, merge_kv))
+                                             (l2_tile, tile_topk, wide))
     check_result(ids, dist, N, "flat exact")
     rec = calc_recall(ids, gt)
     # direct f32 distances of the returned ids. The index's expansion
@@ -2567,15 +2624,16 @@ def flat_phases(torch, dev, ds, gt) -> dict:
     del rows, ref, ulps, err
     rep["exact"] = {"recall": rec, "qps": NQ / wall, "wall_s": wall,
                     "l2_tile_launches": launches["l2_tile"],
-                    "merge_kv_launches": launches["merge_kv"],
+                    "tile_topk_launches": launches["tile_topk"],
+                    "tile_topk_wide_calls": launches[wide.__name__],
                     "distance_mismatches": bad,
                     "worst_error_in_eps_of_norms": worst}
     log(f"flat exact: fit {rep['fit_s']:.2f}s, recall@10 {rec:.5f}, "
         f"{NQ / wall:.1f} QPS (wall {wall:.3f}s), l2_tile launches "
-        f"{launches['l2_tile']}, merge_kv launches {launches['merge_kv']}, "
+        f"{launches['l2_tile']}, tile_topk launches {launches['tile_topk']}, "
         f"distance mismatches {bad} (worst error "
         f"{worst:.2f} eps·(|q|² + |x|²))")
-    if min(launches.values()) <= 0:
+    if min(launches["l2_tile"], launches["tile_topk"]) <= 0:
         raise AssertionError(f"the flat exact search launched a kernel no "
                              f"time: {launches}")
     if rec < FLAT_EXACT_FLOOR or bad:
@@ -2585,17 +2643,19 @@ def flat_phases(torch, dev, ds, gt) -> dict:
                                flat_mode="fast", capacity=N)
     fast.fit(ds.data)
     ids_f, dist_f, wall_f, fast_launches = timed_search(
-        torch, fast, ds.queries, K, (merge_kv,))
+        torch, fast, ds.queries, K, (tile_topk, wide))
     check_result(ids_f, dist_f, N, "flat fast")
     rec_f = calc_recall(ids_f, gt)
     rep["fast"] = {"recall": rec_f, "qps": NQ / wall_f, "wall_s": wall_f,
-                   "merge_kv_launches": fast_launches["merge_kv"]}
+                   "tile_topk_launches": fast_launches["tile_topk"],
+                   "tile_topk_wide_calls": fast_launches[wide.__name__]}
     log(f"flat fast: recall@10 {rec_f:.5f}, {NQ / wall_f:.1f} QPS "
-        f"(wall {wall_f:.3f}s), merge_kv launches {fast_launches['merge_kv']}")
+        f"(wall {wall_f:.3f}s), tile_topk launches "
+        f"{fast_launches['tile_topk']}")
     del fast
-    if rec_f < FLAT_FAST_FLOOR or fast_launches["merge_kv"] <= 0:
+    if rec_f < FLAT_FAST_FLOOR or fast_launches["tile_topk"] <= 0:
         raise AssertionError(f"flat fast recall below {FLAT_FAST_FLOOR}, or "
-                             f"no merge_kv launch")
+                             f"no tile_topk launch")
 
     rng = np.random.default_rng(7)
     dead = rng.choice(N, size=N_REMOVE, replace=False).astype(np.int32)
@@ -2904,8 +2964,8 @@ def calc_gt_phase(torch, dev, ds, gt) -> dict:
     if rep["agreement"] < GT_FAST_AGREEMENT:
         raise AssertionError(f"calc_gt fast agrees on {rep['agreement']}")
     if launches.steps["exact"]["l2_tile"] <= 0 or min(
-            launches.steps[m]["merge_kv"] for m in ("exact", "fast")) <= 0:
-        raise AssertionError("calc_gt launched l2_tile or merge_kv no time")
+            launches.steps[m]["tile_topk"] for m in ("exact", "fast")) <= 0:
+        raise AssertionError("calc_gt launched l2_tile or tile_topk no time")
     return rep
 
 
@@ -4914,12 +4974,13 @@ def main() -> int:
     report["sq8_gather"] = check_sq8_gather(torch, dev)
     report["seed_scan"] = check_seed_scan(torch, dev)
     report["unique_topk"] = check_unique_topk(torch, dev)
+    report["tile_topk"] = check_tile_topk(torch, dev)
     report["gather_dot"] = check_gather_dot(torch, dev)
     # the kernels of every block hop, and the hops (estimate_many calls)
     hop = (gather_estimate, ring_probe,
            CallCount(gather_estimate, "estimate_many_calls"))
-    # pool_merge, sort_kv, merge_kv, and the launches by kernel of
-    # pool_merge, sort_kv and ring_probe
+    # pool_merge, sort_kv, tile_topk, the launches by kernel of pool_merge,
+    # sort_kv and ring_probe, and tile_topk's wide route calls
     pool = (*pool_counters()[:3], *pool_counters()[5:])
     from alayalite_tpu_torch.ops.gather_dot import gather_dot
     from alayalite_tpu_torch.ops.unique_topk import unique_topk
@@ -5200,21 +5261,34 @@ def main() -> int:
                       + new_launches("ring_probe"))
     probe_routes = launches_by_route(ring_probe, probe_launches, "hash")
     gather, fused = report["gather_diagdot"], report["gather_estimate"]
-    # merge_kv by path: find_medoid in the bsq8 fit (the rest of the bsq8
+    # tile_topk by path: find_medoid in the bsq8 fit (the rest of the bsq8
     # path launches it no time), the raw fits (find_medoid, the overlay's
     # exact kNN), the flat scans
-    merge_paths = {
-        "bsq8_fit_find_medoid": report["fit"]["launches"]["merge_kv"],
-        "bsq8_search_and_churn": (bsq8_pool["merge_kv"]
-                                  - report["fit"]["launches"]["merge_kv"]),
-        "raw": raw_launches("merge_kv"),
-        "flat_exact": report["flat"]["exact"]["merge_kv_launches"],
-        "flat_fast": report["flat"]["fast"]["merge_kv_launches"],
-        "calc_gt": new_launches("merge_kv", ("calc_gt",)),
-        "sdk_and_rabitq_fits": new_launches("merge_kv", (
+    topk_paths = {
+        "bsq8_fit_find_medoid": report["fit"]["launches"]["tile_topk"],
+        "bsq8_search_and_churn": (bsq8_pool["tile_topk"]
+                                  - report["fit"]["launches"]["tile_topk"]),
+        "raw": raw_launches("tile_topk"),
+        "flat_exact": report["flat"]["exact"]["tile_topk_launches"],
+        "flat_fast": report["flat"]["fast"]["tile_topk_launches"],
+        "calc_gt": new_launches("tile_topk", ("calc_gt",)),
+        "sdk_and_rabitq_fits": new_launches("tile_topk", (
             "collection", "reindex", "rabitq", "rabitq2")),
-        **by_new_phase("merge_kv")}
-    log(f"merge_kv launches by path: {merge_paths}")
+        **by_new_phase("tile_topk")}
+    # its calls through the wide route, counted over the same phases
+    wide = topk_wide().__name__
+    topk_wide_paths = {
+        "bsq8": bsq8_pool[wide], "raw": raw_launches(wide),
+        "flat_exact": report["flat"]["exact"]["tile_topk_wide_calls"],
+        "flat_fast": report["flat"]["fast"]["tile_topk_wide_calls"],
+        "new_phases": new_launches(wide)}
+    log(f"tile_topk launches by path: {topk_paths}; wide route calls "
+        f"{topk_wide_paths}")
+    if sum(topk_paths.values()) <= 0:
+        raise AssertionError("tile_topk was launched no time on the paths")
+    if sum(topk_wide_paths.values()):
+        raise AssertionError(f"a path shape took tile_topk's wide route: "
+                             f"{topk_wide_paths}")
 
     def entries(rep):
         """Both entries' times at the hop's shape and at R = 1."""
@@ -5340,19 +5414,19 @@ def main() -> int:
                      "sort_kv_at_nnd_chunk"][k] for k in (
                      "shape", "ms", "ms_spin", "plain_ms", "library_ms",
                      "bound_ms", "bound_by")}),
-        pool_row("merge_kv", "scripts/proto_pallas_sort.py:154",
-                 "ops/distance.exact_topk: the per-tile [Q, k] + [Q, k] merge "
-                 "of find_medoid, the overlay's exact kNN and the flat scans",
-                 flat=sum(merge_paths[p] for p in ("flat_exact",
-                                                   "flat_fast")),
-                 launches_by_path=merge_paths,
-                 empty_kernel_ms_spin=report["merge_kv"][
-                     "empty_kernel_ms_spin"],
-                 at={shape: {k: rep[k] for k in (
-                     "k", "ms", "ms_spin", "spin_over_empty_kernel",
-                     "copy_ms_spin", "plain_ms", "library_ms", "bound_ms",
-                     "bound_by")}
-                     for shape, rep in report["merge_kv"]["at"].items()}),
+        {**row("tile_topk", "alayalite_tpu_torch/csrc/tile_topk.cu",
+               "none: the JAX package leaves the per-tile top k to XLA "
+               "(lax.top_k in alayalite_tpu/ops/distance.py "
+               "_exact_topk_device)", sum(topk_paths.values()),
+               report["tile_topk"]),
+         "launched_by": "ops/distance._exact_topk_device: each tile of the "
+                        "flat scans (exact and fast), exact_topk's callers "
+                        "(find_medoid, the overlay's exact kNN, calc_gt) and "
+                        "the sharded slab's scan",
+         "launches_by_path": topk_paths,
+         "wide_route_calls_by_path": topk_wide_paths,
+         "checked": report["tile_topk"]["checked"],
+         "at": report["tile_topk"]["at"]},
         pool_row("pool_merge", "scripts/proto_pallas_sort.py:139",
                  "ops/topk.merge_topk_dedup / merge_topk_with_flags / "
                  "merge_topk: the pool merge of every hop (raw and block)",
@@ -5418,6 +5492,7 @@ def main() -> int:
         "raw": report["raw"], "sq8_gather": report["sq8_gather"],
         "seed_scan": report["seed_scan"],
         "unique_topk": report["unique_topk"],
+        "tile_topk": report["tile_topk"],
         "gather_dot": report["gather_dot"],
         "estimate_many": report["estimate_many"],
         "bsq8_pool_launches": bsq8_pool,

@@ -80,7 +80,7 @@ SELECT = ("topk", "TopK", "radix", "Radix", "sort", "Sort")
 # the port's own kernels (and the concatenation), listed in every window
 # with their launches and per-launch device time, in the top rows or not
 PORT = ("gather_rows_kernel", "pool_merge", "ring_probe", "sort_kv",
-        "merge_kv", "l2_tile", "sq8_tile", "CatArray")
+        "tile_topk", "l2_tile", "sq8_tile", "CatArray")
 
 
 def trace(torch, name, fn, top=12) -> dict:

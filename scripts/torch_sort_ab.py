@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""The pool's sort, merges and hash probe against variant sources, on one
-card in one process: ``python3 scripts/torch_sort_ab.py [--merge-forms]
-[--variant NAME=FILE.cu ...]``.
+"""The pool's sort, merge and hash probe against variant sources, on one
+card in one process: ``python3 scripts/torch_sort_ab.py [--variant
+NAME=FILE.cu ...]``.
 
 A variant is a source with any of the entry points ``alaya_sort_kv_warp``,
-``alaya_merge_kv``, ``alaya_pool_merge_warp`` (as in pool_sort.cu) and
+``alaya_pool_merge_warp`` (as in pool_sort.cu) and
 ``alaya_ring_probe_hash`` (as in ring_probe.cu), with the package's
 signatures: an earlier commit's sources, unpacked by ``git archive`` into a
 directory that .gitignore lists, hold the kernels before a redesign. It is
@@ -12,19 +12,10 @@ built by ``scripts/torch_nvcc_probe.py``; each entry it has is held bit for
 bit against the plain version and timed against the package's kernel at
 the paths' shapes: sort_kv at [4096, 256] with a payload and at
 NN-Descent's [4096, 180] -> 32 and the search's [4096, 64] -> 10 with
-positions; merge_kv at [4096, 64 + 64] -> 128 and at the paths' 10 + 10 ->
-10 (the exact flat scan), 40 + 40 -> 40 (the fast scan's coarse top-k) and
-[1, 1 + 1] -> 1 (find_medoid), on keys with NaN, both zeros, +-inf and ties
-across the operands; pool_merge (dedup, pools with an empty tail) at ef 64
-and 128 against 256 candidates and at the fusion hop's 64 + 512; ring_probe
-at the bsq8 search's 96 + 64 (a pop ring half -1, and a fresh one all -1),
-the build pools' 96 + 128 and 96 + 200 and the raw walk's 96.
-``--merge-forms`` adds two variants of merge_kv, written to build/sort_ab/:
-``merge_chunks``, one warp a row whose lanes search once each, at the start
-of a chunk of ceil(kout / 32) outputs, and then merge the chunk one output
-at a time; ``merge_warp``, the package's kernel with at most 32 lanes a
-row (one warp; the package gives a row up to 128, a search per output).
-Device time alone
+positions; pool_merge (dedup, pools with an empty tail) at ef 64 and 128
+against 256 candidates and at the fusion hop's 64 + 512; ring_probe at the
+bsq8 search's 96 + 64 (a pop ring half -1, and a fresh one all -1), the
+build pools' 96 + 128 and 96 + 200 and the raw walk's 96. Device time alone
 (``utils.timing.cuda_ms(spin=True)``) in four rounds (package, variant,
 variant, package), beside the same span around an empty kernel (one fill
 of 16 floats), the floor of every such time. Needs one CUDA device; prints
@@ -44,119 +35,10 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SORTS = ((4096, 256, 256, True), (4096, 180, 32, False), (4096, 64, 10, False))
 MERGES = ((4096, 64, 256), (4096, 128, 256), (4096, 64, 512))
-MERGES_KV = ((4096, 64, 64, 128), (4096, 10, 10, 10), (4096, 40, 40, 40),
-             (1, 1, 1, 1))
 PROBES = ((4096, 256, 96, 64, False), (4096, 256, 96, 64, True),
           (4096, 256, 96, 128, False), (4096, 256, 96, 200, False),
           (4096, 256, 96, 0, False))
 ROUNDS = 4
-
-
-MERGE_CHUNKS = r"""
-// merge_kv with one co-rank search a lane: lane l of a row (one warp a row,
-// or 32 / G rows a warp, G = min(32, pow2(kout))) searches for the first
-// output of its chunk l*c .. l*c + c - 1, c = ceil(kout / G), and merges the
-// chunk one output at a time from there; the compare is pool_sort.cu's.
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-__device__ __forceinline__ bool a_first(float x, float y) {
-  return x <= y || isnan(y);
-}
-
-__global__ void __launch_bounds__(256)
-merge_chunks_kernel(const float* __restrict__ ka, const int* __restrict__ pa,
-                    const float* __restrict__ kb, const int* __restrict__ pb,
-                    float* __restrict__ okeys, int* __restrict__ opay,
-                    long long B, int L1, int L2, int kout, int lg_g) {
-  const long long t = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
-  const long long row = t >> lg_g;
-  if (row >= B) {
-    return;
-  }
-  const int G = 1 << lg_g;
-  const int c = (kout + G - 1) / G;
-  const int o0 = static_cast<int>(t & (G - 1)) * c;
-  const int o1 = o0 + c < kout ? o0 + c : kout;
-  if (o0 >= o1) {
-    return;
-  }
-  const float* a = ka + row * L1;
-  const float* b = kb + row * L2;
-  int lo = o0 > L2 ? o0 - L2 : 0;
-  int hi = o0 < L1 ? o0 : L1;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a_first(__ldg(a + mid), __ldg(b + o0 - mid - 1))) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  int i = lo;
-  int j = o0 - lo;
-  float x = i < L1 ? __ldg(a + i) : 0.f;
-  float y = j < L2 ? __ldg(b + j) : 0.f;
-  for (int o = o0; o < o1; ++o) {
-    const bool from_a = i < L1 && (j >= L2 || a_first(x, y));
-    okeys[row * kout + o] = from_a ? x : y;
-    opay[row * kout + o] = from_a ? __ldg(pa + row * L1 + i)
-                                  : __ldg(pb + row * L2 + j);
-    if (from_a) {
-      ++i;
-      x = i < L1 ? __ldg(a + i) : 0.f;
-    } else {
-      ++j;
-      y = j < L2 ? __ldg(b + j) : 0.f;
-    }
-  }
-}
-
-}  // namespace
-
-extern "C" int alaya_merge_kv(const void* ka, const void* pa, const void* kb,
-                              const void* pb, void* okeys, void* opay,
-                              long long B, int L1, int L2, int kout,
-                              void* stream) {
-  if (B == 0 || kout == 0) {
-    return 0;
-  }
-  int lg_g = 0;
-  while (lg_g < 5 && (1 << lg_g) < kout) {
-    ++lg_g;
-  }
-  const long long threads = B << lg_g;
-  merge_chunks_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(ka), static_cast<const int*>(pa),
-      static_cast<const float*>(kb), static_cast<const int*>(pb),
-      static_cast<float*>(okeys), static_cast<int*>(opay), B, L1, L2, kout,
-      lg_g);
-  return static_cast<int>(cudaGetLastError());
-}
-"""
-
-
-def merge_form_sources() -> dict:
-    """The ``merge_chunks`` and ``merge_warp`` variants' sources, written to
-    build/sort_ab/: {name: path}."""
-    from alayalite_tpu_torch.ops._build import CSRC
-
-    old = "constexpr int kMergeLanes = 128;"
-    src = (CSRC / "pool_sort.cu").read_text()
-    if src.count(old) != 1:
-        raise RuntimeError(f"pool_sort.cu no longer has one {old!r}")
-    paths = {}
-    for name, text in (("merge_chunks", MERGE_CHUNKS),
-                       ("merge_warp", src.replace(
-                           old, "constexpr int kMergeLanes = 32;"))):
-        paths[name] = os.path.join(ROOT, "build", "sort_ab", f"{name}.cu")
-        os.makedirs(os.path.dirname(paths[name]), exist_ok=True)
-        with open(paths[name], "w") as f:
-            f.write(text)
-    return paths
 
 
 def variant_entries(name: str, path: str) -> dict:
@@ -200,16 +82,6 @@ def variant_entries(name: str, path: str) -> dict:
                    int(K % 4 == 0 and keys.data_ptr() % 16 == 0))
             return ok, op, oi
         entries["sort_kv"] = sort_kv
-    merge_kv = symbol("alaya_merge_kv", [P] * 6 + [LL, I, I, I])
-    if merge_kv is not None:
-        def merge(ka, pa, kb, pb, k):
-            B, L1 = ka.shape
-            ok = torch.empty((B, k), dtype=torch.float32, device=ka.device)
-            op = torch.empty((B, k), dtype=torch.int32, device=ka.device)
-            launch(merge_kv, ka.device, *(t.data_ptr() for t in (
-                ka, pa, kb, pb, ok, op)), B, L1, kb.shape[1], k)
-            return ok, op
-        entries["merge_kv"] = merge
     merge = symbol("alaya_pool_merge_warp", [P] * 9 + [LL, I, I, I, I])
     if merge is not None:
         def pool_merge(d1, i1, f1, d2, i2, f2, k):
@@ -252,8 +124,7 @@ def same_bits(got, want) -> bool:
 
 def cases(torch, rng, dev):
     """(function, label, inputs, package call, plain call) at every shape."""
-    from alayalite_tpu_torch.ops.pool_sort import (merge_kv, merge_kv_ref,
-                                                   pool_merge, pool_merge_ref,
+    from alayalite_tpu_torch.ops.pool_sort import (pool_merge, pool_merge_ref,
                                                    sort_kv_on, sort_kv_ref)
     from alayalite_tpu_torch.ops.ring_probe import (ring_probe_on,
                                                     ring_probe_ref)
@@ -271,22 +142,6 @@ def cases(torch, rng, dev):
                lambda a=args: sort_kv_on("warp", a[0], a[1], a[2], 1, a[3],
                                          counted=False),
                lambda a=args: sort_kv_ref(a[0], a[1], a[2], 1, True))
-    for B, L1, L2, k in MERGES_KV:
-        lists = []
-        for L in (L1, L2):
-            keys = np.round(rng.normal(size=(B, L)) * 8) / 8
-            keys[rng.random((B, L)) < 0.2] = np.inf
-            keys[rng.random((B, L)) < 0.05] = -np.inf
-            keys[rng.random((B, L)) < 0.01] = np.nan
-            keys[keys == 0] *= rng.choice([-1.0, 1.0],
-                                          size=int((keys == 0).sum()))
-            pay = rng.integers(-1, 1 << 30, (B, L)).astype(np.int32)
-            lists += sort_kv_ref(torch.as_tensor(keys.astype(np.float32),
-                                                 device=dev),
-                                 torch.as_tensor(pay, device=dev))
-        args = (*lists, k)
-        yield ("merge_kv", f"{L1}+{L2}->{k} (B {B})", args,
-               lambda a=args: merge_kv(*a), lambda a=args: merge_kv_ref(*a))
     for B, L1, L2 in MERGES:
         d1 = np.sort(np.round(rng.normal(size=(B, L1)) * 4) / 4, axis=1)
         tail = L1 // 3
@@ -322,7 +177,6 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--merge-forms", action="store_true")
     parser.add_argument("--variant", action="append", default=[],
                         metavar="NAME=FILE.cu")
     opts = parser.parse_args()
@@ -334,8 +188,6 @@ def main() -> int:
     from alayalite_tpu_torch.utils.timing import card_line, cuda_ms
 
     variants = dict(v.split("=", 1) for v in opts.variant)
-    if opts.merge_forms:
-        variants.update(merge_form_sources())
     _build.build(["pool_sort", "ring_probe"])
     entries = {name: variant_entries(name, path)
                for name, path in variants.items()}

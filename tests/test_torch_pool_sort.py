@@ -21,7 +21,7 @@ import torch
 
 from alayalite_tpu_torch.ops import topk as ttopk
 from alayalite_tpu_torch.ops.pool_sort import (MAX_LIST, WARP_LIST,
-                                               WARP_ROLL, merge_kv, merge_kv_ref,
+                                               WARP_ROLL, merge_kv_ref,
                                                pool_merge, pool_merge_ref,
                                                pool_merge_route, roll_n,
                                                roll_n_ref, roll_n_route,
@@ -125,7 +125,7 @@ def test_merge_ref_matches_proto_merge_kernel(proto, ties):
 
 
 def _special_lists(rng, B, L1, L2):
-    """Two ascending operands of merge_kv, (keys, payload) each, as
+    """Two ascending operands of a merge, (keys, payload) each, as
     sort_kv_ref orders them: keys on a coarse grid, so they tie within and
     across the operands, both zeros among them, with NaN, +inf and -inf."""
     out = []
@@ -139,8 +139,9 @@ def _special_lists(rng, B, L1, L2):
     return out
 
 
-# merge_kv's path widths: find_medoid's 1 + 1 -> 1, the exact flat scan's
-# 10 + 10 -> 10 (k 10) and the fast scan's coarse 40 + 40 -> 40
+# the widths tile_topk_ref merges at on the paths: find_medoid's 1 + 1 -> 1,
+# the exact flat scan's 10 + 10 -> 10 (k 10) and the fast scan's coarse
+# 40 + 40 -> 40
 MERGE_KV_PATHS = [(1, 1, 1), (10, 10, 10), (40, 40, 40)]
 
 
@@ -152,7 +153,7 @@ def test_merge_ref_matches_proto_merge_sorted_at_path_widths(proto, path,
     merge_kernel, interpret mode) at the widths the paths merge. The
     network takes two lists of one power-of-two width and compares the
     values it is given, so each operand is handed over as the monotone
-    int32 of its keys (the order merge_kv merges by; NaN after +inf, -0 ==
+    int32 of its keys (the order the merge keeps; NaN after +inf, -0 ==
     +0) padded with the largest int32, the word's position as payload (a's
     i, b's L + j; pads after both). The network is not stable: runs of equal
     keys are put in position order before the first k are taken."""
@@ -529,8 +530,6 @@ def test_cpu_wrappers_run_plain_versions_and_count_calls():
     pay = torch.from_numpy(rng.integers(0, 99, (9, 77)).astype(np.int32))
     for fn, args, ref in [
             (sort_kv, (keys, pay, 10), sort_kv_ref),
-            (merge_kv, (*sort_kv_ref(keys, pay), *sort_kv_ref(keys, pay), 50),
-             merge_kv_ref),
             (pool_merge, (keys, pay, pay > 50, keys, pay, pay < 9, 20, True),
              pool_merge_ref),
             (roll_n, (keys, 5), roll_n_ref)]:
@@ -544,8 +543,8 @@ def test_cpu_wrappers_run_plain_versions_and_count_calls():
     rk, rp = sort_kv(keys, pay, k=10)
     assert torch.equal(sk, rk.T) and torch.equal(sp, rp.T)
     # k past the width is the whole merge, as the plain version cuts it
-    assert merge_kv(keys, pay, keys, pay, 1000)[0].shape == (9, 154)
-    assert pool_merge(keys, pay, None, keys, pay, None, 1000)[2] is None
+    got = pool_merge(keys, pay, None, keys, pay, None, 1000)
+    assert got[0].shape == (9, 154) and got[2] is None
 
 
 def test_pool_merge_route_by_shape():
@@ -590,7 +589,8 @@ def test_wrappers_reject_bad_inputs(case):
         "too_wide": (ValueError,
                      lambda: sort_kv(torch.zeros((1, MAX_LIST + 1)))),
         "rows_differ": (TypeError,
-                        lambda: merge_kv(keys, pay, keys[:2], pay[:2], 4)),
+                        lambda: pool_merge(keys, pay, None, keys[:2],
+                                           pay[:2], None, 4)),
         "one_flag": (TypeError,
                      lambda: pool_merge(keys, pay, flag, keys, pay, None, 4)),
         "dedup_without_flags": (ValueError, lambda: pool_merge(
@@ -659,9 +659,8 @@ def test_cuda_sort_kv_matches_plain_version(B, K):
 def test_cuda_merges_match_plain_versions(B, shape, holes):
     """Both kernels of pool_merge: the warp route up to WARP_LIST words a
     list and k (its two instances: up to 8 and up to 16 words a lane), the
-    shared-memory network past it (the last four shapes); merge_kv's merge
-    path at every shape, the paths' (4096, 10 + 10 -> 10), (4096, 40 + 40
-    -> 40), (1, 1 + 1 -> 1) and (1, 1 + 200) among them."""
+    shared-memory network past it (the last four shapes); with and without
+    flags."""
     _need_cuda()
     L1, L2, k = shape
     d1, i1, f1, d2, i2, f2 = (torch.from_numpy(a).cuda()
@@ -679,13 +678,6 @@ def test_cuda_merges_match_plain_versions(B, shape, holes):
                (B, shape, dedup))
     _equal(pool_merge(d1, i1, None, d2, i2, None, k),
            pool_merge_ref(d1, i1, None, d2, i2, None, k), (B, shape))
-    a = sort_kv_ref(d1, i1)
-    b = sort_kv_ref(d2, i2)
-    launches = merge_kv.launches
-    got = merge_kv(*a, *b, k)
-    torch.cuda.synchronize()
-    assert merge_kv.launches == launches + 1
-    _equal(got, merge_kv_ref(*a, *b, k), (B, shape, "merge_kv"))
 
 
 @pytest.mark.gpu
@@ -694,19 +686,20 @@ def test_cuda_merges_match_plain_versions(B, shape, holes):
                                    (1, 1, 200, 201), (4096, 64, 64, 128),
                                    (333, 100, 7, 50), (333, 7, 100, 107),
                                    (9, 5000, 3000, 8000), (9, 0, 33, 20)])
-def test_cuda_merge_kv_on_special_keys(shape):
-    """merge_kv bit for bit against merge_kv_ref on keys with NaN, both
-    zeros, +-inf and ties within and across the operands, at the paths'
-    shapes and at ragged, wide and one-sided ones; one launch a call."""
+def test_cuda_pool_merge_on_special_keys(shape):
+    """pool_merge without flags (``merge_topk``, tile_topk's wide route) bit
+    for bit against its plain version on keys with NaN, both zeros, +-inf
+    and ties within and across the operands, at the flat scans' widths and
+    at ragged, wide and one-sided ones; one launch a call."""
     _need_cuda()
     B, L1, L2, k = shape
     a_k, a_p, b_k, b_p = (t.cuda() for t in _special_lists(
         np.random.default_rng(B + L1 + L2), B, L1, L2))
-    launches = merge_kv.launches
-    got = merge_kv(a_k, a_p, b_k, b_p, k)
+    launches = pool_merge.launches
+    got = pool_merge(a_k, a_p, None, b_k, b_p, None, k)
     torch.cuda.synchronize()
-    assert merge_kv.launches == launches + 1
-    _equal(got, merge_kv_ref(a_k, a_p, b_k, b_p, k), shape)
+    assert pool_merge.launches == launches + 1
+    _equal(got, pool_merge_ref(a_k, a_p, None, b_k, b_p, None, k), shape)
 
 
 @pytest.mark.gpu
