@@ -218,9 +218,11 @@ def _counted() -> tuple:
 
 
 def counts() -> dict:
-    """Every kernel counter: {(wrapper, attribute, route or None): n}; and
-    the RaBitQ hop's and the tiled scans', {(counters, field, None): n}."""
+    """Every kernel counter: {(wrapper, attribute, route or None): n};
+    ``gather_estimate.code_bytes``; and the RaBitQ hop's and the tiled
+    scans', {(counters, field, None): n}."""
     from ..ops.distance import counters as scan
+    from ..ops.gather_diagdot import gather_estimate
     from ..spaces.rabitq import counters as rabitq
 
     out = {}
@@ -229,6 +231,7 @@ def counts() -> dict:
             out[(fn, attr, None)] = getattr(fn, attr)
         for route, n in getattr(fn, "route_launches", {}).items():
             out[(fn, "route_launches", route)] = n
+    out[(gather_estimate, "code_bytes", None)] = gather_estimate.code_bytes
     for c in (rabitq, scan):
         for attr in c.FIELDS:
             out[(c, attr, None)] = getattr(c, attr)

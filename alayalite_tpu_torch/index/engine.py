@@ -233,15 +233,20 @@ class IndexEngine:
                                    num_threads: int = 1
                                    ) -> Tuple[np.ndarray, np.ndarray]:
         """(ids [Q, topk] in the id_type width with −1 pad, dists f32).
-        The root span also records the space (the quantization type) and,
-        on a graph index, the pool width searched (``pool``)."""
+        The root span also records the space (the quantization type), the
+        vectors' width (``dim``), on a graph index the pool width searched
+        (``pool``), and on a block index the code row's width
+        (``code_dim``)."""
         with trace.span("alaya.engine.batch_search", topk=topk,
                         ef=ef) as call:
             ids, d = self._batch_search_impl(queries, topk, ef, num_threads)
             rows = ids.shape[0]
-            call.set(rows=rows, space=self.params.quantization_type.value)
+            call.set(rows=rows, space=self.params.quantization_type.value,
+                     dim=self.space.dim)
             if self.params.index_type is not IndexType.FLAT:
                 call.set(pool=self._pool(topk, ef))
+            if self._is_block:
+                call.set(code_dim=self.search_space.code_dim)
             with trace.span("alaya.engine.answers_out", rows=rows):
                 return (ids.cpu().numpy().astype(self._id_dtype, copy=False),
                         d.cpu().numpy())

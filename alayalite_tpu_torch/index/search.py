@@ -492,7 +492,8 @@ def block_search_device(space, eps: Tensor, q_all: Tensor, k: int, ef: int,
     scan; None starts every query from the shared entry points ``eps``."""
     nq = q_all.shape[0]
     qchunk, b = slice_rows(nq, qchunk)
-    with trace.span("alaya.search.pad", rows=b):
+    with trace.span("alaya.search.pad", rows=b, slice_rows=qchunk,
+                    slices=b // qchunk):
         q_all = pad_rows(q_all, b)
 
     def one_slice(q):

@@ -37,6 +37,10 @@ blocks is 0.0322 ms (see the note in the source).
 
 ``.calls`` counts calls on any device, ``.launches`` CUDA kernel launches
 and nothing else, ``.route_launches`` the launches by entry.
+``gather_estimate.code_bytes`` counts the code bytes its calls address, on
+any device: B·M·R·Dp a call, every (query, popped node) pair's block once,
+however many pairs share a block. ``index/captured.py`` carries it as it
+carries ``.launches``, so a replay adds what its capture counted.
 """
 
 from __future__ import annotations
@@ -200,6 +204,7 @@ def gather_estimate(codes: Tensor, u: Tensor, qs: Tensor, qconst: Tensor,
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     gather_estimate.calls += 1
+    gather_estimate.code_bytes += u.numel() * codes.shape[1] * codes.shape[2]
     if codes.device.type == "cpu":
         return gather_estimate_ref(codes, u, qs, qconst, coef, xsq, nbr_ids,
                                    clamp)
@@ -218,3 +223,4 @@ for _fn in (gather_diagdot, gather_estimate):
     _fn.calls = 0
     _fn.launches = 0
     _fn.route_launches = {v: 0 for v in VARIANTS}
+gather_estimate.code_bytes = 0

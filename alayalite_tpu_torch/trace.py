@@ -28,10 +28,13 @@ copies and the replays, the flat path the root, the two copies and the
 scan):
 
   alaya.engine.batch_search   the call (topk, ef, rows, the space's
-                              quantization, the pool width searched)
+                              quantization, the vectors' width dim, the
+                              pool width searched, a block space's
+                              code_dim)
     alaya.engine.queries_in   the queries to float32 on the device
     alaya.search.seed_sample  the seed scan's sample (hit: cached)
-    alaya.search.pad          the batch padded to its slices (rows)
+    alaya.search.pad          the batch padded to its slices (rows,
+                              slice_rows, slices)
     alaya.captured.replay     one slice's replay (graph, bucket, rows, hit)
       alaya.captured.capture  a missed key's warm-up and capture (graph)
     alaya.search.concat       the slices' answers joined (rows)

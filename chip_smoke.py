@@ -334,6 +334,22 @@ its nearest-reached scan are one replay each.
                stated reads: one a block of rounds and the init's
                INIT_SYNCS; one a LOOP_CHUNK test and two a round of the
                repair), reserved memory.
+ 28. gist      (after phase 6b, before 6c) hnsw + bsq8 with phase 4's
+               parameters at GIST1M's width, the judged cell
+               gist-bsq8-batch's configuration: 1M x 960 rows of the
+               stand-in mixture (500 centres) made on the card, 1,000
+               held-out queries, fitted at ef_construction 100 (seconds,
+               peak allocated, launches); gather_diagdot and
+               gather_estimate against their plain versions on its own
+               code tensor [1M, 32, 1024] at the cell's hop (1,024, 8);
+               batch_search of the 1,000 queries at ef 96 (one 1,024-row
+               slice): recall@10 against ground truth on the card (fails
+               below 0.95), wall QPS, and each step's launches for one
+               call (fails unless the slice launched seed_scan and
+               unique_topk once, gather_dot twice, gather_estimate once a
+               hop, and gather_estimate.code_bytes grew by 1,024 x 8 x 32
+               x 1,024 a launch); the captured call's ids and distance
+               bits equal an uncaptured one's (captured.eager()).
 A summary line (the end-to-end numbers of every phase), the kernels line
 and the card line come before the last line, which is
 {"ok": true, "device": {...}}. A copy of the numbers goes to
@@ -388,11 +404,15 @@ CHURN_INSERT, CHURN_BATCH = 8_192, 4_096
 CHURN_FLOOR = 0.95                   # own top-1 share and recall@10 at ef 64
 # gather_diagdot: (nodes C, R, Dp, B, M); the main shape is the hop's, over
 # codes for 100,000 nodes; R = 1 is the sq8 traversal's (4096 queries x 256
-# ids over 100,000 x 128 codes viewed as one-row blocks)
+# ids over 100,000 x 128 codes viewed as one-row blocks); the last is the
+# hop of the 960-wide cell (gist-bsq8-batch: a 1,024-row slice, code rows
+# of 1,024 bytes, gather_rows_kernel<4, true>)
 GATHER_MAIN = (100_000, 32, 128, 4096, 8)
 GATHER_R1 = (100_000, 1, 128, 4096, 256)
+GATHER_GIST = (100_000, 32, 1024, 1024, 8)
 GATHER_SHAPES = (GATHER_MAIN, GATHER_R1, (5_000, 24, 96, 1000, 5),
-                 (900, 7, 40, 333, 3), (5_000, 1, 100, 1000, 77))
+                 (900, 7, 40, 333, 3), (5_000, 1, 100, 1000, 77), GATHER_GIST)
+GATHER_TIMED = {GATHER_MAIN: "main", GATHER_R1: "r1", GATHER_GIST: "gist"}
 # ring_probe: (B, K, S, S2) at the paths' shapes: the bsq8 search at ef 64
 # (K = M*R 256; S the pop ring, 96; S2 the pool, 64) first, then the build
 # pools at ef 128 and at ef_construction 200, the raw ring walk at ef 64
@@ -529,11 +549,12 @@ POOL_CHUNK, POOL_EF, POOL_RAND = 4096, 128, 16
 SLICE11_PHASES = ("serving", "service", "flat_sq4", "native_rag")
 SLICE12_PHASES = ("db_shards", "build_shards", "serve_shards", "multihost")
 # seed_scan: (B, S, D, nseed): the bsq8 search's slice over its 16,384-point
-# sample first, a served batch, ragged B and S, D 100 and 960, nseed 1 / 16
+# sample first, a served batch, ragged B and S, D 100 and 960, nseed 1 / 16,
+# and the 960-wide cell's slice (timed too)
 SEED_SCAN_SHAPES = ((4096, 16384, 128, 8), (52, 16384, 128, 8),
                     (333, 1000, 128, 8), (97, 1000, 100, 8),
                     (130, 2048, 960, 8), (513, 4096, 128, 1),
-                    (515, 4096, 128, 16))
+                    (515, 4096, 128, 16), (1024, 16384, 960, 8))
 # unique_topk: (B, W, k, valid): the 1-bit search's slice (pool 512 + the
 # result pool's 10) and bsq8's first, the timed two; the fit's pools (k = W
 # = ef), the inserts' (k = r = 32), a served batch
@@ -549,13 +570,16 @@ TILE_TOPK_SHAPES = ((4096, 16384, 10), (4096, 65536, 40), (4096, 65536, 256),
                     (1808, 16384, 10), (4096, 576, 10), (1, 16384, 1),
                     (333, 1001, 33), (257, 4099, 128))
 # gather_dot: (B, K, D, C): the 1-bit search's final re-score and its hop
-# over 1M rows first, the timed two; bsq8's final pool of a served batch,
-# K under a group's rows, GIST's D, D split unevenly over the lanes, D with
-# no 16-byte rows (word loads)
+# over 1M rows first, timed; bsq8's final pool of a served batch, K under a
+# group's rows, GIST's D, D split unevenly over the lanes, D with no
+# 16-byte rows (word loads); the 960-wide cell's two (its slice's seeds and
+# final pool at ef 96 over 1M x 960), timed
+GATHER_DOT_GIST = ((1024, 8, 960, 1_000_000), (1024, 96, 960, 1_000_000))
 GATHER_DOT_SHAPES = ((4096, 512, 128, 1_000_000), (4096, 8, 128, 1_000_000),
                      (52, 72, 128, 100_000), (7, 5, 96, 10_000),
                      (33, 3, 960, 10_000), (65, 17, 100, 10_000),
-                     (19, 11, 98, 10_000))
+                     (19, 11, 98, 10_000), *GATHER_DOT_GIST)
+GATHER_DOT_TIMED = (*GATHER_DOT_SHAPES[:2], *GATHER_DOT_GIST)
 NEW_PHASES = ("collection", "reindex", "calc_gt", "rabitq", "rabitq2",
               *SLICE11_PHASES, *SLICE12_PHASES)
 
@@ -687,8 +711,8 @@ def check_estimate_bits(torch, codes, u, qs, est_args, variant, what):
 def check_gather(torch, dev) -> dict:
     """gather_diagdot (both entries) and gather_estimate (the fused
     estimate, both entries) against their plain versions; times, bounds and
-    library routes at the main shapes: the hop's and the sq8 traversal's
-    (R = 1)."""
+    library routes at the main shapes: the hop's, the sq8 traversal's
+    (R = 1) and the 960-wide cell's hop."""
     from alayalite_tpu_torch.ops.gather_diagdot import (
         VARIANTS, bulk_fits, gather_diagdot, gather_diagdot_ref,
         gather_estimate, gather_estimate_ref)
@@ -733,7 +757,7 @@ def check_gather(torch, dev) -> dict:
                                      f"at {shape}: {errs[variant]} > {tol}")
         out["gather_diagdot"]["errors"][str(shape)] = errs
         out["gather_estimate"]["errors"][str(shape)] = est_errs
-        if shape not in (GATHER_MAIN, GATHER_R1):
+        if shape not in GATHER_TIMED:
             continue
 
         def library():
@@ -778,7 +802,7 @@ def check_gather(torch, dev) -> dict:
                    ms=rep["rows_ms"], ms_spin=rep["rows_ms_spin"])
         est_rep.update(variant="rows", max_abs_err=est_errs["rows"],
                        ms=est_rep["rows_ms"], ms_spin=est_rep["rows_ms_spin"])
-        key = "main" if shape == GATHER_MAIN else "r1"
+        key = GATHER_TIMED[shape]
         out["gather_diagdot"][key] = rep
         out["gather_estimate"][key] = est_rep
         times = ", ".join(
@@ -937,11 +961,12 @@ def check_ring_probe(torch, dev) -> dict:
     return out
 
 
-def check_gather_on_index(torch, sp, what: str) -> dict:
+def check_gather_on_index(torch, sp, what: str, B: int = GATHER_MAIN[3],
+                          M: int = GATHER_MAIN[4]) -> dict:
     """gather_diagdot (both entries) against its plain version, and
     gather_estimate (both entries) against the epilogue on its own dot, on
     the index's own code tensor [capacity, R, Dp], norms and ids, at the
-    hop's B and M: node ids drawn over [0, num), the last rows of ``u``
+    hop's B and M (the D 128 slice's by default): node ids drawn over [0, num), the last rows of ``u``
     walking down from num - 1 (byte offsets past 2^31 at 1M x 32 x 128)
     and the first eighth naming node 0, as the hop's inactive pops do. The
     kernels' launch counts are left as they were."""
@@ -950,7 +975,6 @@ def check_gather_on_index(torch, sp, what: str) -> dict:
                                                         gather_diagdot_ref,
                                                         gather_estimate)
 
-    _, R, Dp, B, M = GATHER_MAIN
     num = sp.num
     rng = np.random.default_rng(5)
     u = rng.integers(0, num, size=(B, M)).astype(np.int32)
@@ -1115,7 +1139,7 @@ def check_seed_scan(torch, dev) -> dict:
     re-scored in float64 from the rounded values, the sorted scores within
     the bound of two f32 sums of D terms in different orders; times of the
     kernel, the plain version and the library chain it replaced at the
-    main shape."""
+    main shape and at the 960-wide cell's slice."""
     from alayalite_tpu_torch.ops.seed_scan import seed_scan, seed_scan_ref
     from alayalite_tpu_torch.utils.timing import bound, cuda_ms
 
@@ -1145,7 +1169,8 @@ def check_seed_scan(torch, dev) -> dict:
             raise AssertionError(f"seed_scan disagrees at {(B, S, D, nseed)}")
         out["errors"][str((B, S, D, nseed))] = {"max_gap": float(err.max()),
                                                "rows_equal": same}
-        if (B, S, D, nseed) != SEED_SCAN_SHAPES[0]:
+        if (B, S, D, nseed) not in (SEED_SCAN_SHAPES[0],
+                                    SEED_SCAN_SHAPES[-1]):
             continue
 
         b = bound(B * D * 4 + S * D * 2 + S * 8 + B * nseed * 4,
@@ -1156,7 +1181,11 @@ def check_seed_scan(torch, dev) -> dict:
                  "library_ms": cuda_ms(lambda: seed_scan_chain(torch, *args)),
                  "library_ms_spin": cuda_ms(
                      lambda: seed_scan_chain(torch, *args), spin=True)}
-        out.update(shape=[B, S, D, nseed], **b, **times)
+        at = dict(shape=[B, S, D, nseed], **b, **times)
+        if D == 960:
+            out["gist"] = at
+        else:
+            out.update(at)
         log(f"kernel seed_scan {(B, S, D, nseed)}: {times['ms']:.4f} ms "
             f"({times['ms_spin']:.4f} device alone), plain "
             f"{times['plain_ms']:.4f} ms, library chain "
@@ -1428,8 +1457,8 @@ def check_gather_dot(torch, dev) -> dict:
     shapes, and bit for bit its plain version (the chain it replaced:
     index_select, row_dots, the epilogue) at D 128; one (query, row) pair
     bit-equal in slices of 54 queries and at K 8; times of the kernel, the
-    plain version and index_select + bmm at the two search shapes, against
-    the bytes of the distinct rows."""
+    plain version and index_select + bmm at the two search shapes of D 128
+    and the 960-wide cell's two, against the bytes of the distinct rows."""
     from alayalite_tpu_torch.ops.gather_dot import gather_dot, gather_dot_ref
     from alayalite_tpu_torch.utils.timing import bound, cuda_ms
 
@@ -1453,7 +1482,7 @@ def check_gather_dot(torch, dev) -> dict:
                                  f"{rep['bits_equal_plain']} of the outputs "
                                  f"have the bits of the plain version")
         out["checked"].append([B, K, D, C, rep])
-        if (B, K, D, C) not in GATHER_DOT_SHAPES[:2]:
+        if (B, K, D, C) not in GATHER_DOT_TIMED:
             continue
         data, ids, q, q_sq, x_sq = args
         parts = torch.cat([gather_dot(data, ids[lo:lo + 54], q[lo:lo + 54],
@@ -2015,6 +2044,111 @@ def audit_blocks(torch, sp, vecs, node_ids) -> dict:
     far = float((((xhat - rows).abs() / sp.scale)[ok] > 0.501).float().mean())
     return {"rows": int(ok.sum()), "estimate_excess": excess,
             "share_beyond_half_a_step": far}
+
+
+# phase 28: the gist-bsq8-batch cell's configuration
+GIST_N, GIST_DIM, GIST_NQ, GIST_CLUSTERS, GIST_EF = (1_000_000, 960, 1_000,
+                                                     500, 96)
+
+
+def gist_data(torch, dev, seed: int = 960):
+    """The stand-in mixture at GIST1M's shape, made on the card: centres
+    N(0, 1) x 4, each base row a centre plus N(0, 1) noise, the queries
+    fresh points of the mixture (held out). (base, queries)."""
+    g = torch.Generator(dev).manual_seed(seed)
+    centers = 4.0 * torch.randn((GIST_CLUSTERS, GIST_DIM), generator=g,
+                                device=dev)
+
+    def mixture(rows):
+        out = centers[torch.randint(0, GIST_CLUSTERS, (rows,), generator=g,
+                                    device=dev)]
+        return out.add_(torch.randn((rows, GIST_DIM), generator=g,
+                                    device=dev))
+
+    return mixture(GIST_N), mixture(GIST_NQ)
+
+
+def gist_phase(torch, dev, counters) -> dict:
+    """Phase 28: the 960-wide bsq8 index's fit, its hop on its own codes,
+    and one call's launches step by step."""
+    from alayalite_tpu_torch import Client
+    from alayalite_tpu_torch.ops.gather_diagdot import gather_estimate
+    from alayalite_tpu_torch.utils.evaluate import calc_recall
+
+    base, qd = gist_data(torch, dev)
+    gt = ground_truth(torch, base, qd, K)
+    queries = qd.cpu().numpy()
+    del qd
+    idx = Client().create_index("gist", **dict(BSQ8_PARAMS,
+                                                capacity=GIST_N))
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    idx.fit(base)
+    torch.cuda.synchronize()
+    rep = {"fit_s": time.time() - t,
+           "fit_peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "fit_phases": dict(idx._engine.build_timings),
+           "fit_launches": {c.__name__: c.launches for c in counters}}
+    del base
+    sp = idx._engine.search_space
+    log(f"gist: fit of {GIST_N}x{GIST_DIM} in {rep['fit_s']:.2f}s, phases "
+        + ", ".join(f"{k}={v:.2f}s" for k, v in rep["fit_phases"].items())
+        + f", peak allocated {rep['fit_peak_allocated_bytes']} B, codes "
+        f"{tuple(sp.nbr_codes.shape)}, launches {rep['fit_launches']}")
+    if tuple(sp.nbr_codes.shape[1:]) != (32, 1024):
+        raise AssertionError(f"the 960-wide index's code rows are "
+                             f"{tuple(sp.nbr_codes.shape)}, not [32, 1024]")
+    rep["gather_on_index"] = check_gather_on_index(torch, sp, "gist",
+                                                   B=1024, M=8)
+    ids, dist, wall, launches = timed_search(torch, idx, queries, K,
+                                             counters, ef_search=GIST_EF)
+    check_result(ids, dist, GIST_N, f"gist ef={GIST_EF}")
+    rec = calc_recall(ids, gt)
+    # one more (captured) call with the counter, and an uncaptured one
+    cb, n = gather_estimate.code_bytes, gather_estimate.launches
+    ids2, dist2 = idx.batch_search_with_distance(queries, K,
+                                                 ef_search=GIST_EF)
+    torch.cuda.synchronize()
+    code_bytes = gather_estimate.code_bytes - cb
+    est = gather_estimate.launches - n
+    ids3, dist3 = Uncaptured(idx).batch_search_with_distance(queries, K,
+                                                             GIST_EF)
+    rep.update(recall=rec, qps=GIST_NQ / wall, wall_s=wall,
+               launches=launches, code_bytes_per_call=code_bytes,
+               replay_equals_uncaptured=bool(
+                   _same_bits(torch.as_tensor(dist2), torch.as_tensor(dist3))
+                   and np.array_equal(ids2, ids3)))
+    log(f"gist: ef={GIST_EF} recall@10 {rec:.4f}, {rep['qps']:.1f} QPS "
+        f"(wall {wall:.4f}s), launches {launches}, code bytes a call "
+        f"{code_bytes}, replay bits equal the uncaptured call's: "
+        f"{rep['replay_equals_uncaptured']}")
+    if rec < RECALL_FLOOR:
+        raise AssertionError(f"gist: recall@10 at ef={GIST_EF} below "
+                             f"{RECALL_FLOOR}")
+    if (launches["seed_scan"], launches["unique_topk"],
+            launches["gather_dot"]) != (1, 1, 2):
+        raise AssertionError(f"gist: one 1,024-row slice did not launch "
+                             f"seed_scan and unique_topk once and gather_dot "
+                             f"twice: {launches}")
+    if launches["gather_estimate"] <= 0 or (
+            launches["gather_estimate"] != launches["estimate_many_calls"]
+            or min(launches[k] for k in ("pool_merge", "ring_probe")) <= 0):
+        raise AssertionError(f"gist: a hop did not launch gather_estimate "
+                             f"once, or the pool kernels not at all: "
+                             f"{launches}")
+    if est != launches["gather_estimate"] or (
+            code_bytes != est * 1024 * 8 * 32 * 1024):
+        raise AssertionError(f"gist: {est} launches addressed {code_bytes} "
+                             f"code bytes, not 1024 x 8 x 32 x 1024 each")
+    if not (rep["replay_equals_uncaptured"]
+            and np.array_equal(ids, ids2) and _same_bits(
+                torch.as_tensor(dist), torch.as_tensor(dist2))):
+        raise AssertionError("gist: the captured slice's answers differ "
+                             "from an uncaptured search's or between calls")
+    return rep
 
 
 def churn_phase(torch, dev, idx, ds, counters) -> dict:
@@ -4983,6 +5117,7 @@ def main() -> int:
     # sort_kv and ring_probe, and tile_topk's wide route calls
     pool = (*pool_counters()[:3], *pool_counters()[5:])
     from alayalite_tpu_torch.ops.gather_dot import gather_dot
+    from alayalite_tpu_torch.ops.seed_scan import seed_scan
     from alayalite_tpu_torch.ops.unique_topk import unique_topk
 
     t = time.time()
@@ -5101,6 +5236,10 @@ def main() -> int:
     for c in pool:
         bsq8_pool[c.__name__] += c.launches
     del idx, client
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["gist"] = gist_phase(torch, dev, (*hop, *pool, unique_topk,
+                                             gather_dot, seed_scan))
     gc.collect()
     torch.cuda.empty_cache()
 

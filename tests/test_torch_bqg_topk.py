@@ -85,6 +85,29 @@ def test_query_ctx_and_estimate_many_match_jax(metric):
                                atol=1e-3)
 
 
+def test_codes_and_estimates_match_jax_at_gist_width():
+    """GIST1M's width (D 960, R 32, l2): byte-identical code rows of 1,024
+    bytes (960 padded with the centre byte to 128's multiple), the same
+    neighbour ids, and the estimates of a hop over them."""
+    sp, nbrs, rng = _jax_space("l2", n=64, dim=960, degree=32, seed=2)
+    jc = np.asarray(sp.nbr_codes)
+    tsp = tbqg.BQGSpace.load_arrays(sp.save_arrays())
+    tc, _ = tbqg._encode_block(tsp.data, tsp.dmin, tsp.scale,
+                               torch.from_numpy(nbrs), store_sq=True)
+    assert tc.shape == jc.shape == (64, 32, 1024)
+    np.testing.assert_array_equal(tc.numpy(), jc)
+    assert (jc[:, :, 960:] == 128).all()
+    q = rng.normal(size=(6, 960)).astype(np.float32) * 3
+    u = rng.integers(-1, 64, size=(6, 8)).astype(np.int32)
+    jctx = sp.query_ctx(sp.prep_query(jnp.asarray(q)))
+    tctx = tsp.query_ctx(tsp.prep_query(torch.from_numpy(q)))
+    je, ji = sp.estimate_many(jctx, jnp.asarray(u))
+    te, ti = tsp.estimate_many(tctx, torch.from_numpy(u))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(te.numpy(), np.asarray(je), rtol=1e-5,
+                               atol=1e-3)
+
+
 def _tie_rows(seed):
     rng = np.random.default_rng(seed)
     B, L1, L2 = 5, 12, 20

@@ -109,8 +109,12 @@ def test_root_span_records_pool_and_space(indices, quant, pool):
     finally:
         trace.disable()
         trace.clear()
+    # the code row's width: the rotated dim (a power of two here) or
+    # bsq8's multiple of 128; a raw index has no code row
+    code = {"rabitq": DIM, "rabitq2": DIM, "bsq8": 128}.get(quant)
     assert root.attrs == {"topk": TOPK, "ef": EF, "rows": NQ,
-                          "space": quant, "pool": pool}
+                          "space": quant, "pool": pool, "dim": DIM,
+                          **({} if code is None else {"code_dim": code})}
 
 
 @pytest.mark.gpu

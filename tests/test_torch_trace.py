@@ -185,13 +185,13 @@ def test_batch_search_spans_in_call_order():
     spans = trace.spans()
     (root,) = [s for s in spans if s.name == "alaya.engine.batch_search"]
     assert root.attrs == {"topk": 10, "ef": 32, "rows": 50, "space": "bsq8",
-                          "pool": 32}
+                          "pool": 32, "dim": 32, "code_dim": 128}
     kids = sorted((s for s in spans if s.parent == root.id),
                   key=lambda s: s.start_ns)
     assert [s.name for s in kids] == BATCH_SPANS
     assert len(spans) == 1 + len(BATCH_SPANS)
     assert kids[1].attrs == {"hit": True}
-    assert kids[2].attrs == {"rows": 64}
+    assert kids[2].attrs == {"rows": 64, "slice_rows": 64, "slices": 1}
     for a, b in zip(kids, kids[1:]):
         assert a.end_ns <= b.start_ns
     events = sorted((e for e in prof.events()
